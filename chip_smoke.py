@@ -8,20 +8,27 @@ Phases, each printing one JSON line; any failure exits nonzero:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``src/repro_torch/csrc`` compiled with ``nvcc``
    for ``sm_90a`` (one process per source, all started together);
-3. one phase per kernel, holding it against its plain PyTorch version on the
-   card at the full-width qwen2.5-3b shapes, with inputs taken from the
-   full-width model (random weights from ``--seed``): the encoder output at
-   the split for the boundary, the decoder output for the decode tail, the
-   page arena after a prefill for paged attention; each phase times the
-   kernel, its plain version and, where one exists, the one PyTorch call
-   that computes the same function (a yardstick the port never calls);
-4. reference: the serving entry point at reduced shapes in float32 on the
-   card (kernels) and on the CPU (plain versions) must decode the same
-   tokens, modes and wire bytes;
-5. main path: ``repro_torch.launch.serve.main`` at full width in bf16 with
-   the launch counters set to 0 just before and read just after; every
-   request must finish and every kernel must have launched;
-6. profile: the main path once more under ``torch.profiler``, for the
+3. capture: one prefill of each full-width model (qwen2.5-3b on the paged
+   arena, recurrentgemma-2b on the dense state; random weights from
+   ``--seed``), keeping what the kernel phases feed their kernels;
+4. one phase per kernel, holding it against its plain PyTorch version on
+   the card at the full-width shapes, with inputs taken from those
+   prefills: the encoder output at the split for the boundary (both
+   models' banks), the decoder output for the decode tail (qwen's LM head
+   and recurrentgemma's tied embedding table), the page arena for paged
+   attention, the first RG-LRU layer's gates for the scan; each phase
+   times the kernel, its plain version and, where one exists, the one
+   PyTorch call that computes the same function (a yardstick the port
+   never calls);
+5. reference: the serving entry point at reduced shapes in float32 on the
+   card (kernels) and on the CPU (plain versions), for both archs, must
+   decode the same tokens, modes and wire bytes;
+6. main path, for each arch: ``repro_torch.launch.serve.main`` at full
+   width in bf16 with the launch counters set to 0 just before and read
+   just after; every request must finish, every kernel of the path must
+   have launched, and the launches must match the path's prefill
+   dispatches and decode ticks;
+7. profile: each main path once more under ``torch.profiler``, for the
    device busy time and the kernels that take it.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
@@ -30,6 +37,7 @@ last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -64,6 +72,9 @@ TOL = {
     # outputs track it to an ulp or two of values of size ~1; f32 to 1e-5
     "paged_bf16_abs": 1e-2,
     "paged_f32_abs": 1e-5,
+    # the scan rounds a*h and the sum separately on both sides, in the
+    # same order: bit for bit
+    "rglru": "bit for bit",
 }
 
 
@@ -189,7 +200,7 @@ def capture(cfg, dev, seed: int, page_len: int = 8):
     x = T.embed_tokens(params, toks, cfg)
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     enc_l, dec_l = SP.slice_layers(params["layers"], cfg, s)
-    enc_st, dec_st = SP._split_states(arena, s)
+    enc_st, dec_st = SP._split_states(arena, cfg, s)
     x_enc = T.run_layers_prefill(enc_l, x, positions, enc_st, cfg,
                                  lengths=lens_t, block_table=bt_t)
     y = bottleneck.boundary_mixed(stacked, x_enc, modes,
@@ -202,6 +213,97 @@ def capture(cfg, dev, seed: int, page_len: int = 8):
     return {"params": params, "stacked": stacked, "x_enc": x_enc,
             "x_dec": x_dec, "arena": arena, "bt": bt_t, "lens": lens,
             "valid": valid, "page_len": page_len}
+
+
+@contextlib.contextmanager
+def recording(module, name: str, sink: list, limit: int = 1):
+    """Record (clones of) the positional arguments of the first ``limit``
+    calls of ``module.name`` while the block runs."""
+    import torch
+    orig = getattr(module, name)
+
+    def rec(*args):
+        if len(sink) < limit:
+            sink.append(tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args))
+        return orig(*args)
+
+    setattr(module, name, rec)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, orig)
+
+
+RLENS = (2048, 16, 700, 1333)   # a prompt as long as the window, ragged
+
+
+def capture_recurrent(cfg, dev, seed: int):
+    """One ragged prefill of full-width recurrentgemma-2b on the dense
+    state (rolling caches of the window's length, RG-LRU carries): the
+    encoder output at the split and the decoder output before the tail,
+    and the first RG-LRU layer's scan inputs at the shapes the scan phase
+    checks — [4, 2048, D] (this prefill), [1, 16, D] and [4, 16, D] (the
+    main path's prompts), [3, 37, D] continuing from a carried state, and
+    a width that is not a multiple of 128."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bottleneck
+    from repro_torch.core import split as SP
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    params = SP.init_split_params(gen, cfg)
+    stacked = bottleneck.bank_stack(params["bneck_modes"], cfg.split)
+    lens = np.asarray(RLENS, np.int64)
+    B, S = len(lens), max(RLENS)
+    toks = torch.from_numpy(
+        MarkovTokenSource(cfg, seed=7).batch(B, S)["tokens"]).to(dev)
+    lens_t = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    modes = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=dev)
+    s = cfg.split.split_at
+    kinds = SP._kinds(cfg)
+    x = T.embed_tokens(params, toks, cfg)
+    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    states = T.init_decode_state(cfg, B, S, device=dev)
+    enc_l, dec_l = SP.slice_layers(params["layers"], cfg, s)
+    enc_st, dec_st = SP._split_states(states, cfg, s)
+    with recording(ops, "rglru_scan_op", []) as long_scan:
+        x_enc = T.run_layers_prefill(enc_l, x, positions, enc_st, cfg,
+                                     kinds=kinds[:s], lengths=lens_t)
+    y = bottleneck.boundary_mixed(stacked, x_enc, modes,
+                                  dtype=T.model_dtype(cfg))
+    x_dec = T.run_layers_prefill(dec_l, y, positions, dec_st, cfg,
+                                 kinds=kinds[s:], lengths=lens_t)
+    del states, enc_st, dec_st
+
+    def first_layer(x_in, st, nb):
+        sink = []
+        with recording(ops, "rglru_scan_op", sink):
+            T.run_layers_prefill(params["layers"][:1], x_in,
+                                 positions[:nb, :x_in.shape[1]], st, cfg,
+                                 kinds=kinds[:1])
+        return sink[0]
+
+    # a fresh prompt's carry is zero: pass none (the kernel's other branch)
+    scans = {"[4, 2048] prefill, no h0": long_scan[0][:2] + (None,)}
+    for nb in (1, 4):
+        st = T.init_decode_state(cfg, nb, 16, device=dev)[:1]
+        scans[f"[{nb}, 16] main-path prefill"] = first_layer(x[:nb, :16], st,
+                                                            nb)
+    carry = {k: v[:3].clone() for k, v in st[0].items()}
+    a, b, h0 = first_layer(x[:3, 16:53], (carry,), 3)
+    scans["[3, 37] from a carried state"] = (a, b, h0)
+    scans["[3, 37, 1000] odd width"] = (a[:, :, :1000].contiguous(),
+                                        b[:, :, :1000].contiguous(),
+                                        h0[:, :1000].contiguous())
+    torch.cuda.synchronize(dev)
+    valid = torch.arange(S, device=dev)[None, :] < lens_t[:, None]
+    return {"params": params, "stacked": stacked, "x_enc": x_enc,
+            "x_dec": x_dec, "valid": valid, "scans": scans}
 
 
 def pick_rows(x, valid, n: int, seed: int):
@@ -326,12 +428,10 @@ def check_boundary(bank, x, modes, label):
     return float(err.max()), ratio
 
 
-def phase_boundary(cap, cfg, dev, seed: int, iters: int):
+def boundary_cases(cap, label: str, d: int, dev, seed: int, gen):
+    """Pool and prefill cases on one model's bank (+ the synthetic heads)
+    and encoder output, in bf16 and f32."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.boundary_mixed import boundary_mixed_grouped
-    d = cfg.d_model
-    gen = torch.Generator(device="cpu").manual_seed(seed)
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         bank = test_bank({k: (v.to(dt) if v.is_floating_point() else v)
@@ -342,12 +442,50 @@ def phase_boundary(cap, cfg, dev, seed: int, iters: int):
             modes = torch.randint(0, M + 1, (n,), generator=gen)
             if n >= M + 1:
                 modes[:M + 1] = torch.arange(M + 1)
-            cases.append((f"{dtype_name(dt)} pool {n}", bank, x,
+            cases.append((f"{label} {dtype_name(dt)} pool {n}", bank, x,
                           modes.to(dev)))
         x = cap["x_enc"][:, :64].to(dt).contiguous()     # [B, S, d] prefill
         modes = torch.arange(x.shape[0]) % (M + 1)
-        cases.append((f"{dtype_name(dt)} prefill {tuple(x.shape)}", bank, x,
-                      modes.to(dev)))
+        cases.append((f"{label} {dtype_name(dt)} prefill {tuple(x.shape)}",
+                      bank, x, modes.to(dev)))
+    return cases
+
+
+def time_boundary(cap, d: int, dev, seed: int, iters: int):
+    """Device ms of the kernel and of its plain version at the main path's
+    decode shape: 4 slots on the model's own bank, one in raw mode 0;
+    with the bound of that call."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.boundary_mixed import boundary_mixed_grouped
+    st = cap["stacked"]
+    x4 = pick_rows(cap["x_enc"], cap["valid"], 4, seed + 4)
+    modes4 = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+    xp, tb, dest, pmode, block_r = grouped(st, x4, modes4)
+    args = (xp, st["down_w"], st["up_w"], st["norm_scale"], tb["hid"],
+            tb["nchunk"], tb["width"], tb["bits"])
+    flush = l2_flusher(dev)
+    parts = {}
+    ms = time_ms(lambda: boundary_mixed_grouped(*args, block_r=block_r,
+                                                dtype=xp.dtype), iters, flush,
+                 parts)
+    plain = time_ms(lambda: ref.boundary_mixed_grouped_ref(
+        *args, block_r=block_r, dtype=xp.dtype), max(iters // 5, 3), flush)
+    w = int(st["width"][0])
+    nq = int((modes4 > 0).sum())
+    nbytes = 2 * (2 * 4 * d + 2 * d * w + d)
+    b_ms, b_by = bound(nbytes, 2 * 2 * d * w * nq, "bfloat16")
+    return {"timed_shape": {"rows": 4, "d": d, "width": w,
+                            "modes": [1, 1, 0, 1]},
+            "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_boundary(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cases = (boundary_cases(cap, cfg.name, cfg.d_model, dev, seed, gen)
+             + boundary_cases(rcap, rcfg.name, rcfg.d_model, dev, seed, gen))
     # the reduced config's widths (bank narrower than one 128-lane chunk)
     for dt in (torch.bfloat16, torch.float32):
         small = {"down_w": torch.randn((4, 128, 32), generator=gen),
@@ -370,32 +508,13 @@ def phase_boundary(cap, cfg, dev, seed: int, iters: int):
         worst = max(worst, e)
         rows.append({"case": label, "max_abs_err": e, "envelope_ratio": r})
 
-    # timing at the main path's decode shape: 4 slots on the model's own
-    # bank (width 512, 8 bits), one of them in raw mode 0
-    st = cap["stacked"]
-    x4 = pick_rows(cap["x_enc"], cap["valid"], 4, seed + 4)
-    modes4 = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
-    xp, tb, dest, pmode, block_r = grouped(st, x4, modes4)
-    args = (xp, st["down_w"], st["up_w"], st["norm_scale"], tb["hid"],
-            tb["nchunk"], tb["width"], tb["bits"])
-    flush = l2_flusher(dev)
-    parts = {}
-    ms = time_ms(lambda: boundary_mixed_grouped(*args, block_r=block_r,
-                                                dtype=xp.dtype), iters, flush,
-                 parts)
-    plain = time_ms(lambda: ref.boundary_mixed_grouped_ref(
-        *args, block_r=block_r, dtype=xp.dtype), max(iters // 5, 3), flush)
-    w = int(st["width"][0])
-    nq = int((modes4 > 0).sum())
-    nbytes = 2 * (2 * 4 * d + 2 * d * w + d)
-    b_ms, b_by = bound(nbytes, 2 * 2 * d * w * nq, "bfloat16")
+    # timing at each main path's decode shape (qwen2.5-3b: width 512,
+    # recurrentgemma-2b: width 640, both 8 bits); qwen's is the headline
+    timed = time_boundary(cap, cfg.d_model, dev, seed, iters)
     out = {"phase": "kernel", "name": "boundary_mixed_grouped",
            "tolerance": TOL["boundary"], "cases": rows,
-           "max_abs_err": worst,
-           "timed_shape": {"rows": 4, "d": d, "width": w,
-                           "modes": [1, 1, 0, 1]},
-           "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+           "max_abs_err": worst, **timed, "library_ms": None,
+           rcfg.name: time_boundary(rcap, rcfg.d_model, dev, seed, iters)}
     emit(out)
     return out
 
@@ -405,15 +524,20 @@ def phase_boundary(cap, cfg, dev, seed: int, iters: int):
 # ---------------------------------------------------------------------------
 
 def check_tail(x, scale, head, label, expect=None, bias=None,
-               norm_kind="rmsnorm"):
-    """Kernel tokens (through the dispatcher) against the plain logits."""
+               norm_kind="rmsnorm", tied=False):
+    """Kernel tokens (through the dispatcher) against the plain logits.
+    ``tied``: ``head`` is the [1, V, d] embedding table."""
     import torch
     from repro_torch.kernels import ops, ref
-    tk = ops.decode_tail_op(x, scale, bias, head, norm_kind=norm_kind)
+    tk = ops.decode_tail_op(x, scale, bias, head, norm_kind=norm_kind,
+                            tied=tied)
     torch.cuda.synchronize()
-    tr = ref.decode_tail_ref(x, scale, bias, head, norm_kind=norm_kind)
+    tr = ref.decode_tail_ref(x, scale, bias, head, norm_kind=norm_kind,
+                             tied=tied)
     xn = ref._final_norm(x.float(), scale, bias, norm_kind).to(x.dtype)
-    logits = xn.float()[:, 0] @ head[0].float()                  # [n, V]
+    w = head[0].float()
+    logits = xn.float()[:, 0] @ (w.t() if tied else w)           # [n, V]
+    del w
     lmax = logits.amax(-1)
     picked = logits.gather(1, tk[:, 0:1].long())[:, 0]
     gap = (lmax - picked) / lmax.abs().clamp(min=1e-30)
@@ -428,7 +552,7 @@ def check_tail(x, scale, head, label, expect=None, bias=None,
     return int((tk != tr).sum()), abs_gap
 
 
-def phase_tail(cap, cfg, dev, seed: int, iters: int):
+def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.boundary_mixed import decode_tail_grouped
@@ -484,6 +608,7 @@ def phase_tail(cap, cfg, dev, seed: int, iters: int):
     d = x4.shape[-1]
     b_ms, b_by = bound(2 * (V * d + 4 * d + 2 * d) + 4 * 4, 2 * 4 * d * V,
                        "bfloat16")
+    tied = tail_tied(rcap, dev, seed, iters, rows)
     out = {"phase": "kernel", "name": "decode_tail_grouped",
            "tolerance": f"tokens equal except near-ties (relative top-two "
                         f"gap < {TOL['tail_rel_gap']}); exact tie -> lowest "
@@ -491,9 +616,70 @@ def phase_tail(cap, cfg, dev, seed: int, iters: int):
            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in rows),
            "timed_shape": {"rows": 4, "d": d, "V": V},
            "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "tied": tied}
     emit(out)
     return out
+
+
+def tail_tied(rcap, dev, seed: int, iters: int, rows: list):
+    """The tied layout: recurrentgemma-2b's [V, d] embedding table (V
+    256000, d 2560), read in place. Tokens against the plain logits, an
+    injected exact tie, the memory one call allocates (a per-call
+    transpose of the table would take 1.31 GB), and the timing at the
+    main path's 4 rows."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.boundary_mixed import decode_tail_grouped
+    params = rcap["params"]
+    table = params["embed"]["table"]
+    head = table[None]                                         # [1, V, d]
+    scale = params["final_norm"]["scale"]
+    V, d = table.shape
+    for n in (1, 4, 13):
+        x = pick_rows(rcap["x_dec"], rcap["valid"], n, seed + 400 + n)
+        diff, gap = check_tail(x, scale, head, f"tied bf16 pool {n}",
+                               tied=True)
+        rows.append({"case": f"tied bfloat16 pool {n}",
+                     "tokens_differing": diff, "max_abs_err": gap})
+    x = pick_rows(rcap["x_dec"], rcap["valid"], 8, seed + 500)
+    top = int(ref.decode_tail_ref(x, scale, None, head, tied=True)[0, 0])
+    low = 5 if top > 5 else top
+    tied = table.clone()
+    tied[low] = table[top]
+    tied[(top + V // 2) % V] = table[top]
+    check_tail(x, scale, tied[None], "tied bf16 exact tie", expect=low,
+               tied=True)
+    rows.append({"case": "tied bfloat16 exact tie", "expected": low})
+    del tied
+    x4 = pick_rows(rcap["x_dec"], rcap["valid"], 4, seed + 600)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.decode_tail_op(x4, scale, None, head, tied=True)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    check(extra < 64 << 20, f"tied tail: one call allocated {extra} bytes "
+                            f"(a copy of the table?)")
+    dest, hid_g, P = ops.head_layout(torch.zeros(4, dtype=torch.int32,
+                                                 device=dev), 1, 16)
+    xp = torch.zeros((P, d), dtype=x4.dtype, device=dev)
+    xp[dest] = x4[:, 0]
+    bias = torch.zeros_like(scale)
+    parts = {}
+    ms = time_ms(lambda: decode_tail_grouped(xp, head, scale, bias, hid_g,
+                                             block_r=16, n_blocks=1,
+                                             tied=True), iters,
+                 by_kernel=parts)
+    plain = time_ms(lambda: ref.decode_tail_ref(x4, scale, None, head,
+                                                tied=True),
+                    max(iters // 5, 3))
+    b_ms, b_by = bound(2 * (V * d + 4 * d + 2 * d) + 4 * 4, 2 * 4 * d * V,
+                       "bfloat16")
+    return {"timed_shape": {"rows": 4, "d": d, "V": V, "layout": "[V, d]"},
+            "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "call_extra_bytes": int(extra)}
 
 
 # ---------------------------------------------------------------------------
@@ -594,14 +780,63 @@ def phase_paged(cap, cfg, dev, seed: int, iters: int):
 
 
 # ---------------------------------------------------------------------------
+# kernel 4: the RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def phase_rglru(rcap, dev, iters: int):
+    """Every captured shape bit for bit against the plain version; device
+    ms of the kernel and of the plain version at the main path's prefill
+    shape [4, 16, D] and at a window-long prompt [4, 2048, D]. No single
+    PyTorch call computes this recurrence, so there is no library time."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    rows = []
+    for label, (a, b, h0) in rcap["scans"].items():
+        hk = rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        hr = ref.rglru_scan_ref(a, b, h0)
+        err = float((hk - hr).abs().max())
+        check(torch.equal(hk, hr) and bool(torch.isfinite(hk).all()),
+              f"rglru_scan {label}: not bit for bit (max error {err})")
+        rows.append({"case": label, "shape": list(a.shape),
+                     "h0": h0 is not None, "max_abs_err": err})
+    flush = l2_flusher(dev)
+
+    def timed(key, n_iters, n_plain):
+        a, b, h0 = rcap["scans"][key]
+        B, S, D = a.shape
+        ms = time_ms(lambda: rglru_scan(a, b, h0), n_iters, flush)
+        plain = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), n_plain, flush)
+        b_ms, b_by = bound(3 * B * S * D * 4 + (B * D * 4 if h0 is not None
+                                                else 0),
+                           2 * B * S * D, "float32")
+        return {"timed_shape": [B, S, D], "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    head = timed("[4, 16] main-path prefill", iters, max(iters // 5, 3))
+    long = timed("[4, 2048] prefill, no h0", max(iters // 5, 3), 2)
+    out = {"phase": "kernel", "name": "rglru_scan",
+           "tolerance": TOL["rglru"], "cases": rows,
+           "max_abs_err": max(r["max_abs_err"] for r in rows), **head,
+           "library_ms": None,
+           "window_prompt": long}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the serving entry point
 # ---------------------------------------------------------------------------
 
-SERVE = ["--arch", "qwen2.5-3b", "--engine", "continuous", "--requests", "8",
-         "--prompt-len", "16", "--gen", "16", "--n-slots", "4"]
+SERVE_COMMON = ["--engine", "continuous", "--requests", "8", "--prompt-len",
+                "16", "--gen", "16", "--n-slots", "4"]
+SERVE = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SERVE_COMMON],
+         "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SERVE_COMMON,
+                               "--cache-len", "2048"]}
 
 
-def phase_reference(device: str = "cuda"):
+def phase_reference(arch: str, device: str = "cuda"):
     """The serving entry point at reduced shapes in f32 on the card and on
     the CPU, on the same weights (drawn on the CPU and copied, since the
     two devices' generators draw different numbers). With every request on
@@ -619,12 +854,12 @@ def phase_reference(device: str = "cuda"):
     from repro_torch.core import split as SP
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(get_reduced("qwen2.5-3b"), dtype="float32")
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
     cpu = SP.init_split_params(torch.Generator().manual_seed(0), cfg)
     gpu = T.tree_map(lambda t: t.to(device), cpu)
-    out = {"phase": "reference"}
+    out = {"phase": "reference", "arch": arch}
     for label, mbps in (("mode0", "1000"), ("mixed", "1")):
-        args = SERVE + ["--reduced", "--mean-mbps", mbps, "--device"]
+        args = SERVE[arch] + ["--reduced", "--mean-mbps", mbps, "--device"]
         got = serve.run_continuous(serve.parser().parse_args(args + [device]),
                                    cfg, gpu)
         want = serve.run_continuous(serve.parser().parse_args(args + ["cpu"]),
@@ -651,61 +886,107 @@ def kernel_fns():
     from repro_torch.kernels.boundary_mixed import (boundary_mixed_grouped,
                                                     decode_tail_grouped)
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
     return {"boundary_mixed_grouped": boundary_mixed_grouped,
             "decode_tail_grouped": decode_tail_grouped,
-            "paged_attention": paged_attention}
+            "paged_attention": paged_attention,
+            "rglru_scan": rglru_scan}
+
+
+@contextlib.contextmanager
+def counting(module, name: str, counts: dict):
+    """Count the calls of ``module.name`` while the block runs."""
+    orig = getattr(module, name)
+
+    def counted(*args, **kw):
+        counts[name] = counts.get(name, 0) + 1
+        return orig(*args, **kw)
+
+    setattr(module, name, counted)
+    try:
+        yield counts
+    finally:
+        setattr(module, name, orig)
 
 
 def phase_main_path(cfg, smi: str):
+    """The arch's serving entry point at full width with every launch
+    counter at 0 just before and read just after, prefill dispatches and
+    decode ticks counted beside them (warm-up included). Per decode tick
+    the device loop launches one boundary, one tail and one paged
+    attention per layer on the paged pool; per prefill dispatch one
+    boundary and one scan per RG-LRU layer."""
+    from repro_torch.core import split as SP
     from repro_torch.launch import serve
     fns = kernel_fns()
     for f in fns.values():
         f.launches = 0
-    summary = serve.main(SERVE + ["--device", "cuda"])
+    calls: dict = {}
+    with counting(SP, "split_prefill_mixed", calls), \
+            counting(SP, "split_decode_step_mixed", calls):
+        summary = serve.main(SERVE[cfg.name] + ["--device", "cuda"])
     launches = {k: f.launches for k, f in fns.items()}
+    prefills = calls.get("split_prefill_mixed", 0)
+    ticks = calls.get("split_decode_step_mixed", 0)
     toks = summary["tokens"]
     check(summary["requests_finished"] == 8 and len(toks) == 8,
           f"main path: {summary['requests_finished']} of 8 requests finished")
     for rid, t in toks.items():
         check(len(t) == 16 and all(0 <= v < cfg.vocab_size for v in t),
               f"main path: request {rid} returned {len(t)} tokens")
-    for k, n in launches.items():
-        check(n > 0, f"main path: kernel {k} never launched")
-    check(launches["paged_attention"]
-          == cfg.n_layers * launches["decode_tail_grouped"],
-          f"main path: {launches} is not one paged attention per layer "
-          f"per decode tick")
-    emit({"phase": "main_path", "arch": "qwen2.5-3b", "dtype": cfg.dtype,
+    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+    expect = {"boundary_mixed_grouped": ticks + prefills,
+              "decode_tail_grouped": ticks,
+              "paged_attention": (kinds.count("attn") * ticks
+                                  if summary["paged"] else 0),
+              "rglru_scan": kinds.count("rglru") * prefills}
+    for k, n in expect.items():
+        if n:
+            check(launches[k] > 0, f"main path: kernel {k} never launched")
+    check(launches == expect,
+          f"main path {cfg.name}: launches {launches} for {prefills} "
+          f"prefill dispatches and {ticks} decode ticks, expected {expect}")
+    emit({"phase": "main_path", "arch": cfg.name, "dtype": cfg.dtype,
+          "paged": summary["paged"],
           "requests_finished": summary["requests_finished"],
           "decode_tokens": summary["decode_tokens"],
           "decode_ticks": summary["decode_ticks"],
           "seconds": summary["seconds"],
           "decode_tok_per_s": summary["decode_tok_per_s"],
           "mode_counts": summary["mode_counts"], "launches": launches,
+          "prefill_dispatches": prefills, "decode_step_calls": ticks,
           "card": smi})
     return launches
 
 
-def phase_profile():
-    """The main path once more, traced with ``torch.profiler`` (its rate is
-    not the one reported above): device busy time, idle share and the
-    kernels that take the time. The Chrome trace lands in build/profile."""
+def phase_profile(cfg):
+    """The arch's main path once more, traced with ``torch.profiler`` (its
+    rate is not the one reported above): device busy time, idle share,
+    launches per decode tick and the kernels that take the time. The
+    Chrome trace lands in build/profile/<arch>."""
     from repro_torch.launch import serve
-    summary = serve.main(SERVE + ["--device", "cuda", "--profile-dir",
-                                  str(ROOT / "build" / "profile")])
-    emit({"phase": "profile", "decode_ticks": summary["decode_ticks"],
-          **summary["profile"]})
+    summary = serve.main(SERVE[cfg.name] + [
+        "--device", "cuda", "--profile-dir",
+        str(ROOT / "build" / "profile" / cfg.name)])
+    prof = summary["profile"]
+    emit({"phase": "profile", "arch": cfg.name,
+          "decode_ticks": summary["decode_ticks"],
+          "launches_per_decode_tick": (prof["kernel_launches"]
+                                       / max(summary["decode_ticks"], 1)),
+          **prof})
 
 
 SOURCES = {
     "boundary_mixed_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
     "decode_tail_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
+    "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
 }
 REPLACES = {
     "boundary_mixed_grouped": "src/repro/kernels/boundary_mixed.py:196",
     "decode_tail_grouped": "src/repro/kernels/boundary_mixed.py:143",
     "paged_attention": "src/repro/kernels/paged_attention.py:82",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:42",
 }
 
 
@@ -745,26 +1026,39 @@ def main(argv=None) -> int:
           "libraries": sorted(libs)})
 
     cfg = get_config("qwen2.5-3b")
+    rcfg = get_config("recurrentgemma-2b")
     t0 = time.perf_counter()
     cap = capture(cfg, dev, args.seed)
-    emit({"phase": "capture", "seconds": time.perf_counter() - t0,
+    emit({"phase": "capture", "arch": cfg.name,
+          "seconds": time.perf_counter() - t0,
           "lengths": [int(n) for n in cap["lens"]]})
+    t0 = time.perf_counter()
+    rcap = capture_recurrent(rcfg, dev, args.seed)
+    emit({"phase": "capture", "arch": rcfg.name,
+          "seconds": time.perf_counter() - t0, "lengths": list(RLENS)})
     results = {}
-    for phase in (phase_boundary, phase_tail, phase_paged):
-        r = phase(cap, cfg, dev, args.seed, args.iters)
+    for r in (phase_boundary(cap, rcap, cfg, rcfg, dev, args.seed,
+                             args.iters),
+              phase_tail(cap, rcap, cfg, dev, args.seed, args.iters),
+              phase_paged(cap, cfg, dev, args.seed, args.iters),
+              phase_rglru(rcap, dev, args.iters)):
         results[r["name"]] = r
-    del cap
+    del cap, rcap
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase_reference()
-    launches = phase_main_path(cfg, smi)
-    phase_profile()
+    by_path = {}
+    for c in (cfg, rcfg):
+        phase_reference(c.name)
+        by_path[c.name] = phase_main_path(c, smi)
+        phase_profile(c)
 
     print(smi, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name],
+         "launches": sum(p[name] for p in by_path.values()),
+         "launches_by_path": {a: p[name] for a, p in by_path.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

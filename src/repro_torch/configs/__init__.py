@@ -12,12 +12,13 @@ from repro_torch.configs.base import ModelConfig, SplitConfig
 
 _MODULES: Dict[str, str] = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 #: archs of the reference registry the port does not run yet
 _NOT_PORTED = (
     "musicgen-large", "stablelm-3b", "llava-next-34b", "phi3.5-moe-42b-a6.6b",
-    "mixtral-8x7b", "internlm2-20b", "recurrentgemma-2b", "granite-8b",
+    "mixtral-8x7b", "internlm2-20b", "granite-8b",
     "xlstm-125m", "lumos5g-lstm",
 )
 

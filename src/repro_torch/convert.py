@@ -6,8 +6,10 @@ leaf under its ``"/"``-joined path (``"layers/mix/wq/w"``,
 ``"bneck_modes/0/down/w"``), with bf16 leaves either as ``ml_dtypes``
 bfloat16 arrays or as their uint16 view plus the checkpoint's ``__meta__``
 dtype table. Both packages keep the same tree (stacked ``[L, ...]`` layer
-leaves, the mode bank as a tuple of heads), so conversion is a re-nesting
-plus a dtype-exact copy.
+leaves for homogeneous archs, a tuple of per-layer trees for heterogeneous
+ones such as recurrentgemma-2b, the mode bank as a tuple of heads; float32
+leaves such as the RG-LRU's ``lam`` stay float32), so conversion is a
+re-nesting plus a dtype-exact copy.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
 """Split-model wrapper: cut the model at ``cfg.split.split_at`` into a
 UE-side encoder and an edge-side decoder, with the paper's selectable
-bottleneck modes at the boundary (mirrors the mixed-mode paged parts of
+bottleneck modes at the boundary (mirrors the mixed-mode serving parts of
 ``repro.core.split``).
 
-Decode state is the paged arena, split along its layer axis into views, so
-both halves update the pool in place.
+Decode state (the paged arena, stacked dense caches, or a tuple of
+per-layer states) is split along its layer axis into views, so both halves
+update the pool in place.
 """
 from __future__ import annotations
 
@@ -26,37 +27,47 @@ def init_split_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def slice_layers(layers, cfg: ModelConfig, split_at: Optional[int] = None):
-    """(encoder_layers, decoder_layers) views of the stacked layer params."""
+    """(encoder_layers, decoder_layers) views of the layer params."""
     s = split_at if split_at is not None else cfg.split.split_at
-    return (T.tree_map(lambda a: a[:s], layers),
-            T.tree_map(lambda a: a[s:], layers))
+    if cfg.homogeneous:
+        return (T.tree_map(lambda a: a[:s], layers),
+                T.tree_map(lambda a: a[s:], layers))
+    return layers[:s], layers[s:]
 
 
-def _split_states(states, s: int):
-    return ({k: v[:s] for k, v in states.items()},
-            {k: v[s:] for k, v in states.items()})
+def _kinds(cfg: ModelConfig):
+    return tuple(cfg.block_kind(i) for i in range(cfg.n_layers))
+
+
+def _split_states(states, cfg: ModelConfig, s: int):
+    """(encoder_states, decoder_states) views of the per-layer state."""
+    if cfg.homogeneous:
+        return (T.tree_map(lambda a: a[:s], states),
+                T.tree_map(lambda a: a[s:], states))
+    return states[:s], states[s:]
 
 
 def split_decode_step_mixed(params, stacked_bank, token, states, positions,
-                            cfg: ModelConfig, mode_idx, block_table,
+                            cfg: ModelConfig, mode_idx, block_table=None,
                             return_tokens: bool = False):
     """One decode step for a mixed-mode continuous batch: every slot at its
     own depth (``positions`` [B]) and through its own bottleneck
     (``mode_idx`` [B]: 0 = raw code z, m >= 1 = head m-1 of
-    ``stacked_bank``). ``states`` (the paged arena) updates in place.
+    ``stacked_bank``). ``states`` update in place: the paged arena with
+    ``block_table`` ([B, nb]), the dense per-slot state without.
     Returns (logits [B, 1, V], states); with ``return_tokens`` the fused
     decode tail replaces the logits with argmax int32 tokens [B, 1]."""
-    if block_table is None:
-        raise NotImplementedError("repro_torch serves from the paged pool "
-                                  "only; pass the block table")
     s = cfg.split.split_at
     x = T.embed_tokens(params, token, cfg)
     enc_l, dec_l = slice_layers(params["layers"], cfg, s)
-    enc_st, dec_st = _split_states(states, s)
-    x = T.run_layers_decode(enc_l, x, enc_st, positions, cfg, block_table)
+    enc_st, dec_st = _split_states(states, cfg, s)
+    kinds = _kinds(cfg)
+    x = T.run_layers_decode(enc_l, x, enc_st, positions, cfg,
+                            kinds=kinds[:s], block_table=block_table)
     x = bottleneck.boundary_mixed(stacked_bank, x, mode_idx,
                                   dtype=T.model_dtype(cfg))
-    x = T.run_layers_decode(dec_l, x, dec_st, positions, cfg, block_table)
+    x = T.run_layers_decode(dec_l, x, dec_st, positions, cfg,
+                            kinds=kinds[s:], block_table=block_table)
     if return_tokens:
         return T.decode_tail_tokens(params, x, cfg), states
     x = T.norm_apply_final(params, x, cfg)
@@ -66,7 +77,7 @@ def split_decode_step_mixed(params, stacked_bank, token, states, positions,
 def _prefill_through(params, tokens, cfg: ModelConfig, states, boundary,
                      lengths, block_table):
     """Whole-prompt prefill skeleton: encoder layers, ``boundary`` (the wire
-    crossing), decoder layers, scattering every layer's K/V into the arena.
+    crossing), decoder layers, filling every layer's decode state.
     Returns (logits at each row's last real position [B, 1, V], states)."""
     s = cfg.split.split_at
     x = T.embed_tokens(params, tokens, cfg)
@@ -77,12 +88,15 @@ def _prefill_through(params, tokens, cfg: ModelConfig, states, boundary,
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=x.device)
     enc_l, dec_l = slice_layers(params["layers"], cfg, s)
-    enc_st, dec_st = _split_states(states, s)
+    enc_st, dec_st = _split_states(states, cfg, s)
+    kinds = _kinds(cfg)
     x = T.run_layers_prefill(enc_l, x, positions, enc_st, cfg,
-                             lengths=lengths, block_table=block_table)
+                             kinds=kinds[:s], lengths=lengths,
+                             block_table=block_table)
     x = boundary(x)
     x = T.run_layers_prefill(dec_l, x, positions, dec_st, cfg,
-                             lengths=lengths, block_table=block_table)
+                             kinds=kinds[s:], lengths=lengths,
+                             block_table=block_table)
     last = (lengths.long() - 1 if lengths is not None
             else torch.full((B,), S - 1, dtype=torch.long, device=x.device))
     x = x[torch.arange(B, device=x.device), last][:, None, :]
@@ -95,11 +109,9 @@ def split_prefill_mixed(params, stacked_bank, tokens, states,
                         block_table=None):
     """Batched multi-request prefill with per-row bottleneck modes: one
     forward over a right-padded prompt batch where row b's boundary
-    activations cross the wire through its own mode. Returns
-    (last-real-position logits, states)."""
-    if block_table is None:
-        raise NotImplementedError("repro_torch serves from the paged pool "
-                                  "only; pass the block table")
+    activations cross the wire through its own mode. ``states``: the paged
+    arena with ``block_table``, else a fresh dense state of the batch's
+    rows. Returns (last-real-position logits, states)."""
     return _prefill_through(
         params, tokens, cfg, states,
         lambda x: bottleneck.boundary_mixed(stacked_bank, x, mode_idx,

@@ -36,6 +36,12 @@
 //    (max, lowest index) pair per row; a second small pass reduces the pairs
 //    with the same tie-break. Logits stay in registers; bf16 weights are
 //    upcast in registers.
+//
+//    Tied heads (the [V, d] embedding table, 1.31 GB in bf16 at
+//    recurrentgemma-2b) are read in place, never transposed: each thread's
+//    two vocab columns are two rows of the table, contiguous in d, read one
+//    32-byte sector at a time (two 16-byte loads) and walked in the same k
+//    order as the [d, V] layout, so both layouts give the same logits.
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -294,7 +300,8 @@ __global__ void tail_norm(const T* __restrict__ xp, const T* __restrict__ scale,
   }
 }
 
-// R normed rows of one k, from shared memory, as floats
+// R consecutive values as floats: the normed rows of one k (shared memory),
+// or one 32-byte sector of a tied head's row (device memory)
 template <typename T, int R>
 __device__ __forceinline__ void load_rows(const T* p, float* out) {
 #pragma unroll
@@ -327,7 +334,7 @@ __device__ __forceinline__ void load_rows<float, 8>(const float* p, float* out) 
 // ---------------------------------------------------------------------------
 // decode tail: 2) logits of one 256-column vocab tile + per-row argmax
 // ---------------------------------------------------------------------------
-template <typename T, int R>
+template <typename T, int R, bool kTied>
 __global__ void tail_logits(const T* __restrict__ h, const T* __restrict__ heads,
                             const int* __restrict__ hid_g,
                             float* __restrict__ pbest, int* __restrict__ pidx,
@@ -349,16 +356,39 @@ __global__ void tail_logits(const T* __restrict__ h, const T* __restrict__ heads
   float a0[R], a1[R], hv[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) a0[r] = a1[r] = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < d; ++k) {
-    const T* wk = w + (size_t)k * V;
-    const float w0 = ok0 ? to_f(wk[c0]) : 0.f;
-    const float w1 = ok1 ? to_f(wk[c1]) : 0.f;
-    load_rows<T, R>(hT + k * R, hv);
+  if constexpr (kTied) {
+    // [V, d]: columns c0 / c1 are rows of the table (a column past V reads
+    // row 0 and is never compared), read one 32-byte sector at a time
+    // from a 16-byte aligned start (checked by the wrapper)
+    constexpr int kN = 32 / sizeof(T);
+    const T* r0 = w + (size_t)(ok0 ? c0 : 0) * d;
+    const T* r1 = w + (size_t)(ok1 ? c1 : 0) * d;
+    for (int k0 = 0; k0 < d; k0 += kN) {
+      float w0[kN], w1[kN];
+      load_rows<T, kN>(r0 + k0, w0);
+      load_rows<T, kN>(r1 + k0, w1);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      a0[r] += hv[r] * w0;
-      a1[r] += hv[r] * w1;
+      for (int j = 0; j < kN; ++j) {
+        load_rows<T, R>(hT + (k0 + j) * R, hv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          a0[r] += hv[r] * w0[j];
+          a1[r] += hv[r] * w1[j];
+        }
+      }
+    }
+  } else {
+#pragma unroll 8
+    for (int k = 0; k < d; ++k) {
+      const T* wk = w + (size_t)k * V;
+      const float w0 = ok0 ? to_f(wk[c0]) : 0.f;
+      const float w1 = ok1 ? to_f(wk[c1]) : 0.f;
+      load_rows<T, R>(hT + k * R, hv);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        a0[r] += hv[r] * w0;
+        a1[r] += hv[r] * w1;
+      }
     }
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -403,21 +433,34 @@ __global__ void tail_reduce(const float* __restrict__ pbest,
   if (lane == 0) tok[row] = bi;
 }
 
+template <typename T, int R, bool kTied>
+cudaError_t tail_logits_launch(const void* hbuf, const void* heads,
+                               const int* hid, float* pbest, int* pidx, int G,
+                               int d, int V, int n_vt, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * R * d;
+  cudaError_t e = rt::allow_smem(tail_logits<T, R, kTied>, smem);
+  if (e != cudaSuccess) return e;
+  tail_logits<T, R, kTied><<<dim3(n_vt, G), kTT, smem, stream>>>(
+      static_cast<const T*>(hbuf), static_cast<const T*>(heads), hid, pbest,
+      pidx, d, V, n_vt);
+  return cudaSuccess;
+}
+
 template <typename T, int R>
 cudaError_t tail_launch(const void* xp, const void* heads, const void* scale,
                         const void* bias, const int* hid, void* hbuf,
                         float* pbest, int* pidx, int* tok, int G, int d, int V,
-                        int layernorm, cudaStream_t stream) {
+                        int layernorm, int tied, cudaStream_t stream) {
   const int n_vt = (V + kVT - 1) / kVT;
   tail_norm<T><<<G * R, 256, 0, stream>>>(
       static_cast<const T*>(xp), static_cast<const T*>(scale),
       static_cast<const T*>(bias), static_cast<T*>(hbuf), d, layernorm);
-  const size_t smem = sizeof(T) * R * d;
-  cudaError_t e = rt::allow_smem(tail_logits<T, R>, smem);
+  cudaError_t e =
+      tied ? tail_logits_launch<T, R, true>(hbuf, heads, hid, pbest, pidx, G,
+                                            d, V, n_vt, stream)
+           : tail_logits_launch<T, R, false>(hbuf, heads, hid, pbest, pidx, G,
+                                             d, V, n_vt, stream);
   if (e != cudaSuccess) return e;
-  tail_logits<T, R><<<dim3(n_vt, G), kTT, smem, stream>>>(
-      static_cast<const T*>(hbuf), static_cast<const T*>(heads), hid, pbest,
-      pidx, d, V, n_vt);
   const int rows = G * R;
   tail_reduce<<<(rows + 3) / 4, 128, 0, stream>>>(pbest, pidx, tok, rows,
                                                  n_vt);
@@ -444,14 +487,17 @@ extern "C" int boundary_mixed_grouped_launch(
                                    wmax, n_ks, s);
 }
 
+// ``tied``: heads is [H, V, d] (the embedding table) instead of [H, d, V];
+// the caller guarantees d is a multiple of one 32-byte sector and 16-byte
+// aligned rows.
 extern "C" int decode_tail_grouped_launch(
     const void* xp, const void* heads, const void* scale, const void* bias,
     const int* hid, void* hbuf, float* pbest, int* pidx, int* tok, int G,
-    int d, int V, int layernorm, int is_bf16, void* stream) {
+    int d, int V, int layernorm, int tied, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return tail_launch<bf16, 16>(xp, heads, scale, bias, hid, hbuf, pbest,
-                                 pidx, tok, G, d, V, layernorm, s);
+                                 pidx, tok, G, d, V, layernorm, tied, s);
   return tail_launch<float, 8>(xp, heads, scale, bias, hid, hbuf, pbest, pidx,
-                               tok, G, d, V, layernorm, s);
+                               tok, G, d, V, layernorm, tied, s);
 }

@@ -99,20 +99,25 @@ boundary_mixed_grouped.launches = 0
 
 def decode_tail_grouped(xp, heads, norm_scale, norm_bias, hid_g, *,
                         block_r: int, norm_kind: str = "rmsnorm",
-                        n_blocks=None):
+                        n_blocks=None, tied: bool = False):
     """Fused decode tail: final norm -> per-block LM head -> argmax -> int32
     token. ``xp``: [P, d] rows permuted so each ``block_r``-row block is
-    head-uniform (``ops.head_layout``); ``heads``: [H, d, V];
+    head-uniform (``ops.head_layout``); ``heads``: [H, d, V], or with
+    ``tied`` the embedding table as [H, V, d], read in place;
     ``norm_scale``/``norm_bias``: [d]; ``hid_g``: [P/block_r] int32.
     ``n_blocks``: compute only the first row blocks (rows past them are
     returned as 0), default all. Returns [P] int32 tokens."""
     P, d = xp.shape
-    H, d2, V = heads.shape
+    if tied:
+        H, V, d2 = heads.shape
+    else:
+        H, d2, V = heads.shape
     G = P // block_r
     n_run = G if n_blocks is None else int(n_blocks)
     if xp.device.type == "cpu":
         block_v = next((b for b in (512, 256, 128) if V % b == 0), V)
-        tok = decode_tail_grouped_ref(xp, heads, norm_scale, norm_bias, hid_g,
+        hv = heads.transpose(1, 2) if tied else heads        # a view
+        tok = decode_tail_grouped_ref(xp, hv, norm_scale, norm_bias, hid_g,
                                       block_r=block_r, block_v=block_v,
                                       norm_kind=norm_kind)[:, 0].clone()
         tok[n_run * block_r:] = 0
@@ -121,12 +126,15 @@ def decode_tail_grouped(xp, heads, norm_scale, norm_bias, hid_g, *,
     if xp.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: takes bf16 or f32 rows, got {xp.dtype}")
     r_kernel = 16 if xp.dtype == torch.bfloat16 else 8
+    # a tied row is read in 32-byte sectors from a 16-byte aligned start
+    sector = 32 // xp.element_size()
     if (block_r != r_kernel or d2 != d or P % block_r or not 0 < n_run <= G
             or norm_scale.shape != (d,) or norm_bias.shape != (d,)
-            or norm_kind not in ("rmsnorm", "layernorm")):
+            or norm_kind not in ("rmsnorm", "layernorm")
+            or (tied and (d % sector or heads.data_ptr() % 16))):
         raise ValueError(f"{what}: unsupported shapes xp {tuple(xp.shape)} "
-                         f"heads {tuple(heads.shape)} block_r {block_r} "
-                         f"n_blocks {n_run} norm {norm_kind}")
+                         f"heads {tuple(heads.shape)} tied {tied} block_r "
+                         f"{block_r} n_blocks {n_run} norm {norm_kind}")
     _check_cuda(what, xp, heads, norm_scale, norm_bias, dtype=xp.dtype)
     (hid,) = _tables(what, G, hid_g)
     rows = n_run * block_r
@@ -135,12 +143,12 @@ def decode_tail_grouped(xp, heads, norm_scale, norm_bias, hid_g, *,
     pbest = torch.empty((rows, n_vt), dtype=torch.float32, device=xp.device)
     pidx = torch.empty((rows, n_vt), dtype=torch.int32, device=xp.device)
     tok = torch.zeros(P, dtype=torch.int32, device=xp.device)
-    fn = _fn("decode_tail_grouped_launch", [_P] * 9 + [_I] * 5 + [_P])
+    fn = _fn("decode_tail_grouped_launch", [_P] * 9 + [_I] * 6 + [_P])
     code = fn(xp.data_ptr(), heads.data_ptr(), norm_scale.data_ptr(),
               norm_bias.data_ptr(), hid.data_ptr(), hbuf.data_ptr(),
               pbest.data_ptr(), pidx.data_ptr(), tok.data_ptr(), n_run, d, V,
-              int(norm_kind == "layernorm"), int(xp.dtype == torch.bfloat16),
-              _build.stream_ptr(xp.device))
+              int(norm_kind == "layernorm"), int(tied),
+              int(xp.dtype == torch.bfloat16), _build.stream_ptr(xp.device))
     _build.check(code, what)
     decode_tail_grouped.launches += 1
     return tok

@@ -14,6 +14,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.boundary_mixed import (boundary_mixed_grouped,
                                                 decode_tail_grouped)
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
 
 
 def _group_rows(mode_idx, n_modes: int, block_r: int):
@@ -102,14 +103,13 @@ def decode_tail_op(x, norm_scale, norm_bias, heads, head_idx=None, *,
                    norm_kind: str = "rmsnorm", tied: bool = False):
     """Fused decode tail: final norm -> LM head -> argmax -> int32 tokens
     [B, S]. ``heads``: [H, d, V] stacked LM heads, or the [1, V, d]
-    embedding table when ``tied`` (transposed for the kernel). CPU: the
-    serving reference; CUDA: the fused tail kernel."""
+    embedding table when ``tied`` (read in place by the kernel, never
+    copied). CPU: the serving reference; CUDA: the fused tail kernel."""
     if x.device.type == "cpu":
         return ref.decode_tail_ref(x, norm_scale, norm_bias, heads, head_idx,
                                    norm_kind=norm_kind, tied=tied)
     B, S, d = x.shape
-    hv = heads.transpose(1, 2).contiguous() if tied else heads
-    H = hv.shape[0]
+    H = heads.shape[0]
     hidx = torch.zeros(B, dtype=torch.int32, device=x.device) \
         if head_idx is None else head_idx.to(torch.int32)
     rhid = hidx.repeat_interleave(S)                       # per-token head
@@ -121,9 +121,9 @@ def decode_tail_op(x, norm_scale, norm_bias, heads, head_idx=None, *,
     # one head: the rows sit in the first ceil(rows / block_r) blocks, and
     # the padding block behind them is never read back
     n_blocks = -(-(B * S) // block_r) if H == 1 else None
-    tok = decode_tail_grouped(xp, hv, norm_scale, bias, hid_g,
+    tok = decode_tail_grouped(xp, heads, norm_scale, bias, hid_g,
                               block_r=block_r, norm_kind=norm_kind,
-                              n_blocks=n_blocks)
+                              n_blocks=n_blocks, tied=tied)
     return tok[dest].reshape(B, S)
 
 
@@ -133,3 +133,12 @@ def paged_attention_op(q, k_pages, v_pages, block_table, positions):
     [B]. CPU: the blocked plain version; CUDA: the paged kernel. Returns
     the attention context [B, nq, hd] in ``q.dtype``."""
     return paged_attention(q, k_pages, v_pages, block_table, positions)
+
+
+def rglru_scan_op(a, b, h0=None):
+    """Linear recurrence h_t = a_t * h_{t-1} + b_t (mirrors
+    ``repro.kernels.ops.rglru_scan_op``). a, b: [B, S, D] float32; ``h0``:
+    optional [B, D] initial carry. CPU: the plain scan; CUDA: the kernel,
+    which reads ``h0`` itself (the reference folds it into ``b[:, 0]``,
+    the same f32 expression), any S >= 1 and any D."""
+    return rglru_scan(a, b, h0)

@@ -195,3 +195,20 @@ def decode_tail_grouped_ref(xp, heads, norm_scale, norm_bias, hid_g, *,
                          keepdim=True)
         outs.append(tok.expand(block_r, 128).to(torch.int32))
     return torch.cat(outs, dim=0)
+
+
+def rglru_scan_ref(a, b, h0=None):
+    """Gated linear recurrence h_t = a_t * h_{t-1} + b_t, one step at a
+    time (mirrors ``repro.kernels.ref.rglru_scan_ref``): each step is a
+    multiply and an add, rounded separately in float32.
+
+    a, b: [B, S, D] float32; ``h0``: optional [B, D] initial carry (zeros
+    when omitted). Returns h: [B, S, D] float32."""
+    B, S, D = a.shape
+    h = (torch.zeros((B, D), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    out = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

@@ -6,9 +6,15 @@ continuous``).
     # on the card, full width, random weights from --seed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --engine continuous --requests 8 --prompt-len 16 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --engine continuous --cache-len 2048
     # the plain PyTorch path on the CPU, reduced shapes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --reduced --engine continuous --device cpu
+
+qwen2.5-3b serves from the paged pool, recurrentgemma-2b (RG-LRU and
+local-attention blocks) from the dense slot pool, whose rolling caches
+hold ``min(--cache-len, local_window)`` rows.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
 raises rather than falling back to the CPU.
@@ -159,7 +165,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
-    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--cache-len", type=int, default=128,
+                    help="per-slot context (paged: the arena's rows per "
+                         "slot; windowed archs cap it at their window)")
     ap.add_argument("--latency-budget-ms", type=float, default=5.0)
     ap.add_argument("--channel-seed", type=int, default=0)
     ap.add_argument("--n-slots", type=int, default=4,

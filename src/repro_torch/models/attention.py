@@ -1,11 +1,12 @@
-"""GQA attention for the paged serving path (mirrors the dense paged parts of
-``repro.models.attention``): QKV projection with bias, plain-op full and
-blocked attention for prefill (no SDPA, so the numerics stay the
-reference's), paged prefill that scatters K/V through a block table, and
-one-token paged decode.
+"""GQA attention for serving (mirrors the serving parts of
+``repro.models.attention``): QKV projection with bias, plain-op causal and
+sliding-window attention for prefill, full and blocked (no SDPA, so the
+numerics stay the reference's), the paged arena's prefill scatter and
+one-token decode through a block table, and the dense per-slot rolling
+cache's prefill and decode (the window of local-attention archs).
 
-The page arena is updated in place (the reference returns a new arena);
-callers pass per-layer views of the pool's stacked arena.
+Caches and arenas are updated in place (the reference returns new ones);
+callers pass per-layer views of the pool's state.
 """
 from __future__ import annotations
 
@@ -60,18 +61,27 @@ def _gqa_out(probs, v):
     return out.reshape(B, S, n_kv * g * v.shape[-1])
 
 
-def _dense_attention(q, k, v, positions, hd):
+def _mask(i, j, window: int):
+    """Causal, and within ``window`` positions when one is set."""
+    m = j <= i
+    if window:
+        m = m & (j > i - window)
+    return m
+
+
+def _dense_attention(q, k, v, positions, hd, window: int = 0):
     scores = _gqa_scores(q, k) / math.sqrt(hd)   # [B,kv,G,S,T] f32
     i = positions[:, None, None, :, None]        # query pos
     j = positions[:, None, None, None, :]        # key pos
-    scores = torch.where(j <= i, scores, NEG_INF)
+    scores = torch.where(_mask(i, j, window), scores, NEG_INF)
     return _gqa_out(torch.softmax(scores, dim=-1), v)
 
 
-def _blocked_attention(q, k, v, positions, hd, block_q: int = _BLOCK_Q,
-                       block_k: int = _BLOCK_K):
-    """Online-softmax causal attention over [block_q x block_k] tiles; peak
-    memory O(S * block_k) instead of O(S^2)."""
+def _blocked_attention(q, k, v, positions, hd, window: int = 0,
+                       block_q: int = _BLOCK_Q, block_k: int = _BLOCK_K):
+    """Online-softmax causal (optionally sliding-window) attention over
+    [block_q x block_k] tiles; peak memory O(S * block_k) instead of
+    O(S^2)."""
     B, S, n_q_heads, _ = q.shape
     n_kv = k.shape[2]
     g = n_q_heads // n_kv
@@ -95,7 +105,7 @@ def _blocked_attention(q, k, v, positions, hd, block_q: int = _BLOCK_Q,
                              kb[:, kj].float()) * scale
             i_ = pos_q[:, qi][:, None, None, :, None]
             j_ = pos_k[:, kj][:, None, None, None, :]
-            s = torch.where(j_ <= i_, s, NEG_INF)
+            s = torch.where(_mask(i_, j_, window), s, NEG_INF)
             m_new = torch.maximum(m, torch.amax(s, dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -181,4 +191,87 @@ def paged_decode_attention(p, x, arena, block_table, cur_pos, *, n_q: int,
         scores = torch.where(written[:, None, None, None, :], scores,
                              NEG_INF)
         out = _gqa_out(torch.softmax(scores, dim=-1), cv).to(x.dtype)
+    return out @ p["wo"]["w"]
+
+
+def init_cache(batch: int, n_kv: int, hd: int, cache_len: int,
+               dtype=torch.bfloat16, kv_bits: int = 0, device=None):
+    """Per-layer rolling KV cache ``{"k","v"}: [batch, cache_len, n_kv,
+    hd]``; ``cache_len`` is the window for windowed archs, the full
+    context otherwise. The int8 cache (``kv_bits=8``) is not ported."""
+    if kv_bits:
+        raise NotImplementedError("repro_torch has no int8 KV cache yet")
+    shape = (batch, cache_len, n_kv, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_attention(p, x, positions, cache, *, n_q: int, n_kv: int,
+                      hd: int, rope_theta: float, window: int = 0,
+                      lengths=None):
+    """Full-sequence prefill that also fills the rolling cache (in place).
+
+    Causal (optionally sliding-window) attention over the whole prompt in
+    one pass; each row's last ``min(len, cache_len)`` real positions land
+    in their rolling slots ``pos % cache_len``. Pad rows (``s >=
+    lengths[b]``) are not written (the reference drops them with an
+    out-of-bounds index; here they are masked out). x: [B, S, d];
+    positions: [B, S]; ``cache``: one layer's ``{"k","v"}`` [B, cache_len,
+    n_kv, hd]. Returns out [B, S, d]."""
+    B, S = x.shape[:2]
+    clen = cache["k"].shape[1]
+    q, k, v = _project_qkv(p, x, n_q, n_kv, hd)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    if lengths is None:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    lengths = lengths.to(device=x.device, dtype=torch.long)
+
+    # decode only ever sees the last ``clen`` positions, so the prefill
+    # window is capped at the cache
+    w_eff = min(window, clen) if window else window
+    if S >= BLOCKED_ATTN_THRESHOLD and S % _BLOCK_Q == 0 \
+            and S % _BLOCK_K == 0:
+        out = _blocked_attention(q, k, v, positions, hd, w_eff)
+    else:
+        out = _dense_attention(q, k, v, positions, hd, w_eff)
+
+    keep = min(S, clen)
+    idx = lengths[:, None] - keep + torch.arange(keep, device=x.device)
+    valid = idx >= 0                                            # [B, keep]
+    idx_c = torch.clamp(idx, 0, S - 1)
+    pos_g = torch.gather(positions.long(), 1, idx_c)
+    slot = torch.remainder(pos_g, clen)
+    b_ix = torch.arange(B, device=x.device)[:, None].expand(B, keep)
+    rows = b_ix[valid], slot[valid]
+    src = b_ix[valid], idx_c[valid]
+    cache["k"][rows] = k[src]
+    cache["v"][rows] = v[src]
+    return out.to(x.dtype) @ p["wo"]["w"]
+
+
+def decode_attention(p, x, cache, cur_pos, *, n_q: int, n_kv: int, hd: int,
+                     rope_theta: float, window: int = 0):
+    """One-token decode against the rolling cache, each sequence at its own
+    depth. x: [B, 1, d]; cur_pos: [B] absolute positions; ``cache``: one
+    layer's ``{"k","v"}`` [B, cache_len, n_kv, hd], whose row ``pos %
+    cache_len`` takes the new token (in place). With the cache as long as
+    the window every written slot is inside it, so the mask reduces to
+    "has been written". Returns out [B, 1, d]."""
+    B = x.shape[0]
+    clen = cache["k"].shape[1]
+    q, k, v = _project_qkv(p, x, n_q, n_kv, hd)
+    pos = cur_pos.to(torch.int32).reshape(B, 1)
+    q = apply_rope(q, pos, rope_theta)
+    k = apply_rope(k, pos, rope_theta)
+    b_ix = torch.arange(B, device=x.device)
+    slot = torch.remainder(pos[:, 0], clen).long()
+    cache["k"][b_ix, slot] = k[:, 0]
+    cache["v"][b_ix, slot] = v[:, 0]
+    scores = _gqa_scores(q, cache["k"]) / math.sqrt(hd)        # [B,kv,G,1,T]
+    t = torch.arange(clen, device=x.device)
+    n_fill = torch.clamp(pos[:, 0] + 1, max=clen)
+    written = t[None, :] < n_fill[:, None]                     # [B, T]
+    scores = torch.where(written[:, None, None, None, :], scores, NEG_INF)
+    out = _gqa_out(torch.softmax(scores, dim=-1), cache["v"]).to(x.dtype)
     return out @ p["wo"]["w"]

@@ -1,13 +1,17 @@
-"""Continuous-batching split serving on a paged KV pool (mirrors the paged,
-mixed-mode, fused-tail path of ``repro.serving.batcher``).
+"""Continuous-batching split serving (mirrors the mixed-mode, fused-tail
+path of ``repro.serving.batcher``).
 
-The engine keeps ``n_slots`` decode slots over ONE global page arena per KV
-leaf. Every engine tick it:
+The engine keeps ``n_slots`` decode slots over one of two pools: the paged
+pool (ONE global page arena per KV leaf, the default for homogeneous
+full-attention archs) or the dense ``SlotPool`` (per-slot rolling caches
+and recurrent carries, the default for windowed and recurrent archs).
+Every engine tick it:
 
-1. admits pending requests into free slots under a page budget (a request
-   whose worst-case page count does not fit PARKS at the queue head), and
-   prefills the new prompts in one batched forward per power-of-two length
-   bucket, each row's boundary routed through its admission-chosen mode;
+1. admits pending requests into free slots (under a page budget on the
+   paged pool: a request whose worst-case page count does not fit PARKS at
+   the queue head), and prefills the new prompts in one batched forward per
+   power-of-two length bucket, each row's boundary routed through its
+   admission-chosen mode;
 2. steps each live session's own simulated channel and picks its
    bottleneck mode (per-tick orchestrator, adaptive ``ModeController``, or
    admission-frozen) for every tick of the next decode window — mode choice
@@ -23,8 +27,8 @@ leaf. Every engine tick it:
 
 ``host_loop=True`` keeps the synchronous per-tick loop (logits + argmax
 read back every tick) as the equivalence oracle; both loops decode
-identical token streams. The dense ``SlotPool``, the bank-free mono steps,
-mesh sharding, telemetry and migration are not ported yet and raise.
+identical token streams. The bank-free mono steps, mesh sharding,
+telemetry and migration are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -61,6 +65,76 @@ def _group_by_bucket(admits):
     for a in admits:
         groups.setdefault(_bucket_len(a[0].prompt_len), []).append(a)
     return groups
+
+
+def _slot_axis(cfg: ModelConfig) -> int:
+    # homogeneous archs stack per-layer states into [L, B, ...] leaves;
+    # heterogeneous archs keep a tuple of per-layer [B, ...] trees
+    return 1 if cfg.homogeneous else 0
+
+
+def scatter_rows(pool_states, batch_states, idx, axis: int):
+    """Write rows 0..len(idx)-1 of a batched state tree into the pool rows
+    ``idx`` (distinct), in place on the pool's device."""
+    n = idx.shape[0]
+    for p, b in zip(T.tree_leaves(pool_states), T.tree_leaves(batch_states)):
+        p.index_copy_(axis, idx, b.narrow(axis, 0, n).to(p.dtype))
+
+
+def gather_rows(pool_states, idx, axis: int):
+    """The gather inverse of :func:`scatter_rows`: rows ``idx`` of the pool
+    as a batched state tree with batch ``len(idx)`` on ``axis``."""
+    return T.tree_map(lambda p: p.index_select(axis, idx), pool_states)
+
+
+class SlotPool:
+    """Fixed pool of decode slots with recycled dense state: per-slot
+    rolling KV caches and RG-LRU carries, written in place on the device."""
+
+    paged = False
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, cache_len: int, *,
+                 device=None):
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.cache_len = cache_len
+        self.device = device
+        self.states = T.init_decode_state(cfg, n_slots, cache_len,
+                                          device=device)
+        self.positions = np.zeros(n_slots, np.int32)
+        self._free = list(range(n_slots - 1, -1, -1))
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def acquire(self) -> Optional[int]:
+        return self._free.pop() if self._free else None
+
+    def release(self, slot: int):
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} out of range [0, {self.n_slots})")
+        if slot in self._free:
+            raise ValueError(f"double release of slot {slot}")
+        self.positions[slot] = 0
+        self._free.append(slot)
+
+    def _idx(self, slots) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+
+    def write_rows(self, batch_states, slots, positions):
+        """Install rows 0..len(slots)-1 of a freshly prefilled batched state
+        into the given slots (full overwrite of the previous occupant)."""
+        scatter_rows(self.states, batch_states, self._idx(slots),
+                     _slot_axis(self.cfg))
+        for s, p in zip(slots, positions):
+            self.positions[s] = p
+
+    def read_rows(self, slots):
+        """The given slots' decode state as a batched state tree, the shape
+        ``write_rows`` accepts."""
+        return gather_rows(self.states, self._idx(slots),
+                           _slot_axis(self.cfg))
 
 
 class PagedPool:
@@ -186,10 +260,10 @@ class PagedPool:
 
 class ContinuousBatchingEngine:
     """Split-inference engine with per-request dynamic bottleneck modes on
-    the paged pool. ``orchestrator`` is shared (mode calibration is global)
-    but tracks one link per request id; ``default_channel`` serves requests
-    that arrive without their own ``Channel``. The pool lives on the
-    device of ``params``."""
+    the paged or the dense pool. ``orchestrator`` is shared (mode
+    calibration is global) but tracks one link per request id;
+    ``default_channel`` serves requests that arrive without their own
+    ``Channel``. The pool lives on the device of ``params``."""
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 8,
                  cache_len: int = 128,
@@ -205,11 +279,10 @@ class ContinuousBatchingEngine:
                  n_pages: Optional[int] = None,
                  mesh=None,
                  telemetry=None):
-        if paged is False or mesh is not None or telemetry is not None:
+        if mesh is not None or telemetry is not None:
             raise NotImplementedError(
-                "repro_torch serves from the paged pool on one device "
-                "without telemetry; the dense SlotPool, mesh sharding and "
-                "telemetry are not ported yet")
+                "repro_torch serves on one device without telemetry; mesh "
+                "sharding and telemetry are not ported yet")
         if controller is not None:
             if freeze_modes:
                 raise ValueError("controller and freeze_modes are mutually "
@@ -230,8 +303,20 @@ class ContinuousBatchingEngine:
         self.controller = controller
         self.freeze_modes = freeze_modes
         self.default_channel = default_channel
-        self.pool = PagedPool(cfg, n_slots, cache_len, page_len=page_len,
-                              n_pages=n_pages, device=self.device)
+        # homogeneous full-attention archs page their KV by default;
+        # windowed / recurrent archs keep the dense pool — their decode
+        # state is bounded by construction and has nothing to page
+        paged_ok = T.full_attention_arch(cfg) and cfg.homogeneous
+        self.paged = paged_ok if paged is None else bool(paged)
+        if self.paged and not paged_ok:
+            raise ValueError(
+                "paged=True needs a homogeneous full-attention arch; "
+                "windowed/recurrent decode state is bounded by construction")
+        self.pool = (PagedPool(cfg, n_slots, cache_len, page_len=page_len,
+                               n_pages=n_pages, device=self.device)
+                     if self.paged
+                     else SlotPool(cfg, n_slots, cache_len,
+                                   device=self.device))
         self.queue = RequestQueue(max_pending)
         self.active: Dict[int, Session] = {}          # slot -> session
         self.finished: List[Session] = []
@@ -242,11 +327,16 @@ class ContinuousBatchingEngine:
         self.prefill_calls = 0        # batched-prefill dispatches
         self.prefill_tokens = 0       # true prompt tokens prefilled
         self.prefill_padded_tokens = 0  # incl. bucket/batch padding
-        self.requests_over_capacity = 0  # rejected: prompt can't fit arena
+        self.requests_over_capacity = 0  # rejected: prompt can't fit cache
         self.requests_truncated = 0   # max_new_tokens clipped to capacity
         self.requests_parked = 0      # deferred at least once: arena pressure
         self._parked_rids: set = set()
-        self.max_context = self.pool.capacity
+        # full-attention archs must fit prompt + generation in the cache —
+        # the whole arena when paged, the per-slot cache_len when dense;
+        # windowed / recurrent archs are bounded-state by construction
+        self.max_context: Optional[int] = (
+            self.pool.capacity if self.paged
+            else cache_len if T.full_attention_arch(cfg) else None)
         self.stacked_bank = bottleneck.bank_stack(bank, cfg.split)
         self.host_loop = host_loop
         self.max_window = max(int(max_window), 1)
@@ -302,27 +392,32 @@ class ContinuousBatchingEngine:
         while self.pool.n_free and len(self.queue):
             req = self.queue.peek()
             budget = req.max_new_tokens
-            if req.prompt_len > self.max_context:
-                self.queue.pop()      # the prompt alone cannot fit: reject
-                self.requests_over_capacity += 1
-                continue
-            # the first generated token is the prefill argmax (no cache
-            # write), so b <= max_context - prompt_len + 1 never overflows
-            budget = min(budget, self.max_context - req.prompt_len + 1)
-            worst = -(-(req.prompt_len + budget - 1) // self.pool.page_len)
-            if worst > self.pool.pages_available:
-                # arena backpressure: PARK at the queue head (FIFO)
-                if req.rid not in self._parked_rids:
-                    self._parked_rids.add(req.rid)
-                    self.requests_parked += 1
-                break
+            if self.max_context is not None:
+                if req.prompt_len > self.max_context:
+                    self.queue.pop()  # the prompt alone cannot fit: reject
+                    self.requests_over_capacity += 1
+                    continue
+                # the first generated token is the prefill argmax (no cache
+                # write), so b <= max_context - prompt_len + 1 never wraps
+                budget = min(budget, self.max_context - req.prompt_len + 1)
+            worst = 0
+            if self.paged:
+                worst = -(-(req.prompt_len + budget - 1)
+                          // self.pool.page_len)
+                if worst > self.pool.pages_available:
+                    # arena backpressure: PARK at the queue head (FIFO)
+                    if req.rid not in self._parked_rids:
+                        self._parked_rids.add(req.rid)
+                        self.requests_parked += 1
+                    break
             self.queue.pop()
             req.t_admit = _now()
             if budget < req.max_new_tokens:
                 self.requests_truncated += 1
             slot = self.pool.acquire()
-            self.pool.commit_pages(slot, worst)
-            self.pool.alloc_pages(slot, req.prompt_len)
+            if self.paged:
+                self.pool.commit_pages(slot, worst)
+                self.pool.alloc_pages(slot, req.prompt_len)
             if req.channel is None:
                 req.channel = self.default_channel
             mode, cap = 0, None
@@ -344,26 +439,35 @@ class ContinuousBatchingEngine:
     def _prefill_group(self, blen: int, group: List[tuple]):
         """ONE batched prefill for every request in a bucket: prompts
         right-padded to ``blen``, batch padded to a power of two, each
-        row's boundary through its admission-chosen mode, K/V scattered
-        straight into the admit-time-allocated arena pages."""
+        row's boundary through its admission-chosen mode. Paged: K/V
+        scatter straight into the admit-time-allocated arena pages. Dense:
+        the bucket prefills a fresh state, whose rows are then written into
+        the slots in one scatter."""
         n = len(group)
         bp = _bucket_len(n, lo=1)          # pow2 batch
         toks = np.zeros((bp, blen), np.int32)
         lens = np.ones(bp, np.int32)       # pad rows: harmless length-1 rows
         modes = np.zeros(bp, np.int32)
-        nb_p = max(-(-blen // self.pool.page_len), 1)
-        bt_np = np.zeros((bp, nb_p), np.int32)   # pad rows -> scratch page
-        for i, (req, slot, mode, _, _) in enumerate(group):
+        for i, (req, _, mode, _, _) in enumerate(group):
             toks[i, :req.prompt_len] = req.prompt
             lens[i] = req.prompt_len
             modes[i] = mode
-            bt_np[i] = self.pool.block_np[slot, :nb_p]
         dev = self.device
-        logits, _ = SP.split_prefill_mixed(
+        bt = None
+        if self.paged:
+            nb_p = max(-(-blen // self.pool.page_len), 1)
+            bt_np = np.zeros((bp, nb_p), np.int32)  # pad rows -> scratch page
+            for i, (_, slot, _, _, _) in enumerate(group):
+                bt_np[i] = self.pool.block_np[slot, :nb_p]
+            bt = torch.from_numpy(bt_np).to(dev)
+            states = self.pool.states
+        else:
+            states = T.init_decode_state(self.cfg, bp, self.pool.cache_len,
+                                         device=dev)
+        logits, new_states = SP.split_prefill_mixed(
             self.params, self.stacked_bank, torch.from_numpy(toks).to(dev),
-            self.pool.states, self.cfg, torch.from_numpy(modes).to(dev),
-            lengths=torch.from_numpy(lens).to(dev),
-            block_table=torch.from_numpy(bt_np).to(dev))
+            states, self.cfg, torch.from_numpy(modes).to(dev),
+            lengths=torch.from_numpy(lens).to(dev), block_table=bt)
         first_dev = torch.argmax(logits, dim=-1).to(torch.int32)   # [bp, 1]
         self.prefill_calls += 1
         self.prefill_tokens += int(lens[:n].sum())
@@ -372,8 +476,12 @@ class ContinuousBatchingEngine:
         now = _now()
         slots = [a[1] for a in group]
         plens = [a[0].prompt_len for a in group]
-        for s, p in zip(slots, plens):
-            self.pool.positions[s] = p
+        if self.paged:
+            for s, p in zip(slots, plens):
+                self.pool.positions[s] = p
+        else:
+            # ONE scatter moves every admitted row into its pool slot
+            self.pool.write_rows(new_states, slots, plens)
         if not self.host_loop:
             sl = torch.tensor(slots, dtype=torch.long, device=dev)
             self._positions[sl] = torch.tensor(plens, dtype=torch.int32,
@@ -490,14 +598,18 @@ class ContinuousBatchingEngine:
                 return True
             return False
         modes = self._choose_modes()
-        for slot in self.active:       # this tick writes row pos per slot
-            self.pool.alloc_pages(slot, int(self.pool.positions[slot]) + 1)
+        bt = None
+        if self.paged:
+            for slot in self.active:   # this tick writes row pos per slot
+                self.pool.alloc_pages(slot,
+                                      int(self.pool.positions[slot]) + 1)
+            bt = self.pool.block_table()
         dev = self.device
         logits, _ = SP.split_decode_step_mixed(
             self.params, self.stacked_bank,
             torch.from_numpy(self.cur_tokens.copy()).to(dev),
             self.pool.states, torch.from_numpy(self.pool.positions.copy()).to(dev),
-            self.cfg, torch.from_numpy(modes).to(dev), self.pool.block_table())
+            self.cfg, torch.from_numpy(modes).to(dev), bt)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
         self.decode_ticks += 1
@@ -547,11 +659,14 @@ class ContinuousBatchingEngine:
             return False
 
         k = self._window_len()
-        # every row the window writes (pos..pos+k-1 per live slot) gets its
-        # page before dispatch; the table ships as a fresh device copy
-        for slot in self.active:
-            self.pool.alloc_pages(slot, int(self.pool.positions[slot]) + k)
-        bt = self.pool.block_table()
+        bt = None
+        if self.paged:
+            # every row the window writes (pos..pos+k-1 per live slot) gets
+            # its page before dispatch; the table ships as a fresh copy
+            for slot in self.active:
+                self.pool.alloc_pages(slot,
+                                      int(self.pool.positions[slot]) + k)
+            bt = self.pool.block_table()
         snapshot = sorted(self.active.items())
         modes_k = np.stack([self._choose_modes(self.tick + i, items=snapshot)
                             for i in range(k)])
@@ -654,7 +769,8 @@ class ContinuousBatchingEngine:
         self.requests_over_capacity = self.requests_truncated = 0
         self.requests_parked = 0
         self._parked_rids.clear()
-        self.pool.peak_pages_in_use = self.pool.pages_in_use
+        if self.paged:
+            self.pool.peak_pages_in_use = self.pool.pages_in_use
         self.queue.submitted = self.queue.rejected = 0
 
     def run(self, requests: Optional[List[Request]] = None,
@@ -686,16 +802,21 @@ class ContinuousBatchingEngine:
         policy = ("adaptive" if self.controller is not None
                   else "frozen" if self.freeze_modes
                   else "per-tick" if self.orch is not None else "static")
+        paged_stats = {}
+        if self.paged:
+            paged_stats = {
+                "page_len": self.pool.page_len,
+                "n_pages": self.pool.n_pages,
+                "pages_in_use": int(self.pool.pages_in_use),
+                "peak_pages_in_use": int(self.pool.peak_pages_in_use),
+                "page_occupancy": (self.pool.peak_pages_in_use
+                                   / max(self.pool.n_pages, 1)),
+                "requests_parked": self.requests_parked,
+            }
         return {
             "mode_policy": policy,
-            "paged": True,
-            "page_len": self.pool.page_len,
-            "n_pages": self.pool.n_pages,
-            "pages_in_use": int(self.pool.pages_in_use),
-            "peak_pages_in_use": int(self.pool.peak_pages_in_use),
-            "page_occupancy": (self.pool.peak_pages_in_use
-                               / max(self.pool.n_pages, 1)),
-            "requests_parked": self.requests_parked,
+            "paged": self.paged,
+            **paged_stats,
             "mode_switches": switches,
             "mode_escalations": sum(s.escalations for s in self.finished),
             "deadline_misses": misses,
