@@ -16,20 +16,30 @@ Phases, each printing one JSON line; any failure exits nonzero:
    prefills: the encoder output at the split for the boundary (both
    models' banks), the decoder output for the decode tail (qwen's LM head
    and recurrentgemma's tied embedding table), the page arena for paged
-   attention, the first RG-LRU layer's gates for the scan; each phase
-   times the kernel, its plain version and, where one exists, the one
-   PyTorch call that computes the same function (a yardstick the port
-   never calls);
-5. reference: the serving entry point at reduced shapes in float32 on the
+   attention, the first RG-LRU layer's gates for the scan, the rmsnormed
+   encoder output and each bank's own projections for the wire pair
+   (``bottleneck_quant``, ``dequant_matmul``; also at the kernel bench's
+   f32 shape; bits 8, 4 and 1, with a row of zeros); each phase times the
+   kernel, its plain version and, where one exists, the one PyTorch call
+   that computes the same function (a yardstick the port never calls; for
+   the wire pair, which no one call computes, ``torch.matmul`` of the GEMM
+   part, labelled as such);
+5. reference: the continuous engine at reduced shapes in float32 on the
    card (kernels) and on the CPU (plain versions), for both archs, must
    decode the same tokens, modes and wire bytes;
-6. main path, for each arch: ``repro_torch.launch.serve.main`` at full
-   width in bf16 with the launch counters set to 0 just before and read
-   just after; every request must finish, every kernel of the path must
-   have launched, and the launches must match the path's prefill
-   dispatches and decode ticks;
+6. main path, for each arch: ``repro_torch.launch.serve.main --engine
+   continuous`` at full width in bf16 with the launch counters set to 0
+   just before and read just after; every request must finish, every
+   kernel of the path must have launched, and the launches must match the
+   path's prefill dispatches and decode ticks;
 7. profile: each main path once more under ``torch.profiler``, for the
-   device busy time and the kernels that take it.
+   device busy time and the kernels that take it;
+8. the same three for the synchronous engine (``--engine sync``, the
+   orchestrator's policy): a reduced f32 reference under the orchestrator
+   and on mode 1, the full-width path with its launches asserted (one
+   decode tail a step, one scan per RG-LRU layer a prefill), a profile;
+9. bench: ``repro_torch.benchmarks.bench_kernels.main --device cuda``,
+   whose parity checks must hold and which must launch the wire pair.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -75,6 +85,19 @@ TOL = {
     # the scan rounds a*h and the sum separately on both sides, in the
     # same order: bit for bit
     "rglru": "bit for bit",
+    # the wire GEMMs sum K in other orders than the plain version (f32 FMAs
+    # in split-K slices against cuBLAS in f32, TF32 off): a code may move
+    # one step where z / scale sits on a rounding edge, on under 1% of
+    # lanes, and a scale (one row absmax over qmax) only by the absmax's
+    # rounding; a row of exact zeros must give zero codes and the scale
+    # 1e-8 / qmax exactly
+    "codes_frac": 0.01,
+    "scale_rtol": 1e-5,
+    # dequant_matmul: each bf16 output within one bf16 ulp of the plain one
+    # (its f32 sum may straddle one rounding edge), plus, for outputs so
+    # small that the two f32 sums' own rounding exceeds an ulp, that
+    # rounding: 2 N 2^-24 sum_k |z_k| |w_k|
+    "dequant": "one bf16 ulp + 2 N 2^-24 sum_k |z_k w_k|",
 }
 
 
@@ -826,6 +849,178 @@ def phase_rglru(rcap, dev, iters: int):
 
 
 # ---------------------------------------------------------------------------
+# kernels 5 and 6: the wire pair, bottleneck_quant and dequant_matmul
+# ---------------------------------------------------------------------------
+
+def wire_inputs(cap, cfg, dev, seed: int):
+    """The full-width wire of one model: the encoder output at the split
+    rmsnormed by its bottleneck head (as ``bottleneck.encode`` does), the
+    head's own down- and up-projections, bf16. Rows of the ragged prefill,
+    512 of them."""
+    from repro_torch.models.layers import norm_apply
+    head = cap["params"]["bneck_modes"][0]
+    x = pick_rows(cap["x_enc"], cap["valid"], 512, seed + 700)
+    x = norm_apply(head["norm"], x, "rmsnorm")[:, 0].contiguous()
+    return {"label": f"{cfg.name} wire", "x": x, "down": head["down"]["w"],
+            "up": head["up"]["w"]}
+
+
+def bench_inputs(dev):
+    """The bench's f32 shapes, numpy-seeded: x [512, 2048], w_down
+    [2048, 512], w_up [512, 2048]."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+
+    def normal(shape, scale):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev)
+
+    return {"label": "bench f32", "x": normal((512, 2048), 1.0),
+            "down": normal((2048, 512), 0.02), "up": normal((512, 2048), 0.02)}
+
+
+def check_bq(x, w, bits: int, label: str, zero_row: bool):
+    """Kernel codes and scales against the plain version (``TOL``). With
+    ``zero_row`` row 0 is zeroed first: its codes must be 0 and its scale
+    1e-8 / qmax exactly."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bottleneck_quant import bottleneck_quant
+    if zero_row:
+        x = x.clone()
+        x[0] = 0
+    codes, scales = bottleneck_quant(x, w, bits=bits)
+    torch.cuda.synchronize()
+    cr, sr = ref.bottleneck_quant_ref(x, w, bits)
+    qm = max((1 << (bits - 1)) - 1, 1)
+    d = (codes.int() - cr.int()).abs()
+    frac = float((d > 0).float().mean())
+    srel = float(((scales - sr).abs() / sr).max())
+    check(int(d.max()) <= 1 and frac < TOL["codes_frac"]
+          and srel <= TOL["scale_rtol"]
+          and int(codes.int().abs().max()) <= qm
+          and bool(torch.isfinite(scales).all()),
+          f"bottleneck_quant {label} bits {bits}: codes off by up to "
+          f"{int(d.max())} on {frac:.4%} of lanes, scales by {srel:.3g}")
+    if zero_row:
+        want = torch.tensor(1e-8, device=x.device) / torch.tensor(
+            float(qm), device=x.device)
+        check(not codes[0].any() and float(scales[0, 0]) == float(want),
+              f"bottleneck_quant {label} bits {bits}: the zero row gave "
+              f"scale {float(scales[0, 0])} (expected {float(want)})")
+    return codes, scales, {"case": f"{label} {tuple(x.shape)} x "
+                                   f"{tuple(w.shape)} bits {bits}",
+                           "codes_max_diff": int(d.max()),
+                           "codes_frac_diff": frac, "scale_max_rel": srel}
+
+
+def check_dq(codes, scales, w, label: str):
+    """Kernel output (bf16) against the plain version within one bf16 ulp
+    plus the f32 sums' rounding (``TOL["dequant"]``)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_matmul import dequant_matmul
+    y = dequant_matmul(codes, scales, w).float()
+    torch.cuda.synchronize()
+    yr = ref.dequant_matmul_ref(codes, scales, w).float()
+    mag = torch.maximum(y.abs(), yr.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    z = codes.float() * scales
+    env = 2 * codes.shape[1] * 2.0 ** -24 * (z.abs() @ w.float().abs())
+    err = (y - yr).abs()
+    ratio = float((err / (ulp + env)).max())
+    check(ratio <= 1.0 and bool(torch.isfinite(y).all()),
+          f"dequant_matmul {label}: error {float(err.max())} beyond one bf16 "
+          f"ulp + the f32 rounding (worst ratio {ratio:.3f})")
+    return {"case": f"{label} {tuple(codes.shape)} x {tuple(w.shape)}",
+            "max_abs_err": float(err.max()),
+            "outputs_beyond_one_ulp": int((err > ulp).sum()),
+            "envelope_ratio": ratio}
+
+
+def time_wire(inp, dev, iters: int):
+    """Device ms of both kernels, their plain versions and, as a yardstick
+    the port never calls, ``torch.matmul`` of the GEMM part alone (no
+    PyTorch call computes either fused function), at one wire's 512 rows;
+    with each call's bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bottleneck_quant import bottleneck_quant
+    from repro_torch.kernels.dequant_matmul import dequant_matmul
+    x, wd, wu = inp["x"], inp["down"], inp["up"]
+    (M, K), N, D = x.shape, wd.shape[1], wu.shape[1]
+    es, dt = x.element_size(), dtype_name(x.dtype)
+    flush = l2_flusher(dev)
+    codes, scales = bottleneck_quant(x, wd)
+    z = (codes.float() * scales).to(wu.dtype)
+    out = {}
+    b_ms, b_by = bound(M * K * es + K * N * es + M * N + M * 4,
+                       2 * M * K * N, dt)
+    out["bottleneck_quant"] = {
+        "timed_shape": [M, K, N], "dtype": dt,
+        "ms": time_ms(lambda: bottleneck_quant(x, wd), iters, flush),
+        "plain_ms": time_ms(lambda: ref.bottleneck_quant_ref(x, wd),
+                            iters, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "matmul_ms": time_ms(lambda: torch.matmul(x, wd), iters, flush)}
+    # the dequantized operand is f32, so the f32 peak bounds the product
+    b_ms, b_by = bound(M * N + M * 4 + N * D * wu.element_size() + M * D * 2,
+                       2 * M * N * D + M * N, "float32")
+    out["dequant_matmul"] = {
+        "timed_shape": [M, N, D], "dtype": dtype_name(wu.dtype),
+        "ms": time_ms(lambda: dequant_matmul(codes, scales, wu), iters,
+                      flush),
+        "plain_ms": time_ms(lambda: ref.dequant_matmul_ref(codes, scales,
+                                                           wu), iters, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "matmul_ms": time_ms(lambda: torch.matmul(z, wu), iters, flush)}
+    return out
+
+
+def phase_wire(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
+    """Both wire kernels against their plain versions at both full-width
+    wires (bf16, the banks' own weights; 512, 37 and 1 rows) and at the
+    bench's f32 shape, for bits 8, 4 and 1; then their times at 512 rows.
+    Returns one kernel-line record for each, headed by the bench shape
+    (the path that runs them)."""
+    wires = [bench_inputs(dev), wire_inputs(cap, cfg, dev, seed),
+             wire_inputs(rcap, rcfg, dev, seed)]
+    bq_rows, dq_rows = [], []
+    for inp in wires:
+        for m in ((512,) if inp is wires[0] else (512, 37, 1)):
+            x = inp["x"][:m].contiguous()
+            for bits in (8, 4, 1):
+                codes, scales, row = check_bq(x, inp["down"], bits,
+                                              inp["label"], zero_row=m > 1)
+                bq_rows.append(row)
+                dq_rows.append(check_dq(codes, scales, inp["up"],
+                                        f"{inp['label']} bits {bits}"))
+    timed = [time_wire(inp, dev, iters) for inp in wires]
+    recs = []
+    for name, rows, err in (
+            ("bottleneck_quant", bq_rows,
+             max(r["codes_max_diff"] for r in bq_rows)),
+            ("dequant_matmul", dq_rows,
+             max(r["max_abs_err"] for r in dq_rows))):
+        head = timed[0][name]
+        out = {"phase": "kernel", "name": name,
+               "tolerance": (f"codes |diff| <= 1 on < {TOL['codes_frac']:.0%}"
+                             f" of lanes, scales rtol {TOL['scale_rtol']}, "
+                             f"zero row exact" if name == "bottleneck_quant"
+                             else TOL["dequant"]),
+               "cases": rows, "max_abs_err": err, **head,
+               "library_ms": None,
+               "yardstick": "torch.matmul of the GEMM part alone "
+                            "(matmul_ms), never called by the port",
+               "wires": {inp["label"]: t[name]
+                         for inp, t in zip(wires[1:], timed[1:])}}
+        emit(out)
+        recs.append(out)
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # the serving entry point
 # ---------------------------------------------------------------------------
 
@@ -885,12 +1080,24 @@ def phase_reference(arch: str, device: str = "cuda"):
 def kernel_fns():
     from repro_torch.kernels.boundary_mixed import (boundary_mixed_grouped,
                                                     decode_tail_grouped)
+    from repro_torch.kernels.bottleneck_quant import bottleneck_quant
+    from repro_torch.kernels.dequant_matmul import dequant_matmul
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     return {"boundary_mixed_grouped": boundary_mixed_grouped,
             "decode_tail_grouped": decode_tail_grouped,
             "paged_attention": paged_attention,
-            "rglru_scan": rglru_scan}
+            "rglru_scan": rglru_scan,
+            "bottleneck_quant": bottleneck_quant,
+            "dequant_matmul": dequant_matmul}
+
+
+def zero_counts() -> dict:
+    """Set every kernel's launch counter to 0; returns the wrappers."""
+    fns = kernel_fns()
+    for f in fns.values():
+        f.launches = 0
+    return fns
 
 
 @contextlib.contextmanager
@@ -918,9 +1125,7 @@ def phase_main_path(cfg, smi: str):
     boundary and one scan per RG-LRU layer."""
     from repro_torch.core import split as SP
     from repro_torch.launch import serve
-    fns = kernel_fns()
-    for f in fns.values():
-        f.launches = 0
+    fns = zero_counts()
     calls: dict = {}
     with counting(SP, "split_prefill_mixed", calls), \
             counting(SP, "split_decode_step_mixed", calls):
@@ -939,15 +1144,16 @@ def phase_main_path(cfg, smi: str):
               "decode_tail_grouped": ticks,
               "paged_attention": (kinds.count("attn") * ticks
                                   if summary["paged"] else 0),
-              "rglru_scan": kinds.count("rglru") * prefills}
+              "rglru_scan": kinds.count("rglru") * prefills,
+              "bottleneck_quant": 0, "dequant_matmul": 0}
     for k, n in expect.items():
         if n:
             check(launches[k] > 0, f"main path: kernel {k} never launched")
     check(launches == expect,
           f"main path {cfg.name}: launches {launches} for {prefills} "
           f"prefill dispatches and {ticks} decode ticks, expected {expect}")
-    emit({"phase": "main_path", "arch": cfg.name, "dtype": cfg.dtype,
-          "paged": summary["paged"],
+    emit({"phase": "main_path", "engine": "continuous", "arch": cfg.name,
+          "dtype": cfg.dtype, "paged": summary["paged"],
           "requests_finished": summary["requests_finished"],
           "decode_tokens": summary["decode_tokens"],
           "decode_ticks": summary["decode_ticks"],
@@ -959,21 +1165,139 @@ def phase_main_path(cfg, smi: str):
     return launches
 
 
-def phase_profile(cfg):
-    """The arch's main path once more, traced with ``torch.profiler`` (its
-    rate is not the one reported above): device busy time, idle share,
-    launches per decode tick and the kernels that take the time. The
-    Chrome trace lands in build/profile/<arch>."""
+def phase_profile(cfg, engine: str):
+    """The arch's main path on ``engine`` once more, traced with
+    ``torch.profiler`` (its rate is not the one reported above): device
+    busy time, idle share, launches per decode step and the kernels that
+    take the time. The Chrome trace lands in build/profile/<engine>/<arch>.
+    A sync run's launches per step include its one prefill's."""
     from repro_torch.launch import serve
-    summary = serve.main(SERVE[cfg.name] + [
+    argv = (SERVE if engine == "continuous" else SYNC)[cfg.name]
+    summary = serve.main(argv + [
         "--device", "cuda", "--profile-dir",
-        str(ROOT / "build" / "profile" / cfg.name)])
+        str(ROOT / "build" / "profile" / engine / cfg.name)])
     prof = summary["profile"]
-    emit({"phase": "profile", "arch": cfg.name,
-          "decode_ticks": summary["decode_ticks"],
-          "launches_per_decode_tick": (prof["kernel_launches"]
-                                       / max(summary["decode_ticks"], 1)),
+    steps = (summary["decode_ticks"] if engine == "continuous"
+             else len(summary["generated"][0]))
+    emit({"phase": "profile", "engine": engine, "arch": cfg.name,
+          "decode_steps": steps,
+          "launches_per_decode_step": prof["kernel_launches"] / max(steps, 1),
           **prof})
+
+
+# ---------------------------------------------------------------------------
+# the synchronous engine and the kernel bench
+# ---------------------------------------------------------------------------
+
+SYNC_COMMON = ["--engine", "sync", "--policy", "orchestrator", "--requests",
+               "8", "--prompt-len", "16", "--gen", "16"]
+SYNC = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SYNC_COMMON],
+        "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SYNC_COMMON,
+                              "--cache-len", "2048"]}
+
+
+def phase_sync_reference(arch: str, device: str = "cuda"):
+    """The sync engine at reduced shapes in f32 on the card and on the CPU,
+    on the same weights, under the orchestrator and on the quantized mode
+    1 (``static1``): the same tokens, wire bytes and mode counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import split as SP
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    cpu = SP.init_split_params(torch.Generator().manual_seed(0), cfg)
+    gpu = T.tree_map(lambda t: t.to(device), cpu)
+    out = {"phase": "sync_reference", "arch": arch}
+    for policy in ("orchestrator", "static1"):
+        argv = SYNC[arch] + ["--reduced", "--policy", policy, "--device"]
+        got = serve.run_sync(serve.parser().parse_args(argv + [device]), cfg,
+                             gpu)
+        want = serve.run_sync(serve.parser().parse_args(argv + ["cpu"]), cfg,
+                              cpu)
+        for k in ("mode_counts", "wire_bytes", "tokens"):
+            check(got[k] == want[k], f"sync reduced f32 {policy}: {k} "
+                                     f"{got[k]} on the card, {want[k]} on "
+                                     f"the CPU")
+        same = [a == b for a, b in zip(got["generated"], want["generated"])]
+        first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                      None)
+                 for a, b in zip(got["generated"], want["generated"])]
+        check(all(same), f"sync reduced f32 {policy}: rows decode other "
+                         f"tokens on the card (first differing index "
+                         f"{first})")
+        out[policy] = {"mode_counts": got["mode_counts"],
+                       "wire_bytes": got["wire_bytes"],
+                       "rows_with_equal_tokens": sum(same)}
+    emit(out)
+
+
+def phase_sync_main_path(cfg, smi: str):
+    """The sync engine through ``serve.main`` at full width, every launch
+    counter at 0 just before and read just after, prefills and decode
+    steps counted beside them. Per decode step (the orchestrator's, which
+    ends in the fused tail) one decode tail; per prefill one scan per
+    RG-LRU layer; no boundary, paged attention or wire kernel."""
+    from repro_torch.core import split as SP
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    fns = zero_counts()
+    calls: dict = {}
+    with counting(T, "prefill", calls), \
+            counting(SP, "split_decode_step", calls), \
+            counting(T, "decode_step", calls):
+        summary = serve.main(SYNC[cfg.name] + ["--device", "cuda"])
+    launches = {k: f.launches for k, f in fns.items()}
+    prefills = calls.get("prefill", 0)
+    steps = calls.get("split_decode_step", 0) + calls.get("decode_step", 0)
+    gen = summary["generated"]
+    check(summary["tokens"] == 8 * 16 and len(gen) == 8
+          and all(len(r) == 16 and all(0 <= v < cfg.vocab_size for v in r)
+                  for r in gen),
+          f"sync main path {cfg.name}: {summary['tokens']} tokens")
+    check(prefills == 1 and steps == 16
+          and sum(summary["mode_counts"].values()) == 16,
+          f"sync main path {cfg.name}: {prefills} prefills, {steps} steps")
+    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+    expect = {k: 0 for k in fns}
+    expect["decode_tail_grouped"] = steps
+    expect["rglru_scan"] = kinds.count("rglru") * prefills
+    for k, n in expect.items():
+        if n:
+            check(launches[k] > 0, f"sync main path: kernel {k} never "
+                                   f"launched")
+    check(launches == expect,
+          f"sync main path {cfg.name}: launches {launches} for {prefills} "
+          f"prefills and {steps} decode steps, expected {expect}")
+    emit({"phase": "main_path", "engine": "sync", "arch": cfg.name,
+          "dtype": cfg.dtype, "prefill_s": summary["prefill_s"],
+          "decode_tok_per_s": summary["decode_tok_per_s"],
+          "tokens": summary["tokens"], "mode_counts": summary["mode_counts"],
+          "wire_bytes_per_token": summary["wire_bytes_per_token"],
+          "launches": launches, "prefills": prefills, "decode_steps": steps,
+          "card": smi})
+    return launches
+
+
+def phase_bench():
+    """``repro_torch.benchmarks.bench_kernels.main`` on the card, counters
+    at 0 just before: its two parity checks must hold and both wire
+    kernels must launch (its timings are host-clock best-of, launches
+    included; the kernel phases above give device times)."""
+    from repro_torch.benchmarks import bench_kernels
+    fns = zero_counts()
+    try:
+        out = bench_kernels.main(["--device", "cuda"])
+    except AssertionError as e:
+        raise SmokeFailure(f"bench: {e}") from e
+    launches = {k: f.launches for k, f in fns.items()}
+    for k in ("bottleneck_quant", "dequant_matmul"):
+        check(launches[k] > 0, f"bench: kernel {k} never launched")
+    emit({"phase": "bench", **out, "launches": launches})
+    return launches
 
 
 SOURCES = {
@@ -981,12 +1305,16 @@ SOURCES = {
     "decode_tail_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
+    "bottleneck_quant": "src/repro_torch/csrc/bottleneck_quant.cu",
+    "dequant_matmul": "src/repro_torch/csrc/dequant_matmul.cu",
 }
 REPLACES = {
     "boundary_mixed_grouped": "src/repro/kernels/boundary_mixed.py:196",
     "decode_tail_grouped": "src/repro/kernels/boundary_mixed.py:143",
     "paged_attention": "src/repro/kernels/paged_attention.py:82",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:42",
+    "bottleneck_quant": "src/repro/kernels/bottleneck_quant.py:48",
+    "dequant_matmul": "src/repro/kernels/dequant_matmul.py:25",
 }
 
 
@@ -1041,7 +1369,8 @@ def main(argv=None) -> int:
                              args.iters),
               phase_tail(cap, rcap, cfg, dev, args.seed, args.iters),
               phase_paged(cap, cfg, dev, args.seed, args.iters),
-              phase_rglru(rcap, dev, args.iters)):
+              phase_rglru(rcap, dev, args.iters),
+              *phase_wire(cap, rcap, cfg, rcfg, dev, args.seed, args.iters)):
         results[r["name"]] = r
     del cap, rcap
     gc.collect()
@@ -1050,8 +1379,13 @@ def main(argv=None) -> int:
     by_path = {}
     for c in (cfg, rcfg):
         phase_reference(c.name)
-        by_path[c.name] = phase_main_path(c, smi)
-        phase_profile(c)
+        by_path[f"{c.name} continuous"] = phase_main_path(c, smi)
+        phase_profile(c, "continuous")
+    for c in (cfg, rcfg):
+        phase_sync_reference(c.name)
+        by_path[f"{c.name} sync"] = phase_sync_main_path(c, smi)
+        phase_profile(c, "sync")
+    by_path["bench"] = phase_bench()
 
     print(smi, flush=True)
     emit({"kernels": [

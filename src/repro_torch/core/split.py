@@ -1,11 +1,14 @@
 """Split-model wrapper: cut the model at ``cfg.split.split_at`` into a
 UE-side encoder and an edge-side decoder, with the paper's selectable
-bottleneck modes at the boundary (mirrors the mixed-mode serving parts of
-``repro.core.split``).
+bottleneck modes at the boundary (mirrors the serving parts of
+``repro.core.split``: the per-mode decode step and prefill, and the
+mixed-mode ones).
 
 Decode state (the paged arena, stacked dense caches, or a tuple of
 per-layer states) is split along its layer axis into views, so both halves
-update the pool in place.
+update the pool in place and every step returns the state it was given:
+the halves need no merge (the reference's ``_merge_states``, which
+concatenates new functional halves, has no counterpart here).
 """
 from __future__ import annotations
 
@@ -45,6 +48,46 @@ def _split_states(states, cfg: ModelConfig, s: int):
         return (T.tree_map(lambda a: a[:s], states),
                 T.tree_map(lambda a: a[s:], states))
     return states[:s], states[s:]
+
+
+def _wire(params, x, cfg: ModelConfig, mode: int):
+    """The per-mode wire crossing: mode 0 sends the raw boundary
+    activation; mode m >= 1 encodes through head m (rmsnorm, down-projection,
+    quantization) and decodes on the edge (dequantization, up-projection)
+    with the reference's plain ops."""
+    if mode == 0:
+        return x
+    head = params["bneck_modes"][mode - 1]
+    _, bits = bottleneck.mode_widths(cfg.split)[mode - 1]
+    codes, scales = bottleneck.encode(head, x, bits)
+    return bottleneck.decode(head, codes, scales, bits,
+                             dtype=T.model_dtype(cfg))
+
+
+def split_decode_step(params, token, states, cur_pos, cfg: ModelConfig,
+                      mode: int = 0, return_tokens: bool = False):
+    """One-token decode with the boundary activation crossing the link in
+    bottleneck ``mode`` (the whole batch on one mode). Encoder-side layer
+    states stay on the UE, decoder-side ones at the edge; both update in
+    place. token: [B, 1]; ``cur_pos``: one int for aligned rows or a [B]
+    tensor. Returns (logits [B, 1, V], states, payload_bytes); with
+    ``return_tokens`` the fused decode tail replaces the logits with argmax
+    int32 tokens [B, 1]."""
+    s = cfg.split.split_at
+    x = T.embed_tokens(params, token, cfg)
+    B = x.shape[0]
+    pos = T.batch_positions(cur_pos, B, x.device)
+    enc_l, dec_l = slice_layers(params["layers"], cfg, s)
+    enc_st, dec_st = _split_states(states, cfg, s)
+    kinds = _kinds(cfg)
+    x = T.run_layers_decode(enc_l, x, enc_st, pos, cfg, kinds=kinds[:s])
+    x = _wire(params, x, cfg, mode)
+    x = T.run_layers_decode(dec_l, x, dec_st, pos, cfg, kinds=kinds[s:])
+    pb = bottleneck.mode_payload_bytes(cfg, B, 1, mode)
+    if return_tokens:
+        return T.decode_tail_tokens(params, x, cfg), states, pb
+    x = T.norm_apply_final(params, x, cfg)
+    return T.lm_logits(params, x, cfg), states, pb
 
 
 def split_decode_step_mixed(params, stacked_bank, token, states, positions,
@@ -97,11 +140,23 @@ def _prefill_through(params, tokens, cfg: ModelConfig, states, boundary,
     x = T.run_layers_prefill(dec_l, x, positions, dec_st, cfg,
                              kinds=kinds[s:], lengths=lengths,
                              block_table=block_table)
-    last = (lengths.long() - 1 if lengths is not None
-            else torch.full((B,), S - 1, dtype=torch.long, device=x.device))
-    x = x[torch.arange(B, device=x.device), last][:, None, :]
-    x = T.norm_apply_final(params, x, cfg)
-    return T.lm_logits(params, x, cfg), states
+    return T.last_logits(params, x, lengths, cfg), states
+
+
+def split_prefill(params, tokens, cfg: ModelConfig, states, mode: int = 0,
+                  *, lengths=None):
+    """Whole-prompt split prefill in one forward pass: encoder layers, the
+    boundary through bottleneck ``mode`` (the prompt's single uplink
+    transfer), decoder layers, filling every layer's decode state in place.
+    tokens: [B, S] right-padded; ``lengths``: optional [B] true lengths.
+    Returns (last-real-position logits [B, 1, V], states, payload_bytes);
+    the bytes cover the full padded [B, S] bucket, as in the reference."""
+    logits, states = _prefill_through(
+        params, tokens, cfg, states,
+        lambda x: _wire(params, x, cfg, mode), lengths, None)
+    pb = bottleneck.mode_payload_bytes(cfg, tokens.shape[0],
+                                       tokens.shape[-1], mode)
+    return logits, states, pb
 
 
 def split_prefill_mixed(params, stacked_bank, tokens, states,

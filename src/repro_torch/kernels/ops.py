@@ -13,6 +13,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.boundary_mixed import (boundary_mixed_grouped,
                                                 decode_tail_grouped)
+from repro_torch.kernels.bottleneck_quant import bottleneck_quant
+from repro_torch.kernels.dequant_matmul import dequant_matmul
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 
@@ -142,3 +144,32 @@ def rglru_scan_op(a, b, h0=None):
     which reads ``h0`` itself (the reference folds it into ``b[:, 0]``,
     the same f32 expression), any S >= 1 and any D."""
     return rglru_scan(a, b, h0)
+
+
+def bottleneck_quant_op(x, w, *, bits: int = 8):
+    """Fused down-projection + row-wise quantization (mirrors
+    ``repro.kernels.ops.bottleneck_quant_op``). x: [..., K], w: [K, N] ->
+    (codes int8 [..., N], scales f32 [..., 1]). CPU: the plain version;
+    CUDA: the kernel, which takes any row count and depth."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if x.device.type == "cpu":
+        codes, scales = ref.bottleneck_quant_ref(x2, w, bits)
+    else:
+        codes, scales = bottleneck_quant(x2, w.contiguous(), bits=bits)
+    return codes.reshape(*lead, w.shape[1]), scales.reshape(*lead, 1)
+
+
+def dequant_matmul_op(codes, scales, w):
+    """Fused dequantize + up-projection (mirrors
+    ``repro.kernels.ops.dequant_matmul_op``). codes: int8 [..., N], scales:
+    [..., 1], w: [N, D] -> bf16 [..., D]. CPU: the plain version; CUDA:
+    the kernel."""
+    lead = codes.shape[:-1]
+    c2 = codes.reshape(-1, codes.shape[-1]).contiguous()
+    s2 = scales.reshape(-1, 1).contiguous()
+    if codes.device.type == "cpu":
+        y = ref.dequant_matmul_ref(c2, s2, w)
+    else:
+        y = dequant_matmul(c2, s2, w.contiguous())
+    return y.reshape(*lead, w.shape[1])

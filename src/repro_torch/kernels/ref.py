@@ -28,6 +28,30 @@ def _final_norm(xf, norm_scale, norm_bias, norm_kind: str):
     return y
 
 
+def bottleneck_quant_ref(x, w, bits: int = 8):
+    """Fused down-projection + row-wise symmetric quantization (mirrors
+    ``repro.kernels.ref.bottleneck_quant_ref``). x: [M, K] bf16/f32, w:
+    [K, N] -> (codes int8 [M, N], scales f32 [M, 1]); ``bits=1`` is the
+    ternary code (qmax floored at 1). The divisor of the scale is a tensor:
+    on CUDA, PyTorch divides by a Python scalar as a multiply by its
+    reciprocal, which is not the reference's f32 division."""
+    z = x.float() @ w.float()
+    qm = max((1 << (bits - 1)) - 1, 1)
+    absmax = torch.amax(torch.abs(z), dim=-1, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-8) / torch.full_like(absmax, qm)
+    codes = torch.clamp(torch.round(z / scale), -qm, qm).to(torch.int8)
+    return codes, scale
+
+
+def dequant_matmul_ref(codes, scales, w, out_dtype=torch.bfloat16):
+    """Fused dequantize + up-projection (mirrors
+    ``repro.kernels.ref.dequant_matmul_ref``). codes: int8 [M, N], scales:
+    f32 [M, 1], w: [N, D] -> ``((f32(codes) * scales) @ f32(w))`` as
+    ``out_dtype``, [M, D]."""
+    z = codes.float() * scales
+    return (z @ w.float()).to(out_dtype)
+
+
 def boundary_mixed_ref(stacked, x, mode_idx, *, dtype=torch.bfloat16):
     """Per-row mixed-mode bottleneck boundary (the serving reference).
 

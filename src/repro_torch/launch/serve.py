@@ -1,20 +1,29 @@
-"""Serving launcher of the port: requests through the continuous-batching
-split engine, with the orchestrator picking each slot's transmit mode from
-simulated mmWave channels (mirrors ``repro.launch.serve --engine
-continuous``).
+"""Serving launcher of the port: requests through the split engine, with
+the orchestrator picking the transmit mode from simulated mmWave channels
+(mirrors ``repro.launch.serve --engine sync|continuous``).
 
-    # on the card, full width, random weights from --seed
+    # synchronous static batch (the default engine), on the card at full
+    # width, random weights from --seed
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --requests 8 --prompt-len 16 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --cache-len 2048 --policy static1
+    # continuous batching: per-request channels, per-slot bottleneck modes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --engine continuous --requests 8 --prompt-len 16 --gen 16
-    PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch recurrentgemma-2b --engine continuous --cache-len 2048
     # the plain PyTorch path on the CPU, reduced shapes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
-        --reduced --engine continuous --device cpu
+        --reduced --device cpu [--engine continuous]
 
-qwen2.5-3b serves from the paged pool, recurrentgemma-2b (RG-LRU and
-local-attention blocks) from the dense slot pool, whose rolling caches
-hold ``min(--cache-len, local_window)`` rows.
+Policies (sync engine):
+  orchestrator  the paper's dynamic policy (channel feedback, hysteresis)
+  static0       always mode 0 (raw boundary, most informative)
+  static1       always mode 1 (bottleneck z', cheapest)
+
+The continuous engine serves qwen2.5-3b from the paged pool and
+recurrentgemma-2b (RG-LRU and local-attention blocks) from the dense slot
+pool, whose rolling caches hold ``min(--cache-len, local_window)`` rows;
+the sync engine keeps one dense state of ``--requests`` rows.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
 raises rather than falling back to the CPU.
@@ -33,12 +42,13 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core import bottleneck
 from repro_torch.core import split as SP
-from repro_torch.core.channel import ChannelConfig, channel_fleet
+from repro_torch.core.channel import Channel, ChannelConfig, channel_fleet
 from repro_torch.core.orchestrator import (AppRequirement, ModeProfile,
                                            Orchestrator)
 from repro_torch.data.tokens import MarkovTokenSource
+from repro_torch.models import transformer as T
 from repro_torch.serving import (ContinuousBatchingEngine, ControllerConfig,
-                                 ModeController, Request)
+                                 ModeController, Request, ServingEngine)
 
 
 def build_orchestrator(cfg, batch: int, latency_budget_s: float,
@@ -88,6 +98,28 @@ def profile_summary(prof, seconds: float, top: int = 12) -> dict:
                             for k, (us, n) in rows]}
 
 
+def make_profiler(args, dev):
+    """A ``torch.profiler`` for the measured run when ``--profile-dir`` is
+    given (tracing the card's kernels on CUDA), else None."""
+    if not args.profile_dir:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def profile_extra(args, prof, seconds: float) -> dict:
+    """Export the profiled run's Chrome trace to ``--profile-dir`` and
+    summarize it; nothing without a profiler."""
+    if prof is None:
+        return {}
+    os.makedirs(args.profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+    return {"profile": profile_summary(prof, seconds)}
+
+
 def run_continuous(args, cfg, params):
     dev = params["embed"]["table"].device
     orch = build_orchestrator(cfg, 1, args.latency_budget_ms / 1e3,
@@ -116,13 +148,7 @@ def run_continuous(args, cfg, params):
     # run every prefill batch bucket and window length once, so the
     # decode rate measures steady-state serving
     eng.warm(np.asarray(batch[0]))
-    prof = None
-    if args.profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+    prof = make_profiler(args, dev)
     _sync(dev)
     t0 = time.perf_counter()
     with prof if prof is not None else contextlib.nullcontext():
@@ -130,12 +156,6 @@ def run_continuous(args, cfg, params):
         _sync(dev)
     seconds = time.perf_counter() - t0
     st = eng.stats()
-    extra = {}
-    if prof is not None:
-        os.makedirs(args.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile_dir,
-                                              "trace.json"))
-        extra["profile"] = profile_summary(prof, seconds)
     return {
         "engine": "continuous",
         "device": str(dev),
@@ -144,8 +164,70 @@ def run_continuous(args, cfg, params):
         "decode_tok_per_s": st["decode_tokens"] / max(seconds, 1e-9),
         "per_request": [s.result() for s in done[:4]],
         "tokens": {s.request.rid: list(s.tokens) for s in done},
-        **extra,
+        **profile_extra(args, prof, seconds),
         **st,
+    }
+
+
+def run_sync(args, cfg, params):
+    """One static batch of ``--requests`` Markov prompts: a batched prefill,
+    the first token from its logits, then ``--gen`` decode steps, each on
+    the policy's mode (the orchestrator's from one shared channel, or a
+    fixed one). Wall times end in a device synchronize."""
+    dev = params["embed"]["table"].device
+    orch = None
+    if args.policy == "orchestrator":
+        orch = build_orchestrator(cfg, args.requests,
+                                  args.latency_budget_ms / 1e3)
+    eng = ServingEngine(params, cfg, cache_len=args.cache_len,
+                        batch=args.requests, orchestrator=orch)
+    src = MarkovTokenSource(cfg, seed=7)
+    prompt = torch.from_numpy(
+        src.batch(args.requests, args.prompt_len)["tokens"]).to(dev)
+    chan = Channel(ChannelConfig(seed=args.channel_seed))
+    prof = make_profiler(args, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with prof if prof is not None else contextlib.nullcontext():
+        logits = eng.prefill(prompt)
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+        if args.policy.startswith("static"):
+            # the cache-wraparound guard decode_tokens applies
+            T.check_cache_capacity(cfg, eng.pos, args.gen, args.cache_len,
+                                   what="--gen")
+            mode = int(args.policy[-1])
+            out, wire = [], 0
+            tok = first
+            for _ in range(args.gen):
+                logits, eng.states, pb = SP.split_decode_step(
+                    params, tok, eng.states, eng.pos, cfg, mode=mode)
+                eng.pos += 1
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                out.append(tok)
+                wire += int(pb)
+            gen = torch.cat(out, dim=-1).cpu().numpy()
+            stats = {"tokens": int(gen.size), "wire_bytes": wire,
+                     "mode_counts": {mode: args.gen}}
+        else:
+            gen = eng.decode_tokens(first, args.gen,
+                                    capacity_bps_fn=chan.step)
+            stats = {"tokens": eng.stats.tokens,
+                     "wire_bytes": eng.stats.wire_bytes,
+                     "mode_counts": eng.stats.mode_counts,
+                     "mode_switches": orch.state.switches}
+        _sync(dev)
+    t_total = time.perf_counter() - t0
+    toks = args.requests * args.gen
+    return {
+        "engine": "sync", "policy": args.policy, "device": str(dev),
+        "prefill_s": t_prefill,
+        "decode_tok_per_s": toks / max(t_total - t_prefill, 1e-9),
+        "wire_bytes_per_token": stats["wire_bytes"] / max(toks, 1),
+        "generated": gen.tolist(),
+        **profile_extra(args, prof, t_total),
+        **stats,
     }
 
 
@@ -154,32 +236,41 @@ def parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--engine", default="continuous", choices=["continuous"],
-                    help="the sync, cluster and fleet engines are not "
-                         "ported yet")
+    ap.add_argument("--engine", default="sync",
+                    choices=["sync", "continuous"],
+                    help="sync: one static batch (the default); continuous: "
+                         "continuous batching with per-slot modes (the "
+                         "cluster and fleet engines are not ported yet)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch path)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
-    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=4,
+                    help="number of requests (sync: the batch size)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--cache-len", type=int, default=128,
-                    help="per-slot context (paged: the arena's rows per "
+                    help="per-sequence context (paged: the arena's rows per "
                          "slot; windowed archs cap it at their window)")
+    ap.add_argument("--policy", default="orchestrator",
+                    choices=["orchestrator", "static0", "static1"],
+                    help="sync engine: the mode policy (see above)")
     ap.add_argument("--latency-budget-ms", type=float, default=5.0)
-    ap.add_argument("--channel-seed", type=int, default=0)
+    ap.add_argument("--channel-seed", type=int, default=0,
+                    help="seed of the simulated channels")
     ap.add_argument("--n-slots", type=int, default=4,
-                    help="decode slot pool size")
+                    help="continuous engine: decode slot pool size")
     ap.add_argument("--arrival-every", type=int, default=2,
-                    help="ticks between request arrivals")
+                    help="continuous engine: ticks between request "
+                         "arrivals")
     ap.add_argument("--mode-policy", default="pertick",
-                    choices=["pertick", "adaptive", "frozen"])
+                    choices=["pertick", "adaptive", "frozen"],
+                    help="continuous engine: the mode policy")
     ap.add_argument("--dwell-ticks", type=int, default=2,
                     help="adaptive policy: min ticks between mode switches")
     ap.add_argument("--mean-mbps", type=float, default=40.0,
-                    help="fleet mean uplink")
+                    help="continuous engine: fleet mean uplink")
     ap.add_argument("--profile-dir", default=None,
                     help="trace the measured run with torch.profiler: a "
                          "Chrome trace lands here and the device busy "
@@ -194,12 +285,16 @@ def main(argv=None):
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     print(f"== repro_torch.launch.serve {args.arch} "
           f"({'reduced' if args.reduced else 'FULL'}) on {dev} "
+          f"engine={args.engine} "
           f"requests={args.requests} prompt={args.prompt_len} "
           f"gen={args.gen} ==", flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = SP.init_split_params(gen, cfg)
-    summary = {"arch": args.arch, **run_continuous(args, cfg, params)}
-    printed = {k: v for k, v in summary.items() if k != "tokens"}
+    runner = {"sync": run_sync, "continuous": run_continuous}[args.engine]
+    summary = {"arch": args.arch, **runner(args, cfg, params)}
+    # the generated tokens are returned, not printed
+    printed = {k: v for k, v in summary.items() if k != "generated"
+               and not (k == "tokens" and isinstance(v, dict))}
     print(json.dumps(printed, indent=1, default=str))
     if args.json_out:
         with open(args.json_out, "w") as f:

@@ -84,6 +84,30 @@ def full_attention_arch(cfg: ModelConfig) -> bool:
         cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
 
 
+def check_cache_capacity(cfg: ModelConfig, pos: int, n: int, cache_len: int,
+                         what: str = "generation") -> None:
+    """The full-attention capacity rule of the dense serving entry points
+    (the sync engine's prefill and decode, the launcher's static loop):
+    ``pos + n`` must not exceed ``cache_len``, or the rolling write would
+    evict early prompt context. Windowed and recurrent archs wrap by design
+    and always pass. Raises ``ValueError``."""
+    if full_attention_arch(cfg) and pos + n > cache_len:
+        raise ValueError(
+            f"{what} of {n} tokens from position {pos} exceeds cache_len "
+            f"{cache_len} for a full-attention arch (the rolling cache "
+            f"would overwrite prompt context)")
+
+
+def batch_positions(cur_pos, batch: int, device):
+    """Per-row decode positions [B] int32: ``cur_pos`` as given when it is
+    already a [B] tensor, else one int (all rows aligned, as in synchronous
+    batched serving) broadcast to every row."""
+    if torch.is_tensor(cur_pos) and cur_pos.dim() == 1:
+        return cur_pos
+    return torch.full((batch,), int(cur_pos), dtype=torch.int32,
+                      device=device)
+
+
 # ---------------------------------------------------------------------------
 # per-block init / apply
 # ---------------------------------------------------------------------------
@@ -251,6 +275,54 @@ def decode_tail_tokens(params, x, cfg: ModelConfig):
         heads, tied = params["lm_head"]["w"][None], False
     return ops.decode_tail_op(x, fn["scale"], fn.get("bias"), heads,
                               norm_kind=cfg.norm, tied=tied)
+
+
+# ---------------------------------------------------------------------------
+# top-level forwards
+# ---------------------------------------------------------------------------
+
+def prefill(params, tokens, cfg: ModelConfig, states, lengths=None):
+    """Batched full-sequence prefill: the whole prompt in one forward pass,
+    filling ``states`` in place (KV rows at their rolling slots, recurrent
+    carries advanced to each row's last real token). tokens: [B, S],
+    right-padded; ``lengths``: optional [B] true prompt lengths. Returns
+    (logits at each row's last real position [B, 1, V], states)."""
+    x = embed_tokens(params, tokens, cfg)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                  device=x.device)
+    x = run_layers_prefill(params["layers"], x, positions, states, cfg,
+                           lengths=lengths)
+    return last_logits(params, x, lengths, cfg), states
+
+
+def last_logits(params, x, lengths, cfg: ModelConfig):
+    """Logits [B, 1, V] at each row's last real position of a prefill's
+    output x [B, S, d] (``lengths`` [B], or None: all S)."""
+    B, S = x.shape[:2]
+    last = (lengths.long() - 1 if lengths is not None
+            else torch.full((B,), S - 1, dtype=torch.long, device=x.device))
+    x = x[torch.arange(B, device=x.device), last][:, None, :]
+    x = norm_apply_final(params, x, cfg)
+    return lm_logits(params, x, cfg)
+
+
+def decode_step(params, token, states, cur_pos, cfg: ModelConfig,
+                return_tokens: bool = False):
+    """One new token against the decode state (updated in place). token:
+    [B, 1]; ``cur_pos``: one int for aligned rows or a [B] tensor. Returns
+    (logits [B, 1, V], states); with ``return_tokens`` the fused decode
+    tail replaces the logits with argmax int32 tokens [B, 1]."""
+    x = embed_tokens(params, token, cfg)
+    pos = batch_positions(cur_pos, x.shape[0], x.device)
+    x = run_layers_decode(params["layers"], x, states, pos, cfg)
+    if return_tokens:
+        return decode_tail_tokens(params, x, cfg), states
+    x = norm_apply_final(params, x, cfg)
+    return lm_logits(params, x, cfg), states
 
 
 # ---------------------------------------------------------------------------

@@ -193,7 +193,8 @@ def test_paged_false_serves_full_attention_from_the_dense_pool():
 
 def test_serve_recurrentgemma_cpu_and_refuses_cuda(monkeypatch):
     out = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                      "--requests", "4", "--gen", "8"])
+                      "--engine", "continuous", "--requests", "4", "--gen",
+                      "8"])
     assert out["requests_finished"] == 4 and out["paged"] is False
     assert all(len(t) == 8 for t in out["tokens"].values())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -187,7 +187,7 @@ def test_serve_refuses_cuda_without_a_card(monkeypatch):
 
 def test_serve_cpu_runs_reduced():
     out = serve.main(["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu",
-                      "--requests", "3", "--prompt-len", "5", "--gen", "4",
-                      "--n-slots", "1"])
+                      "--engine", "continuous", "--requests", "3",
+                      "--prompt-len", "5", "--gen", "4", "--n-slots", "1"])
     assert out["requests_finished"] == 3
     assert all(len(t) == 4 for t in out["tokens"].values())
