@@ -19,7 +19,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
    attention, the first RG-LRU layer's gates for the scan, the rmsnormed
    encoder output and each bank's own projections for the wire pair
    (``bottleneck_quant``, ``dequant_matmul``; also at the kernel bench's
-   f32 shape; bits 8, 4 and 1, with a row of zeros); each phase times the
+   f32 shape; bits 8, 4 and 1, with a row of zeros); paged attention in
+   its one-range and its split form at the main path's decode shape and
+   at the capture's long shape (positions up to 999), bf16 bit for bit
+   against the plain version and the split-order mirror; the tail with 4
+   real rows of a 16-row block and with three heads; each phase times the
    kernel, its plain version and, where one exists, the one PyTorch call
    that computes the same function (a yardstick the port never calls; for
    the wire pair, which no one call computes, ``torch.matmul`` of the GEMM
@@ -79,7 +83,10 @@ TOL = {
     # must resolve to the lowest index.
     "tail_rel_gap": 1e-3,
     # the online softmax keeps the reference's rounding barriers, so bf16
-    # outputs track it to an ulp or two of values of size ~1; f32 to 1e-5
+    # outputs track it to an ulp or two of values of size ~1; f32 to 1e-5.
+    # Both forms of the kernel must also be bf16 bit for bit with the plain
+    # version: both sum in index order, and products of bf16 values are
+    # exact in f32
     "paged_bf16_abs": 1e-2,
     "paged_f32_abs": 1e-5,
     # the scan rounds a*h and the sum separately on both sides, in the
@@ -547,20 +554,26 @@ def phase_boundary(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
 # ---------------------------------------------------------------------------
 
 def check_tail(x, scale, head, label, expect=None, bias=None,
-               norm_kind="rmsnorm", tied=False):
-    """Kernel tokens (through the dispatcher) against the plain logits.
-    ``tied``: ``head`` is the [1, V, d] embedding table."""
+               norm_kind="rmsnorm", tied=False, head_idx=None, tokens=None):
+    """Kernel tokens (through the dispatcher, or ``tokens`` [n] when given)
+    against the plain logits. ``tied``: ``head`` is the [1, V, d] embedding
+    table; ``head_idx``: [n] per-row head of a stacked [H, d, V]."""
     import torch
     from repro_torch.kernels import ops, ref
-    tk = ops.decode_tail_op(x, scale, bias, head, norm_kind=norm_kind,
-                            tied=tied)
+    tk = (ops.decode_tail_op(x, scale, bias, head, head_idx,
+                             norm_kind=norm_kind, tied=tied)
+          if tokens is None else tokens[:, None])
     torch.cuda.synchronize()
-    tr = ref.decode_tail_ref(x, scale, bias, head, norm_kind=norm_kind,
-                             tied=tied)
+    tr = ref.decode_tail_ref(x, scale, bias, head, head_idx,
+                             norm_kind=norm_kind, tied=tied)
     xn = ref._final_norm(x.float(), scale, bias, norm_kind).to(x.dtype)
-    w = head[0].float()
-    logits = xn.float()[:, 0] @ (w.t() if tied else w)           # [n, V]
-    del w
+    if head_idx is not None:
+        logits = torch.einsum("nd,ndv->nv", xn.float()[:, 0],
+                              head[head_idx.long()].float())
+    else:
+        w = head[0].float()
+        logits = xn.float()[:, 0] @ (w.t() if tied else w)       # [n, V]
+        del w
     lmax = logits.amax(-1)
     picked = logits.gather(1, tk[:, 0:1].long())[:, 0]
     gap = (lmax - picked) / lmax.abs().clamp(min=1e-30)
@@ -573,6 +586,34 @@ def check_tail(x, scale, head, label, expect=None, bias=None,
               f"tail {label}: exact tie resolved to {int(tk[0, 0])} "
               f"(plain {int(tr[0, 0])}), expected the lowest index {expect}")
     return int((tk != tr).sum()), abs_gap
+
+
+def tail_block_cases(x_dec, valid, head, scale, seed: int, rows: list,
+                     tied=False):
+    """4 real rows in one 16-row block, called as the dispatcher calls the
+    wrapper (``n_real``) and with a per-block count (``rows_g``): the
+    kernel computes one n-tile of 8 and the rows' tokens must hold."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.boundary_mixed import decode_tail_grouped
+    dev = x_dec.device
+    x4 = pick_rows(x_dec, valid, 4, seed)
+    dest, hid_g, P = ops.head_layout(torch.zeros(4, dtype=torch.int32,
+                                                 device=dev), 1, 16)
+    xp = torch.zeros((P, x4.shape[-1]), dtype=x4.dtype, device=dev)
+    xp[dest] = x4[:, 0]
+    bias = torch.zeros_like(scale)
+    layout = "tied " if tied else ""
+    for kw, how in (({"n_blocks": 1, "n_real": 4}, "n_real"),
+                    ({"rows_g": torch.tensor([4, 0], dtype=torch.int32,
+                                             device=dev)}, "rows_g")):
+        tok = decode_tail_grouped(xp, head, scale, bias, hid_g, block_r=16,
+                                  tied=tied, **kw)
+        label = f"{layout}bf16 4 real rows of a 16-row block ({how})"
+        diff, gap = check_tail(x4, scale, head, label, tied=tied,
+                               tokens=tok[dest])
+        rows.append({"case": label, "tokens_differing": diff,
+                     "max_abs_err": gap})
 
 
 def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
@@ -609,6 +650,20 @@ def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
     check_tail(x, scale, tied, "bf16 exact tie", expect=low)
     rows.append({"case": "bfloat16 exact tie", "expected": low})
     del tied
+    tail_block_cases(cap["x_dec"], cap["valid"], head, scale, seed + 250,
+                     rows)
+    # three heads (column slices of the LM head): each block's real rows
+    # come from the layout on the device (ops.head_rows)
+    heads3 = torch.stack([head[0, :, i * 4096:(i + 1) * 4096]
+                          for i in range(3)]).contiguous()
+    x = pick_rows(cap["x_dec"], cap["valid"], 13, seed + 260)
+    hidx = torch.tensor([0, 2, 1, 2, 2, 0, 1, 1, 2, 0, 2, 2, 1],
+                        dtype=torch.int32, device=dev)
+    diff, gap = check_tail(x, scale, heads3, "bf16 3 heads pool 13",
+                           head_idx=hidx)
+    rows.append({"case": "bfloat16 3 heads pool 13",
+                 "tokens_differing": diff, "max_abs_err": gap})
+    del heads3
     x32 = x.float()
     head32 = head.float()
     diff, gap = check_tail(x32, scale.float(), head32, "f32 pool 8")
@@ -625,7 +680,8 @@ def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
     bias = torch.zeros_like(scale)
     parts = {}
     ms = time_ms(lambda: decode_tail_grouped(xp, head, scale, bias, hid_g,
-                                             block_r=16, n_blocks=1), iters,
+                                             block_r=16, n_blocks=1,
+                                             n_real=4), iters,
                  by_kernel=parts)
     plain = time_ms(lambda: ref.decode_tail_ref(x4, scale, None, head), iters)
     d = x4.shape[-1]
@@ -639,8 +695,8 @@ def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in rows),
            "timed_shape": {"rows": 4, "d": d, "V": V},
            "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-           "tied": tied}
+           "bound_ms": b_ms, "bound_by": b_by, "bound_over_ms": b_ms / ms,
+           "library_ms": None, "tied": tied}
     emit(out)
     return out
 
@@ -675,6 +731,8 @@ def tail_tied(rcap, dev, seed: int, iters: int, rows: list):
                tied=True)
     rows.append({"case": "tied bfloat16 exact tie", "expected": low})
     del tied
+    tail_block_cases(rcap["x_dec"], rcap["valid"], head, scale, seed + 550,
+                     rows, tied=True)
     x4 = pick_rows(rcap["x_dec"], rcap["valid"], 4, seed + 600)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -692,7 +750,7 @@ def tail_tied(rcap, dev, seed: int, iters: int, rows: list):
     parts = {}
     ms = time_ms(lambda: decode_tail_grouped(xp, head, scale, bias, hid_g,
                                              block_r=16, n_blocks=1,
-                                             tied=True), iters,
+                                             n_real=4, tied=True), iters,
                  by_kernel=parts)
     plain = time_ms(lambda: ref.decode_tail_ref(x4, scale, None, head,
                                                 tied=True),
@@ -701,7 +759,7 @@ def tail_tied(rcap, dev, seed: int, iters: int, rows: list):
                        "bfloat16")
     return {"timed_shape": {"rows": 4, "d": d, "V": V, "layout": "[V, d]"},
             "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_over_ms": b_ms / ms,
             "call_extra_bytes": int(extra)}
 
 
@@ -742,10 +800,58 @@ def sdpa_ms(q, kp, vp, bt, pos, iters, flush):
         qq, k, v, attn_mask=mask), iters, flush)
 
 
-def phase_paged(cap, cfg, dev, seed: int, iters: int):
+def paged_bound(kp, q, bt, pos):
+    """(least ms, "bytes" or "operations") of one paged call: q read and
+    the output written once, the K/V rows of each sequence's live pages,
+    the table and the positions; 4 nq hd flops a live row."""
+    plen, n_kv, hd = kp.shape[1], kp.shape[2], kp.shape[3]
+    nq, es = q.shape[1], q.element_size()
+    pages = sum(int(p) // plen + 1 for p in pos)
+    nbytes = (2 * q.numel() * es + pages * plen * n_kv * hd * es * 2
+              + bt.numel() * 4 + pos.numel() * 4)
+    flops = sum(4 * nq * hd * (int(p) + 1) for p in pos)
+    return bound(nbytes, flops, dtype_name(q.dtype))
+
+
+def check_paged(q, kp, vp, bt, pos, pps, label, oracle=False):
+    """The kernel at ``pps`` pages a range against the plain version (and, with ``oracle``, the split-order
+    mirror at the same pps): bf16 bit for bit, f32 within
+    ``TOL["paged_f32_abs"]``. Returns the case's record."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
+    out = paged_attention(q, kp, vp, bt, pos, pages_per_split=pps)
+    torch.cuda.synchronize()
+    wants = [ref.paged_attention_ref(q, kp, vp, bt, pos)]
+    if oracle:
+        wants.append(ref.paged_attention_split_ref(
+            q, kp, vp, bt, pos, pps))
+    bf = q.dtype == torch.bfloat16
+    tol = TOL["paged_bf16_abs"] if bf else TOL["paged_f32_abs"]
+    errs, differing = [], []
+    for want in wants:
+        errs.append(float((out.float() - want.float()).abs().max()))
+        differing.append(int((out != want).sum()))
+    ok = (bool(torch.isfinite(out.float()).all()) and max(errs) <= tol
+          and not (bf and any(differing)))
+    check(ok, f"paged attention {label}: max error {errs}, "
+              f"{differing} elements differ")
+    return {"case": label, "pages_per_split": pps, "max_abs_err": max(errs),
+            "elements_differing": max(differing),
+            "checked_against": ["plain"] + (["split oracle"] if oracle
+                                            else [])}
+
+
+def phase_paged(cap, cfg, dev, seed: int, iters: int):
+    """The one-range and the split form at the long shape (the capture's
+    positions, up to 999) and at the main path's decode shape, bf16 bit
+    for bit and f32 within tolerance against the plain version and the
+    split-order mirror; then times at both shapes beside SDPA on the
+    gathered K/V and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (pages_per_split_for,
+                                                     paged_attention)
     layer = cfg.split.split_at - 1
     kp, vp = cap["arena"]["k"][layer], cap["arena"]["v"][layer]
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
@@ -756,48 +862,60 @@ def phase_paged(cap, cfg, dev, seed: int, iters: int):
     pos = (lens - 1).to(torch.int32)
     q = decode_query(cap, cfg, layer, pos)
     bt = cap["bt"]
-    rows = []
-    for dt, tol in ((torch.bfloat16, TOL["paged_bf16_abs"]),
-                    (torch.float32, TOL["paged_f32_abs"])):
-        qd, kd, vd = q.to(dt), kp.to(dt), vp.to(dt)
-        out = paged_attention(qd, kd, vd, bt, pos)
-        torch.cuda.synchronize()
-        want = ref.paged_attention_ref(qd, kd, vd, bt, pos)
-        err = float((out.float() - want.float()).abs().max())
-        check(bool(torch.isfinite(out.float()).all()) and err <= tol,
-              f"paged attention {dtype_name(dt)}: max error {err} > {tol}")
-        rows.append({"case": f"{dtype_name(dt)} positions "
-                             f"{[int(p) for p in pos]}", "max_abs_err": err,
-                     "tolerance": tol})
-    flush = l2_flusher(dev)
-    long_ms = time_ms(lambda: paged_attention(q, kp, vp, bt, pos), iters,
-                      flush)
-    # timing at the main path's decode shape: 4 slots at positions the
-    # 16-token prompts reach while generating 16 tokens
+    B, nb = bt.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    auto = pages_per_split_for(B, kp.shape[2], nb, sms)
+    # the main path's decode shape: 4 slots at positions the 16-token
+    # prompts reach while generating 16 tokens
     seqs = torch.tensor([0, 4, 5, 7], device=dev)
     pos4 = torch.tensor([16, 20, 24, 31], dtype=torch.int32, device=dev)
     bt4 = bt[seqs][:, :4].contiguous()
     q4 = decode_query(cap, cfg, layer, pos4)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        qd, kd, vd = q.to(dt), kp.to(dt), vp.to(dt)
+        name = dtype_name(dt)
+        for pps, form in ((nb, "one range"), (auto, f"split {auto}"),
+                          (3, "split 3")):
+            rows.append(check_paged(qd, kd, vd, bt, pos, pps,
+                                    f"{name} long {form}",
+                                    oracle=pps != 3))
+        q4d = q4.to(dt)
+        for pps, form in ((4, "one range"), (1, "split 1")):
+            rows.append(check_paged(q4d, kd, vd, bt4, pos4, pps,
+                                    f"{name} decode {form}", oracle=True))
+        del kd, vd
+    flush = l2_flusher(dev)
+    # decode shape (the headline)
     ms = time_ms(lambda: paged_attention(q4, kp, vp, bt4, pos4), iters, flush)
     plain = time_ms(lambda: ref.paged_attention_ref(q4, kp, vp, bt4, pos4),
                     max(iters // 5, 3), flush)
     lib = sdpa_ms(q4, kp, vp, bt4, pos4, iters, flush)
+    b_ms, b_by = paged_bound(kp, q4, bt4, pos4)
+    # long shape: both forms, SDPA, the bound
+    parts = {}
+    long = {"positions": [int(p) for p in pos], "nb": nb,
+            "pages_per_split": auto,
+            "ms": time_ms(lambda: paged_attention(q, kp, vp, bt, pos), iters,
+                          flush, parts),
+            "ms_by_kernel": parts,
+            "one_range_ms": time_ms(lambda: paged_attention(
+                q, kp, vp, bt, pos, pages_per_split=nb), iters, flush),
+            "library_ms": sdpa_ms(q, kp, vp, bt, pos, iters, flush)}
+    long["bound_ms"], long["bound_by"] = paged_bound(kp, q, bt, pos)
+    long["plain_ms"] = time_ms(lambda: ref.paged_attention_ref(
+        q, kp, vp, bt, pos), 2, flush)
     plen, n_kv, hd, nq = kp.shape[1], kp.shape[2], kp.shape[3], q4.shape[1]
-    pages = sum(int(p) // plen + 1 for p in pos4)
-    nbytes = (2 * 2 * 4 * nq * hd + pages * plen * n_kv * hd * 2 * 2
-              + bt4.numel() * 4 + 4 * 4)
-    flops = sum(4 * nq * hd * (int(p) + 1) for p in pos4)
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
     out = {"phase": "kernel", "name": "paged_attention",
-           "tolerance": f"bf16 {TOL['paged_bf16_abs']} abs, f32 "
-                        f"{TOL['paged_f32_abs']} abs", "cases": rows,
-           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "tolerance": f"bf16 bit for bit (and {TOL['paged_bf16_abs']} "
+                        f"abs), f32 {TOL['paged_f32_abs']} abs",
+           "cases": rows, "max_abs_err": max(r["max_abs_err"] for r in rows),
            "timed_shape": {"B": 4, "positions": [int(p) for p in pos4],
                            "nq": nq, "n_kv": n_kv, "hd": hd, "page_len": plen},
            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": lib, "library_call": "scaled_dot_product_attention "
                                               "on the gathered K/V",
-           "ms_positions_up_to_999": long_ms}
+           "long": long}
     emit(out)
     return out
 

@@ -1,10 +1,13 @@
 // Shared device helpers for the repro_torch kernels: element-type
-// conversions (float and bf16), warp reductions, and a launch helper that
-// lifts the dynamic shared-memory limit once per kernel instantiation.
+// conversions (float and bf16), warp reductions, 16-byte cp.async copies
+// and shared-memory reads, and a launch helper that lifts the dynamic
+// shared-memory limit once per kernel instantiation.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace rt {
 
@@ -54,6 +57,42 @@ __device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
     int i = __shfl_xor_sync(0xffffffffu, bi, o);
     arg_better(bv, bi, v, i);
   }
+}
+
+// 16-byte asynchronous copy global -> shared (cp.async, L1 bypassed); both
+// addresses 16-byte aligned. Copies land after cp_async_wait<n>() leaves at
+// most n of the calling thread's committed groups in flight, and are
+// visible to the block after a __syncthreads that follows the wait.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 16 bytes of shared memory as floats: 8 bf16 or 4 f32 values
+__device__ __forceinline__ void smem16_to_f(const bf16* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    out[2 * j] = f.x;
+    out[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void smem16_to_f(const float* p, float* out) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  out[0] = f.x;
+  out[1] = f.y;
+  out[2] = f.z;
+  out[3] = f.w;
 }
 
 // Kernels that take more than 48 KB of dynamic shared memory must opt in;

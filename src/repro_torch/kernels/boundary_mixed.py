@@ -20,7 +20,7 @@ from repro_torch.kernels.ref import (boundary_mixed_grouped_ref,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = {}
-_TAIL_COLS = 512    # vocab columns per block of the tail (kVT in the .cu)
+_TAIL_SLAB = 128    # vocab columns per bf16 slab of the tail (kMV in the .cu)
 
 
 def _fn(name, argtypes):
@@ -99,14 +99,19 @@ boundary_mixed_grouped.launches = 0
 
 def decode_tail_grouped(xp, heads, norm_scale, norm_bias, hid_g, *,
                         block_r: int, norm_kind: str = "rmsnorm",
-                        n_blocks=None, tied: bool = False):
+                        n_blocks=None, tied: bool = False, n_real=None,
+                        rows_g=None):
     """Fused decode tail: final norm -> per-block LM head -> argmax -> int32
     token. ``xp``: [P, d] rows permuted so each ``block_r``-row block is
     head-uniform (``ops.head_layout``); ``heads``: [H, d, V], or with
     ``tied`` the embedding table as [H, V, d], read in place;
     ``norm_scale``/``norm_bias``: [d]; ``hid_g``: [P/block_r] int32.
     ``n_blocks``: compute only the first row blocks (rows past them are
-    returned as 0), default all. Returns [P] int32 tokens."""
+    returned as 0), default all. The real rows of each block (the bf16
+    kernel computes only those): ``rows_g`` [P/block_r] int32 on the device
+    (``ops.head_rows``), or the first ``n_real`` rows of the layout, default
+    every row; in bf16 the other rows of a computed block return 0.
+    Returns [P] int32 tokens."""
     P, d = xp.shape
     if tied:
         H, V, d2 = heads.shape
@@ -125,30 +130,38 @@ def decode_tail_grouped(xp, heads, norm_scale, norm_bias, hid_g, *,
     what = "decode_tail_grouped"
     if xp.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: takes bf16 or f32 rows, got {xp.dtype}")
-    r_kernel = 16 if xp.dtype == torch.bfloat16 else 8
-    # a tied row is read in 32-byte sectors from a 16-byte aligned start
-    sector = 32 // xp.element_size()
+    bf16 = xp.dtype == torch.bfloat16
+    r_kernel = 16 if bf16 else 8
+    # bf16: 64-deep tiles of 16-byte copies; f32: a tied row is read in
+    # 32-byte sectors from a 16-byte aligned start
+    shape_ok = (d % 64 == 0 and V % 8 == 0) if bf16 \
+        else (not tied or d % 8 == 0)
     if (block_r != r_kernel or d2 != d or P % block_r or not 0 < n_run <= G
             or norm_scale.shape != (d,) or norm_bias.shape != (d,)
-            or norm_kind not in ("rmsnorm", "layernorm")
-            or (tied and (d % sector or heads.data_ptr() % 16))):
+            or norm_kind not in ("rmsnorm", "layernorm") or not shape_ok
+            or heads.data_ptr() % 16):
         raise ValueError(f"{what}: unsupported shapes xp {tuple(xp.shape)} "
                          f"heads {tuple(heads.shape)} tied {tied} block_r "
                          f"{block_r} n_blocks {n_run} norm {norm_kind}")
     _check_cuda(what, xp, heads, norm_scale, norm_bias, dtype=xp.dtype)
     (hid,) = _tables(what, G, hid_g)
+    if rows_g is not None:
+        (rows_g,) = _tables(what, G, rows_g)
     rows = n_run * block_r
-    n_vt = -(-V // _TAIL_COLS)
+    n_real = rows if n_real is None else int(n_real)
+    ld = -(-V // _TAIL_SLAB)
     hbuf = torch.empty((rows, d), dtype=xp.dtype, device=xp.device)
-    pbest = torch.empty((rows, n_vt), dtype=torch.float32, device=xp.device)
-    pidx = torch.empty((rows, n_vt), dtype=torch.int32, device=xp.device)
+    pbest = torch.empty((rows, ld), dtype=torch.float32, device=xp.device)
+    pidx = torch.empty((rows, ld), dtype=torch.int32, device=xp.device)
     tok = torch.zeros(P, dtype=torch.int32, device=xp.device)
-    fn = _fn("decode_tail_grouped_launch", [_P] * 9 + [_I] * 6 + [_P])
+    fn = _fn("decode_tail_grouped_launch",
+             [_P] * 9 + [_I] * 6 + [_P, _I, _I, _P])
     code = fn(xp.data_ptr(), heads.data_ptr(), norm_scale.data_ptr(),
               norm_bias.data_ptr(), hid.data_ptr(), hbuf.data_ptr(),
               pbest.data_ptr(), pidx.data_ptr(), tok.data_ptr(), n_run, d, V,
-              int(norm_kind == "layernorm"), int(tied),
-              int(xp.dtype == torch.bfloat16), _build.stream_ptr(xp.device))
+              int(norm_kind == "layernorm"), int(tied), int(bf16),
+              None if rows_g is None else rows_g.data_ptr(), n_real, ld,
+              _build.stream_ptr(xp.device))
     _build.check(code, what)
     decode_tail_grouped.launches += 1
     return tok

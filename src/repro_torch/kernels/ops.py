@@ -24,7 +24,8 @@ def _group_rows(mode_idx, n_modes: int, block_r: int):
     each mode's run is padded up to a multiple of ``block_r``. Returns
     (dest [B] — each row's slot in the padded layout, starts [n_modes] —
     each mode's padded offset, padded [n_modes], static padded row count
-    P = (ceil(B / block_r) + n_modes) * block_r)."""
+    P = (ceil(B / block_r) + n_modes) * block_r, counts [n_modes] — each
+    mode's rows)."""
     B = mode_idx.shape[0]
     dev = mode_idx.device
     m = mode_idx.long()
@@ -39,7 +40,7 @@ def _group_rows(mode_idx, n_modes: int, block_r: int):
     dest = torch.empty(B, dtype=torch.long, device=dev)
     dest[order] = starts[sortedm] + rank
     P = (-(-B // block_r) + n_modes) * block_r
-    return dest, starts, padded, P
+    return dest, starts, padded, P, counts
 
 
 def group_layout(stacked, rmode, block_r: int, block_w: int):
@@ -49,7 +50,7 @@ def group_layout(stacked, rmode, block_r: int, block_w: int):
     ``nchunk`` (0 = raw passthrough), ``width`` and ``bits``. Blocks past
     the used span behave as raw rows and are never gathered back."""
     M = stacked["width"].shape[0]
-    dest, starts, padded, P = _group_rows(rmode, M + 1, block_r)
+    dest, starts, padded, P, _ = _group_rows(rmode, M + 1, block_r)
     G = P // block_r
     bstart = torch.arange(G, device=rmode.device) * block_r
     used = bstart < padded.sum()
@@ -69,13 +70,24 @@ def head_layout(head_idx, n_heads: int, block_r: int):
     """Head-uniform row-block layout for the fused decode tail. Returns
     (dest [rows], hid_g [P/block_r] int32, static padded row count P).
     Blocks past the used span read head 0 and are never gathered back."""
-    dest, starts, padded, P = _group_rows(head_idx, n_heads, block_r)
+    dest, starts, padded, P, _ = _group_rows(head_idx, n_heads, block_r)
     G = P // block_r
     bstart = torch.arange(G, device=head_idx.device) * block_r
     used = bstart < padded.sum()
     hid_g = torch.clamp(torch.searchsorted(starts, bstart, right=True) - 1,
                         0, n_heads - 1)
     return dest, torch.where(used, hid_g, 0).to(torch.int32), P
+
+
+def head_rows(head_idx, n_heads: int, block_r: int):
+    """Real rows of each block of ``head_layout``'s layout: [P/block_r]
+    int32, 0 for padding blocks (the tail kernel computes only these)."""
+    _, starts, padded, P, counts = _group_rows(head_idx, n_heads, block_r)
+    bstart = torch.arange(P // block_r, device=head_idx.device) * block_r
+    h = torch.clamp(torch.searchsorted(starts, bstart, right=True) - 1, 0,
+                    n_heads - 1)
+    rows = torch.clamp(starts[h] + counts[h] - bstart, 0, block_r)
+    return torch.where(bstart < padded.sum(), rows, 0).to(torch.int32)
 
 
 def _block_r(x) -> int:
@@ -120,12 +132,14 @@ def decode_tail_op(x, norm_scale, norm_bias, heads, head_idx=None, *,
     xp = torch.zeros((P, d), dtype=x.dtype, device=x.device)
     xp[dest] = x.reshape(B * S, d)
     bias = norm_bias if norm_bias is not None else torch.zeros_like(norm_scale)
-    # one head: the rows sit in the first ceil(rows / block_r) blocks, and
-    # the padding block behind them is never read back
-    n_blocks = -(-(B * S) // block_r) if H == 1 else None
+    # one head: the rows sit first, in the first ceil(rows / block_r)
+    # blocks, and the padding block behind them is never read back; several
+    # heads: each block's real rows come from the layout, on the device
+    rows = ({"n_blocks": -(-(B * S) // block_r), "n_real": B * S} if H == 1
+            else {"rows_g": head_rows(rhid, H, block_r)})
     tok = decode_tail_grouped(xp, heads, norm_scale, bias, hid_g,
                               block_r=block_r, norm_kind=norm_kind,
-                              n_blocks=n_blocks, tied=tied)
+                              tied=tied, **rows)
     return tok[dest].reshape(B, S)
 
 

@@ -120,48 +120,136 @@ def boundary_mixed_grouped_ref(xp, down_w, up_w, norm_scale, hid_g, nchunk_g,
     return torch.cat(outs, dim=0)
 
 
+def _sum_seq(x):
+    """f32 sum over the last axis in index order: x[..., 0] + x[..., 1] +
+    ... (the paged kernels' order)."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def _dot_seq(a, b):
+    """f32 dot product over the last axis, accumulated in index order (the
+    paged kernels' order; their FMAs give the same bits wherever the
+    products are exact in f32, as products of bf16 values are)."""
+    acc = a[..., 0] * b[..., 0]
+    for i in range(1, a.shape[-1]):
+        acc = acc + a[..., i] * b[..., i]
+    return acc
+
+
+def _paged_scores(qf, k_pages, pages, g, scale, dt):
+    """Rounded scores [n, nq, plen] of a sequence's pages ``pages`` (page
+    ids, in order) for its f32 query rows qf [nq, hd]."""
+    kf = k_pages[pages].float().repeat_interleave(g, dim=2)  # [n,plen,nq,hd]
+    return (_dot_seq(qf, kf) * scale).to(dt).float().transpose(1, 2)
+
+
+def _page_pv(p, vf):
+    """f32 p . v of one page (the caller rounds it): p [nq, plen], vf
+    [plen, nq, hd] -> [nq, hd], the rows summed in order."""
+    acc = p[:, 0, None] * vf[0]
+    for t in range(1, p.shape[1]):
+        acc = acc + p[:, t, None] * vf[t]
+    return acc
+
+
+def _paged_args(q, k_pages, block_table, positions):
+    B, nq, hd = q.shape
+    plen, n_kv = k_pages.shape[1], k_pages.shape[2]
+    pos = [int(p) for p in positions.tolist()] \
+        if torch.is_tensor(positions) else [int(p) for p in positions]
+    nb = block_table.shape[1]
+    live = [0 if p < 0 else min(nb, p // plen + 1) for p in pos]
+    return (B, nq, hd, plen, nq // n_kv, 1.0 / math.sqrt(hd), pos, live,
+            block_table.tolist())
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_table, positions):
-    """Blocked plain version of the paged decode-attention kernel: walks
-    (sequence, page) like the kernel, with the same page-skip guard, f32
-    online softmax and ``q.dtype`` rounding barriers at the score,
-    probability, correction and accumulator hand-offs.
+    """Blocked plain version of the paged decode-attention kernels: walks
+    (sequence, page) like the reference, with the same page-skip guard,
+    f32 online softmax and ``q.dtype`` rounding barriers at the score,
+    probability, correction and accumulator hand-offs. The reference
+    leaves the order of its sums (q . k over the head dim, p over a page's
+    rows, p . v over them) to XLA; here each runs in index order, the
+    kernels' order, so that in bf16 the two agree bit for bit.
 
     q: [B, nq, hd]; ``k_pages``/``v_pages``: [n_pages, page_len, n_kv, hd];
     ``block_table``: [B, nb]; ``positions``: [B] (read on the host).
     Returns [B, nq, hd] in ``q.dtype``."""
-    B, nq, hd = q.shape
-    plen, n_kv = k_pages.shape[1], k_pages.shape[2]
-    g = nq // n_kv
-    nb = block_table.shape[1]
-    scale = 1.0 / math.sqrt(hd)
+    B, nq, hd, plen, g, scale, pos, live, table = _paged_args(
+        q, k_pages, block_table, positions)
     dt = q.dtype
-    positions = [int(p) for p in positions.tolist()] \
-        if torch.is_tensor(positions) else [int(p) for p in positions]
-    table = block_table.tolist()
     f32 = torch.float32
     outs = []
     for b in range(B):
-        pos_b = positions[b]
         m = torch.full((1, nq), NEG_INF, dtype=f32, device=q.device)
         l = torch.zeros((1, nq), dtype=f32, device=q.device)
         acc = torch.zeros((nq, hd), dtype=f32, device=q.device)
-        qf = q[b].float()
-        for j in range(nb):
-            if j * plen > pos_b:
-                continue
-            page = table[b][j]
-            kf = k_pages[page].float().repeat_interleave(g, dim=1)
-            vf = v_pages[page].float().repeat_interleave(g, dim=1)
-            s = (torch.einsum("nh,tnh->nt", qf, kf) * scale).to(dt).float()
+        pages = table[b][:live[b]]
+        s_all = _paged_scores(q[b].float(), k_pages, pages, g, scale, dt)
+        for j, page in enumerate(pages):
             t_abs = j * plen + torch.arange(plen, device=q.device)[None, :]
-            s = torch.where(t_abs <= pos_b, s, NEG_INF)
+            s = torch.where(t_abs <= pos[b], s_all[j], NEG_INF)
             m_new = torch.maximum(m, torch.amax(s, dim=-1)[None, :])
             p = torch.exp(s - m_new[0][:, None]).to(dt).float()
             corr = torch.exp(m - m_new).to(dt).float()
             m = m_new
-            l = (l * corr).to(dt).float() + torch.sum(p, dim=-1)[None, :]
+            l = (l * corr).to(dt).float() + _sum_seq(p)[None, :]
+            vf = v_pages[page].float().repeat_interleave(g, dim=1)
             acc = (acc * corr[0][:, None]).to(dt).float() \
-                + torch.einsum("nt,tnh->nh", p, vf).to(dt).float()
+                + _page_pv(p, vf).to(dt).float()
+        outs.append((acc / l[0][:, None]).to(dt))
+    return torch.stack(outs)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_table, positions,
+                              pages_per_split: int):
+    """Blocked plain mirror of the paged kernels' split order: a sequence's
+    live pages are cut into ranges of ``pages_per_split``; per range (A) the
+    rounded, masked scores and each page's maximum, then (B) the running
+    max entering the range (the earlier pages' maxima), each page's m_j, p,
+    corr, psum and rounded pv; last (C) the serial l / acc combine over all
+    pages and the division. Every value is the one
+    ``paged_attention_ref``'s sequential walk gives, op for op, so the two
+    agree bit for bit at every ``pages_per_split``. Shapes as
+    ``paged_attention_ref``."""
+    B, nq, hd, plen, g, scale, pos, live, table = _paged_args(
+        q, k_pages, block_table, positions)
+    dt = q.dtype
+    f32 = torch.float32
+    outs = []
+    for b in range(B):
+        n_live, pages = live[b], table[b][:live[b]]
+        ranges = [range(r, min(r + pages_per_split, n_live))
+                  for r in range(0, n_live, pages_per_split)]
+        s_pg, pmax, stats = {}, {}, {}
+        for rng in ranges:                     # A: scores, page maxima
+            s_r = _paged_scores(q[b].float(), k_pages,
+                                [pages[j] for j in rng], g, scale, dt)
+            for i, j in enumerate(rng):
+                t_abs = j * plen + torch.arange(plen, device=q.device)[None, :]
+                s_pg[j] = torch.where(t_abs <= pos[b], s_r[i], NEG_INF)
+                pmax[j] = torch.amax(s_pg[j], dim=-1)[None, :]
+        for rng in ranges:                     # B: p, corr, psum, pv
+            m = torch.full((1, nq), NEG_INF, dtype=f32, device=q.device)
+            for j in range(rng.start):         # the earlier pages' maxima
+                m = torch.maximum(m, pmax[j])
+            for j in rng:
+                m_new = torch.maximum(m, pmax[j])
+                p = torch.exp(s_pg[j] - m_new[0][:, None]).to(dt).float()
+                corr = torch.exp(m - m_new).to(dt).float()
+                vf = v_pages[pages[j]].float().repeat_interleave(g, dim=1)
+                stats[j] = (corr, _sum_seq(p)[None, :],
+                            _page_pv(p, vf).to(dt).float())
+                m = m_new
+        l = torch.zeros((1, nq), dtype=f32, device=q.device)
+        acc = torch.zeros((nq, hd), dtype=f32, device=q.device)
+        for j in range(n_live):                # C: the serial combine
+            corr, psum, pv = stats[j]
+            l = (l * corr).to(dt).float() + psum
+            acc = (acc * corr[0][:, None]).to(dt).float() + pv
         outs.append((acc / l[0][:, None]).to(dt))
     return torch.stack(outs)
 
