@@ -22,8 +22,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
    f32 shape; bits 8, 4 and 1, with a row of zeros); paged attention in
    its one-range and its split form at the main path's decode shape and
    at the capture's long shape (positions up to 999), bf16 bit for bit
-   against the plain version and the split-order mirror; the tail with 4
-   real rows of a 16-row block and with three heads; each phase times the
+   against the plain version and the split-order mirror; the boundary on
+   the rows in place, every row bit-identical alone and in its pool, and
+   at most two device kernels a dispatcher call; the tail with 4 real rows
+   of a 16-row block, with three heads, and with one head on the rows in
+   place, at most three device kernels a call; each phase times the
    kernel, its plain version and, where one exists, the one PyTorch call
    that computes the same function (a yardstick the port never calls; for
    the wire pair, which no one call computes, ``torch.matmul`` of the GEMM
@@ -43,7 +46,14 @@ Phases, each printing one JSON line; any failure exits nonzero:
    and on mode 1, the full-width path with its launches asserted (one
    decode tail a step, one scan per RG-LRU layer a prefill), a profile;
 9. bench: ``repro_torch.benchmarks.bench_kernels.main --device cuda``,
-   whose parity checks must hold and which must launch the wire pair.
+   whose parity checks must hold, which must launch the wire pair, and
+   whose fused boundary + tail tick must beat the unfused chain (the
+   reference bench gate's ``MEGA_FLOOR``, 1.0).
+
+Kernel times and counts come from ``torch.profiler`` traces; a trace with
+no device work in it is taken again, and if CUPTI still delivers nothing
+the time comes from CUDA events and the count from a captured CUDA graph
+(the ``untraced`` line counts such measurements).
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -75,8 +85,12 @@ TOL = {
     # 2^-16 in f32) plus one code step at every lane whose code sits within
     # a one-ulp change of z or of the scale of a rounding edge: there the
     # two sides' sums may land on either side.
+    # Each row is computed from its own row and mode only (its sums' order
+    # is fixed by d and the mode's width), so a sequence called alone must
+    # give the bits it gets inside its pool.
     "boundary": "mode-0 rows bit-for-bit; other rows within the GEMM "
-                "rounding envelope plus one code step at rounding-edge lanes",
+                "rounding envelope plus one code step at rounding-edge lanes; "
+                "every sequence bit-identical alone and in its pool",
     # the logits are f32 sums in two orders: tokens must be equal except
     # where the plain top-two gap is below 1e-3 of the max logit, and there
     # the kernel's token must be one of the near-tied ones. An exact tie
@@ -106,6 +120,12 @@ TOL = {
     # rounding: 2 N 2^-24 sum_k |z_k| |w_k|
     "dequant": "one bf16 ulp + 2 N 2^-24 sum_k |z_k w_k|",
 }
+# device kernels one dispatcher call may issue: the boundary's two launches;
+# the one-head decode tail's three (norm, logits, reduce), no layout ops
+MAX_KERNELS = {"boundary": 2, "tail": 3}
+# the reference bench gate's floor on the fused tick's speedup
+# (tools/check_bench.py, MEGA_FLOOR)
+MEGA_FLOOR = 1.0
 
 
 def emit(obj) -> None:
@@ -137,6 +157,47 @@ def dtype_name(dt) -> str:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
+# measurements the profiler traced no device work for, by helper: those
+# were taken without CUPTI (CUDA events, a captured graph's nodes)
+UNTRACED = {"time_ms": 0, "device_kernels": 0}
+
+
+def device_events(run, tries: int = 3) -> list:
+    """The device events (kernels, copies, memsets) of ``run()`` in a
+    ``torch.profiler`` trace. A trace that holds none is taken again, up to
+    ``tries`` times; after that [] (CUPTI delivered nothing)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        if events:
+            return events
+    return []
+
+
+def event_ms(fn, iters: int, flush=None) -> float:
+    """Mean time of one call of ``fn`` between two CUDA events around it
+    (host gaps between its launches included), ``flush`` outside."""
+    import torch
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
 def time_ms(fn, iters: int, flush=None, by_kernel=None) -> float:
     """Mean device time of one call of ``fn``: the durations of the device
     work it launches, summed over ``iters`` calls from a ``torch.profiler``
@@ -144,25 +205,28 @@ def time_ms(fn, iters: int, flush=None, by_kernel=None) -> float:
     CUDA-event bracket would count it: at these sizes the card waits on
     the Python wrapper). ``flush`` (traced but not counted) evicts the L2
     cache before each call where the caller would find the operands cold.
-    ``by_kernel``: a dict that receives ms per call of each kernel name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    ``by_kernel``: a dict that receives ms per call of each kernel name.
+    Where the profiler traces no device work the time is ``event_ms``'s,
+    with no split by kernel, and ``UNTRACED`` counts it."""
     for _ in range(2):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             if flush is not None:
                 flush()
             fn()
-        torch.cuda.synchronize()
+
+    events = device_events(run)
+    if not events:
+        UNTRACED["time_ms"] += 1
+        return event_ms(fn, iters, flush)
     per = {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA" and FLUSH_OP not in e.name:
+    for e in events:
+        if FLUSH_OP not in e.name:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
     us = sum(per.values())
-    check(us > 0, "the profiler traced no device work")
+    check(us > 0, "the profiler traced no device work of the timed call")
     if by_kernel is not None:
         by_kernel.update({k[:60]: v / iters / 1e3 for k, v in per.items()})
     return us / iters / 1e3
@@ -173,6 +237,53 @@ def bound(nbytes: float, flops: float, dt: str):
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def graph_nodes(fn) -> int:
+    """Device operations of one call of ``fn``, counted as the nodes of
+    the CUDA graph that captures it (read with the driver's
+    ``cuGraphGetNodes``)."""
+    import ctypes
+
+    import torch
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=torch.cuda.Stream(),
+                          capture_error_mode="relaxed"):
+        fn()
+    n = ctypes.c_size_t(0)
+    get = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.POINTER(ctypes.c_size_t)]
+    code = get(g.raw_cuda_graph(), None, ctypes.byref(n))
+    check(code == 0, f"cuGraphGetNodes returned {code}")
+    return n.value
+
+
+def device_kernels(fn, calls: int = 3) -> float:
+    """Device operations (kernels, copies, memsets) that one call of ``fn``
+    issues: counted in a ``torch.profiler`` trace of ``calls`` calls after
+    a warm-up call, over ``calls``. Where the profiler traces no device
+    work, the nodes of a captured call (``graph_nodes``), and ``UNTRACED``
+    counts it."""
+    fn()
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    events = device_events(run)
+    if not events:
+        UNTRACED["device_kernels"] += 1
+        n = graph_nodes(fn)
+        check(n > 0, "a captured call issued no device work")
+        return float(n)
+    return len(events) / calls
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
 FLUSH_OP = "bitwise_not"       # the flush's kernel, which nothing timed uses
@@ -381,39 +492,25 @@ def test_bank(stacked, d: int, dev, seed: int):
     }
 
 
-def grouped(bank, x, modes):
-    """The mode-grouped layout the dispatcher builds: (xp, tables, dest,
-    per-layout-row mode)."""
-    import torch
-    from repro_torch.kernels import ops
-    B, S, d = x.shape
-    block_r = 16 if x.element_size() == 2 else 8
-    rmode = modes.to(torch.int32).repeat_interleave(S)
-    dest, tb = ops.group_layout(bank, rmode, block_r, 128)
-    xp = torch.zeros((tb["P"], d), dtype=x.dtype, device=x.device)
-    xp[dest] = x.reshape(B * S, d)
-    pmode = torch.zeros(tb["P"], dtype=torch.long, device=x.device)
-    pmode[dest] = rmode.long()
-    return xp, tb, dest, pmode, block_r
-
-
-def boundary_envelope(bank, xp, pmode, used, yr):
+def boundary_envelope(bank, x2, rmode, yr):
     """Per-element bound on |kernel - plain| for the quantized rows (see
     ``TOL["boundary"]``), computed from the plain version's own z."""
     import torch
-    dt = xp.dtype
+    dt = x2.dtype
     u = 2.0 ** -8 if dt == torch.bfloat16 else 2.0 ** -16
-    env = torch.zeros(xp.shape, dtype=torch.float32, device=xp.device)
-    for m in range(1, bank["width"].shape[0] + 1):
-        rows = torch.nonzero(used & (pmode == m)).reshape(-1)
+    M = bank["width"].shape[0]
+    mode = torch.where(rmode == 0, 0, rmode.clamp(1, M))
+    env = torch.zeros(x2.shape, dtype=torch.float32, device=x2.device)
+    for m in range(1, M + 1):
+        rows = torch.nonzero(mode == m).reshape(-1)
         if rows.numel() == 0:
             continue
         hid = m - 1
         width, bits = int(bank["width"][hid]), int(bank["bits"][hid])
-        xf = xp[rows].float()
+        xf = x2[rows].float()
         h = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + 1e-6)
         h = (h * bank["norm_scale"][hid].float()).to(dt)
-        z = (h.float() @ bank["down_w"][hid].float()).to(dt).float()
+        z = (h.double() @ bank["down_w"][hid].double()).to(dt).float()
         z[:, width:] = 0
         qm = float(max((1 << (max(bits, 1) - 1)) - 1, 1))
         scale = torch.clamp(z.abs().amax(-1, keepdim=True), min=1e-8) / qm
@@ -432,29 +529,35 @@ def boundary_envelope(bank, xp, pmode, used, yr):
 
 
 def check_boundary(bank, x, modes, label):
+    """The kernel on the rows in place against its plain version: mode-0
+    rows bit for bit, quantized rows inside the envelope, and each sequence
+    called alone bit-identical to its rows in the pool."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.boundary_mixed import boundary_mixed_grouped
-    xp, tb, dest, pmode, block_r = grouped(bank, x, modes)
-    args = (xp, bank["down_w"], bank["up_w"], bank["norm_scale"], tb["hid"],
-            tb["nchunk"], tb["width"], tb["bits"])
-    yk = boundary_mixed_grouped(*args, block_r=block_r, dtype=x.dtype)
+    B, S, d = x.shape
+    x2 = x.reshape(B * S, d)
+    modes = modes.to(torch.int32)
+    rmode = modes.repeat_interleave(S)
+    yk = boundary_mixed_grouped(x2, modes, S, bank, dtype=x.dtype)
     torch.cuda.synchronize()
-    yr = ref.boundary_mixed_grouped_ref(*args, block_r=block_r,
-                                        dtype=x.dtype)
-    used = torch.zeros(xp.shape[0], dtype=torch.bool, device=x.device)
-    used[dest] = True
-    raw = used & (pmode == 0)
-    check(torch.equal(yk[raw], yr[raw]),
+    yr = ref.boundary_mixed_rows_ref(x2, rmode, bank, x.dtype)
+    raw = rmode == 0
+    check(same_bits(yk[raw], x2[raw]) and same_bits(yk[raw], yr[raw]),
           f"boundary {label}: mode-0 rows are not bit-for-bit")
     err = (yk.float() - yr.float()).abs()
-    err[~used] = 0
-    env = boundary_envelope(bank, xp, pmode, used, yr)
-    quant = used & (pmode > 0)
+    env = boundary_envelope(bank, x2, rmode, yr)
+    quant = ~raw
     ratio = float((err[quant] / env[quant]).max()) if quant.any() else 0.0
-    check(ratio <= 1.0 and bool(torch.isfinite(yk[used].float()).all()),
+    check(ratio <= 1.0 and bool(torch.isfinite(yk.float()).all()),
           f"boundary {label}: error {float(err.max())} exceeds the "
           f"envelope (worst ratio {ratio:.3f})")
+    for b in range(B):
+        alone = boundary_mixed_grouped(x2[b * S:(b + 1) * S], modes[b:b + 1],
+                                       S, bank, dtype=x.dtype)
+        check(same_bits(alone, yk[b * S:(b + 1) * S]),
+              f"boundary {label}: sequence {b} alone differs from its rows "
+              f"in the pool")
     return float(err.max()), ratio
 
 
@@ -484,23 +587,27 @@ def boundary_cases(cap, label: str, d: int, dev, seed: int, gen):
 def time_boundary(cap, d: int, dev, seed: int, iters: int):
     """Device ms of the kernel and of its plain version at the main path's
     decode shape: 4 slots on the model's own bank, one in raw mode 0;
-    with the bound of that call."""
+    with the bound of that call and the device kernels one dispatcher call
+    issues (at most ``MAX_KERNELS["boundary"]``)."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.boundary_mixed import boundary_mixed_grouped
     st = cap["stacked"]
     x4 = pick_rows(cap["x_enc"], cap["valid"], 4, seed + 4)
+    x2 = x4.reshape(4, d)
     modes4 = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
-    xp, tb, dest, pmode, block_r = grouped(st, x4, modes4)
-    args = (xp, st["down_w"], st["up_w"], st["norm_scale"], tb["hid"],
-            tb["nchunk"], tb["width"], tb["bits"])
     flush = l2_flusher(dev)
     parts = {}
-    ms = time_ms(lambda: boundary_mixed_grouped(*args, block_r=block_r,
-                                                dtype=xp.dtype), iters, flush,
+    ms = time_ms(lambda: boundary_mixed_grouped(x2, modes4, 1, st,
+                                                dtype=x2.dtype), iters, flush,
                  parts)
-    plain = time_ms(lambda: ref.boundary_mixed_grouped_ref(
-        *args, block_r=block_r, dtype=xp.dtype), max(iters // 5, 3), flush)
+    plain = time_ms(lambda: ref.boundary_mixed_rows_ref(
+        x2, modes4, st, x2.dtype), max(iters // 5, 3), flush)
+    kernels = device_kernels(lambda: ops.boundary_mixed_op(
+        st, x4, modes4, dtype=x4.dtype))
+    check(kernels <= MAX_KERNELS["boundary"],
+          f"boundary: one dispatcher call issues {kernels} device kernels, "
+          f"more than {MAX_KERNELS['boundary']}")
     w = int(st["width"][0])
     nq = int((modes4 > 0).sum())
     nbytes = 2 * (2 * 4 * d + 2 * d * w + d)
@@ -508,7 +615,8 @@ def time_boundary(cap, d: int, dev, seed: int, iters: int):
     return {"timed_shape": {"rows": 4, "d": d, "width": w,
                             "modes": [1, 1, 0, 1]},
             "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "device_kernels_per_call": kernels}
 
 
 def phase_boundary(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
@@ -532,6 +640,9 @@ def phase_boundary(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
         x = torch.randn((8, 1, 128), generator=gen).to(dt).to(dev)
         cases.append((f"{dtype_name(dt)} reduced bank wmax 32", small, x,
                       (torch.arange(8) % 5).to(dev)))
+        x = torch.randn((32, 1, 128), generator=gen).to(dt).to(dev)
+        cases.append((f"{dtype_name(dt)} reduced bank wmax 32 pool 32", small,
+                      x, torch.randint(0, 5, (32,), generator=gen).to(dev)))
     worst, rows = 0.0, []
     for label, bank, x, modes in cases:
         e, r = check_boundary(bank, x, modes, label)
@@ -590,9 +701,9 @@ def check_tail(x, scale, head, label, expect=None, bias=None,
 
 def tail_block_cases(x_dec, valid, head, scale, seed: int, rows: list,
                      tied=False):
-    """4 real rows in one 16-row block, called as the dispatcher calls the
-    wrapper (``n_real``) and with a per-block count (``rows_g``): the
-    kernel computes one n-tile of 8 and the rows' tokens must hold."""
+    """4 real rows in one 16-row block of a padded layout, with a real-row
+    count (``n_real``) and with a per-block count (``rows_g``): the kernel
+    computes one n-tile of 8 and the rows' tokens must hold."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.boundary_mixed import decode_tail_grouped
@@ -616,9 +727,21 @@ def tail_block_cases(x_dec, valid, head, scale, seed: int, rows: list,
                      "max_abs_err": gap})
 
 
+def tail_kernels(x4, scale, head, tied=False) -> float:
+    """Device kernels of one one-head ``ops.decode_tail_op`` call without a
+    bias (the main path's); at most ``MAX_KERNELS["tail"]``."""
+    from repro_torch.kernels import ops
+    n = device_kernels(lambda: ops.decode_tail_op(x4, scale, None, head,
+                                                  tied=tied))
+    check(n <= MAX_KERNELS["tail"],
+          f"tail: one dispatcher call issues {n} device kernels, more than "
+          f"{MAX_KERNELS['tail']}")
+    return n
+
+
 def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.boundary_mixed import decode_tail_grouped
     params = cap["params"]
     head = params["lm_head"]["w"][None]                        # [1, d, V]
@@ -671,18 +794,13 @@ def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
                  "max_abs_err": gap})
     del head32
 
-    # timing at the main path's decode shape: 4 rows, one head
+    # timing at the main path's decode shape: 4 rows in place, one head
     x4 = pick_rows(cap["x_dec"], cap["valid"], 4, seed + 300)
-    dest, hid_g, P = ops.head_layout(torch.zeros(4, dtype=torch.int32,
-                                                 device=dev), 1, 16)
-    xp = torch.zeros((P, x4.shape[-1]), dtype=x4.dtype, device=dev)
-    xp[dest] = x4[:, 0]
-    bias = torch.zeros_like(scale)
     parts = {}
-    ms = time_ms(lambda: decode_tail_grouped(xp, head, scale, bias, hid_g,
-                                             block_r=16, n_blocks=1,
-                                             n_real=4), iters,
+    ms = time_ms(lambda: decode_tail_grouped(x4[:, 0], head, scale, None,
+                                             block_r=16), iters,
                  by_kernel=parts)
+    kernels = tail_kernels(x4, scale, head)
     plain = time_ms(lambda: ref.decode_tail_ref(x4, scale, None, head), iters)
     d = x4.shape[-1]
     b_ms, b_by = bound(2 * (V * d + 4 * d + 2 * d) + 4 * 4, 2 * 4 * d * V,
@@ -696,7 +814,8 @@ def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
            "timed_shape": {"rows": 4, "d": d, "V": V},
            "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
            "bound_ms": b_ms, "bound_by": b_by, "bound_over_ms": b_ms / ms,
-           "library_ms": None, "tied": tied}
+           "device_kernels_per_call": kernels, "library_ms": None,
+           "tied": tied}
     emit(out)
     return out
 
@@ -742,16 +861,11 @@ def tail_tied(rcap, dev, seed: int, iters: int, rows: list):
     extra = torch.cuda.max_memory_allocated() - base
     check(extra < 64 << 20, f"tied tail: one call allocated {extra} bytes "
                             f"(a copy of the table?)")
-    dest, hid_g, P = ops.head_layout(torch.zeros(4, dtype=torch.int32,
-                                                 device=dev), 1, 16)
-    xp = torch.zeros((P, d), dtype=x4.dtype, device=dev)
-    xp[dest] = x4[:, 0]
-    bias = torch.zeros_like(scale)
     parts = {}
-    ms = time_ms(lambda: decode_tail_grouped(xp, head, scale, bias, hid_g,
-                                             block_r=16, n_blocks=1,
-                                             n_real=4, tied=True), iters,
+    ms = time_ms(lambda: decode_tail_grouped(x4[:, 0], head, scale, None,
+                                             block_r=16, tied=True), iters,
                  by_kernel=parts)
+    kernels = tail_kernels(x4, scale, head, tied=True)
     plain = time_ms(lambda: ref.decode_tail_ref(x4, scale, None, head,
                                                 tied=True),
                     max(iters // 5, 3))
@@ -760,6 +874,7 @@ def tail_tied(rcap, dev, seed: int, iters: int, rows: list):
     return {"timed_shape": {"rows": 4, "d": d, "V": V, "layout": "[V, d]"},
             "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "bound_over_ms": b_ms / ms,
+            "device_kernels_per_call": kernels,
             "call_extra_bytes": int(extra)}
 
 
@@ -1299,6 +1414,7 @@ def phase_profile(cfg, engine: str):
              else len(summary["generated"][0]))
     emit({"phase": "profile", "engine": engine, "arch": cfg.name,
           "decode_steps": steps,
+          "device_traced": prof["kernel_launches"] > 0,
           "launches_per_decode_step": prof["kernel_launches"] / max(steps, 1),
           **prof})
 
@@ -1402,9 +1518,10 @@ def phase_sync_main_path(cfg, smi: str):
 
 def phase_bench():
     """``repro_torch.benchmarks.bench_kernels.main`` on the card, counters
-    at 0 just before: its two parity checks must hold and both wire
-    kernels must launch (its timings are host-clock best-of, launches
-    included; the kernel phases above give device times)."""
+    at 0 just before: its two parity checks must hold, both wire kernels
+    must launch, and the fused tick must beat the unfused chain by
+    ``MEGA_FLOOR`` (its timings are host-clock best-of, launches included;
+    the kernel phases above give device times)."""
     from repro_torch.benchmarks import bench_kernels
     fns = zero_counts()
     try:
@@ -1414,6 +1531,10 @@ def phase_bench():
     launches = {k: f.launches for k, f in fns.items()}
     for k in ("bottleneck_quant", "dequant_matmul"):
         check(launches[k] > 0, f"bench: kernel {k} never launched")
+    check(out["mega_parity_ok"] and out["mega_speedup"] >= MEGA_FLOOR,
+          f"bench: the fused tick's speedup {out['mega_speedup']:.3f} over "
+          f"the unfused chain is below {MEGA_FLOOR} (parity "
+          f"{out['mega_parity_ok']})")
     emit({"phase": "bench", **out, "launches": launches})
     return launches
 
@@ -1505,6 +1626,7 @@ def main(argv=None) -> int:
         phase_profile(c, "sync")
     by_path["bench"] = phase_bench()
 
+    emit({"phase": "untraced", "measurements": UNTRACED})
     print(smi, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -2,26 +2,57 @@
 // src/repro/kernels/boundary_mixed.py:
 //
 //  * boundary_mixed_grouped (replaces boundary_mixed.py:196, pallas_call at
-//    :237, body _kernel at :37): the mixed-mode bottleneck boundary. Per
-//    mode-uniform block of R rows: rmsnorm (f32) x head scale -> model dtype;
-//    down-projection over ceil(width/128) chunks, each chunk's f32 sum rounded
-//    to the model dtype with lanes >= width zeroed; row-wise symmetric
-//    quant -> dequant (rintf, half to even like jnp.round; skipped at bits 0);
-//    up-projection with f32 accumulation -> model dtype. Blocks with zero
-//    chunks (mode 0 and padding) copy their rows through bit for bit.
+//    :237, body _kernel at :37): the mixed-mode bottleneck boundary, on the
+//    rows in place. Row r of the [N, d] rows rides mode mode_idx[r / S]
+//    (S rows a sequence). Mode 0 copies the row bit for bit; mode m >= 1
+//    takes head m-1 of the bank: rmsnorm (f32) x head scale -> model dtype;
+//    down-projection, each lane's f32 sum rounded to the model dtype (the
+//    TPU's per-chunk barrier), lanes >= width zeroed; row-wise symmetric
+//    quant -> dequant (rintf, half to even like jnp.round; skipped at bits
+//    0) -> model dtype; up-projection with f32 accumulation -> model dtype.
+//
+//    The TPU needs mode-uniform row blocks for its scalar-prefetched weight
+//    maps, so its dispatcher sorts and pads the rows into a grouped layout.
+//    Here each block finds the rows of its mode itself: warp 0 compacts the
+//    per-sequence mode vector with a ballot, in row order. No layout is built
+//    on the host, and padding rows are never computed.
 //
 //    Bound: at decode (a few rows) the bank's weights dominate the bytes
-//    (d x wmax down + wmax x d up, 4 MB in bf16 at qwen2.5-3b), so the kernel
-//    is memory bound. The TPU walks the width chunks as a sequential grid axis
-//    with a VMEM accumulator; one block per row block would leave all but one
-//    or two of the 132 SMs idle. So the work is split into four launches:
-//    row norms; the down-projection split over (row block, width chunk,
-//    K slice) blocks writing f32 partial sums; a pass with one block per row
-//    that sums the K slices in a fixed order, rounds, masks and quantizes;
-//    and the up-projection split over (row block, 128-column tile) blocks.
-//    Every weight byte is read by exactly one block. At a few rows each
-//    launch is latency bound, so the weight loops are unrolled deep enough
-//    to keep several independent loads in flight per thread.
+//    (d x W down + W x d up: 4 MB in bf16 at qwen2.5-3b's d 2048, W 512), so
+//    the call is memory bound, and the weights must be spread over every SM.
+//    Two launches:
+//      1) bm_down, a block per (mode, width tile of 16 mt lanes, K slice of
+//         512, chunk of 32 rows): its rows' inverse rms (recomputed by each
+//         block from a few KB of rows), the normed rows of its slice in
+//         shared memory while the scale and the weight tile stream in with
+//         cp.async, then f32 partial sums of the slice -> scratch [n_ks, N,
+//         wmax]. At decode (mt 1) 32 x 4 = 128 blocks of 16 KB of weights
+//         (qwen2.5-3b) and 40 x 5 = 200 (recurrentgemma-2b).
+//      2) bm_up, a block per (mode 0..M, column tile of 16 mt, chunk of 32
+//         rows): the up tile streams in while the block rebuilds its rows'
+//         codes a warp a row (the slices summed in order, rounded, masked,
+//         quantized; a few KB of partials from L2), then the up-projection
+//         of its columns. Mode-0 blocks copy their rows' columns. At decode
+//         128 / 160 column tiles a mode.
+//    At a few rows each launch is a chain of dependent latencies (the mode
+//    scan, the rows, the weight tile, the mma chain), not a stream of
+//    bytes: every load of a phase is issued before any is used.
+//    bf16 runs on the tensor cores, "swap-AB": mma.sync m16n8k16 with the
+//    width or column axis on M and the real rows on N (ceil(rows / 8)
+//    n-tiles). The normed rows and the dequantized codes are exact in bf16
+//    (the reference rounds both through the model dtype), so they are legal
+//    operands; both weight tiles are k-major ([d, W] and [W, d]), so their A
+//    fragments come from ldmatrix.trans. f32 (the reduced configs) keeps
+//    CUDA-core FMAs, no TF32, at any width the bank holds.
+//
+//    Every output is summed in an order fixed by d and the mode's width
+//    alone: the down-projection's 512-deep slices one after another, and
+//    within a slice (and across the up-projection's lanes) in bf16 four
+//    fixed quarters of the 16-deep k-steps, one a warp, added in order, each
+//    an mma chain in k order; in f32 one FMA chain in k order. The tile
+//    width (mt) and the row chunks change which block computes a value,
+//    never how, so a row's output is bit-identical whether it is called
+//    alone or inside a pool.
 //
 //  * decode_tail_grouped (replaces boundary_mixed.py:143, pallas_call at
 //    :187, body _tail_kernel at :96): final rms/layernorm (f32, + bias)
@@ -32,9 +63,11 @@
 //    Bound: streaming the head once (622 MB in bf16 at qwen2.5-3b's
 //    [2048, 151936], 1.31 GB for recurrentgemma-2b's tied [256000, 2560]
 //    table) against 2 * rows * d * V flops: bytes, at the few rows of a
-//    decode tick. Three launches: the row norms (a block per row); the
+//    decode tick. Three launches: the row norms (a block per real row); the
 //    logits and a (max, lowest index) pair per row and block; a pass that
-//    reduces the pairs with the same tie-break.
+//    reduces the pairs with the same tie-break. With one head the rows are
+//    read in place: the row count need not be a multiple of the row block,
+//    and no row at or past it is read.
 //
 //    bf16 logits run on the tensor cores, "swap-AB": mma.sync m16n8k16
 //    with the vocabulary on M and the rows on N, bf16 in and f32
@@ -70,211 +103,471 @@ using rt::to_f;
 
 namespace {
 
-constexpr int kBW = 128;       // width-chunk lanes (the TPU's block_w)
-constexpr int kThreads = 128;  // threads of the boundary kernels
+constexpr int kThreads = 128;  // threads of the boundary kernels (4 warps)
+constexpr int kBR = 32;        // rows of a boundary block (4 n-tiles of 8)
+constexpr int kKS = 512;       // depth of a K slice of the down-projection
+constexpr int kG = 5;          // groups of 4 code lanes a lane loads at once
 constexpr int kTT = 256;       // threads of the tail's logit kernel
 constexpr int kVT = 2 * kTT;   // vocab columns per tail block (two a thread)
 
-// ---------------------------------------------------------------------------
-// boundary: 1) inverse rms of every row of a quantized block (block per row)
-// ---------------------------------------------------------------------------
-template <typename T, int R>
-__global__ void bm_rownorm(const T* __restrict__ xp, const int* __restrict__ nchunk,
-                           float* __restrict__ inv, int d) {
-  __shared__ float red[kThreads / 32];
-  const int g = blockIdx.x, row = g * R + blockIdx.y;
-  if (nchunk[g] == 0) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* x = xp + (size_t)row * d;
-  float ss = 0.f;
-#pragma unroll 4
-  for (int k = threadIdx.x; k < d; k += kThreads) {
-    const float v = to_f(x[k]);
-    ss += v * v;
+// 16-byte cp.async that writes zeros when ``ok`` is false (nothing read)
+__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* g,
+                                                   bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(g), "r"(ok ? 16 : 0));
+}
+
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes of floats stored as 8 bf16 (rounded to nearest even) or 4 f32
+__device__ __forceinline__ void store16(bf16* p, const float* v) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    w[j] = *reinterpret_cast<const uint32_t*>(&h);
   }
-  ss = rt::warp_sum(ss);
-  if (lane == 0) red[warp] = ss;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) t += red[w];
-    inv[row] = rsqrtf(t / (float)d + 1e-6f);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// 16 bytes held in registers as floats: 8 bf16 or 4 f32
+template <typename T>
+__device__ __forceinline__ void u4_to_f(uint4 u, float* out);
+template <>
+__device__ __forceinline__ void u4_to_f<bf16>(uint4 u, float* out) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    out[2 * j] = f.x;
+    out[2 * j + 1] = f.y;
   }
+}
+template <>
+__device__ __forceinline__ void u4_to_f<float>(uint4 u, float* out) {
+  out[0] = __uint_as_float(u.x);
+  out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z);
+  out[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // ---------------------------------------------------------------------------
-// boundary: 2) down-projection partial sums over one K slice of one chunk
+// boundary: the rows of one mode
 // ---------------------------------------------------------------------------
-template <typename T, int R>
-__global__ void bm_down(const T* __restrict__ xp, const T* __restrict__ down_w,
-                        const T* __restrict__ norm_scale,
-                        const int* __restrict__ hid_g,
-                        const int* __restrict__ nchunk,
-                        const float* __restrict__ inv,
-                        float* __restrict__ partial, int P, int d, int wmax,
-                        int kc) {
-  extern __shared__ float hs[];  // [R][kc] normed rows of this K slice
-  const int g = blockIdx.x, c = blockIdx.y, ks = blockIdx.z;
-  if (c >= nchunk[g]) return;  // chunks past the head's width: skipped
-  const int hid = hid_g[g];
-  const int k0 = ks * kc;
-  const int kn = max(min(kc, d - k0), 0);
-#pragma unroll 8
-  for (int i = threadIdx.x; i < R * kn; i += blockDim.x) {
-    const int r = i / kn, kk = i - r * kn, row = g * R + r;
-    // (x * rsqrt(mean(x^2) + eps)) * scale, rounded to the model dtype
-    hs[r * kc + kk] = round_t<T>(to_f(xp[(size_t)row * d + k0 + kk]) *
-                                 inv[row] *
-                                 to_f(norm_scale[(size_t)hid * d + k0 + kk]));
-  }
-  __syncthreads();
-  const int col = c * kBW + threadIdx.x;
-  if (col >= wmax) return;
-  float acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  const T* w = down_w + ((size_t)hid * d + k0) * wmax + col;
-#pragma unroll 8
-  for (int kk = 0; kk < kn; ++kk) {
-    const float wv = to_f(w[(size_t)kk * wmax]);
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] += hs[r * kc + kk] * wv;
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    partial[((size_t)ks * P + g * R + r) * wmax + col] = acc[r];
+
+// The reference's reading of a mode value: 0 is raw, anything else the head
+// clamp(v - 1, 0, M - 1), i.e. mode clamp(v, 1, M)
+__device__ __forceinline__ int mode_of(int v, int M) {
+  return v == 0 ? 0 : min(max(v, 1), M);
 }
 
-// ---------------------------------------------------------------------------
-// boundary: 3) sum the K slices, round, mask, quantize -> dequantized code
-//    (one block per row, so the rows of a block quantize in parallel)
-// ---------------------------------------------------------------------------
-template <typename T, int R>
-__global__ void bm_quant(const float* __restrict__ partial,
-                         const int* __restrict__ nchunk,
-                         const int* __restrict__ width_g,
-                         const int* __restrict__ bits_g, T* __restrict__ wired,
-                         int P, int wmax, int n_ks) {
-  extern __shared__ float zs[];  // [wmax] the row's code z
-  __shared__ float red[kThreads / 32];
-  const int g = blockIdx.x;
-  if (nchunk[g] == 0) return;
-  const int width = width_g[g], bits = bits_g[g];
-  const float qm = (float)max((1 << (max(bits, 1) - 1)) - 1, 1);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = g * R + blockIdx.y;
-  float mx = 0.f;
-  for (int col = threadIdx.x; col < wmax; col += blockDim.x) {
-    float z = 0.f;
-    if (col < width) {
-      float s = 0.f;
-#pragma unroll 4
-      for (int ks = 0; ks < n_ks; ++ks)  // fixed order: reproducible
-        s += partial[((size_t)ks * P + row) * wmax + col];
-      z = round_t<T>(s);  // the per-chunk model-dtype barrier
-    }
-    zs[col] = z;
-    mx = fmaxf(mx, fabsf(z));
-  }
-  mx = rt::warp_max(mx);
-  if (lane == 0) red[warp] = mx;
-  __syncthreads();
-  float absmax = red[0];
-  for (int w = 1; w < kThreads / 32; ++w) absmax = fmaxf(absmax, red[w]);
-  const float scale = fmaxf(absmax, 1e-8f) / qm;
-  for (int col = threadIdx.x; col < wmax; col += blockDim.x) {
-    const float z = zs[col];
-    float v = z;
-    if (bits != 0) {
-      const float code = fminf(fmaxf(rintf(z / scale), -qm), qm);
-      v = code * scale;
-    }
-    wired[(size_t)row * wmax + col] = from_f<T>(v);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// boundary: 4) up-projection of one 128-column tile (or raw passthrough)
-// ---------------------------------------------------------------------------
-template <typename T, int R>
-__global__ void bm_up(const T* __restrict__ xp, const T* __restrict__ up_w,
-                      const int* __restrict__ hid_g,
-                      const int* __restrict__ nchunk,
-                      const int* __restrict__ width_g,
-                      const T* __restrict__ wired, T* __restrict__ out, int d,
-                      int wmax) {
-  extern __shared__ float ws[];  // [R][width] dequantized codes
-  const int g = blockIdx.x;
-  const int col = blockIdx.y * kThreads + threadIdx.x;
-  if (nchunk[g] == 0) {  // mode 0: the raw code z crosses unchanged
-    if (col < d)
-      for (int r = 0; r < R; ++r) {
-        const size_t i = (size_t)(g * R + r) * d + col;
-        out[i] = xp[i];
+// Rows r0 .. r0 + kBR - 1 of mode m, counted in row order: sequence b holds
+// rows b*S .. b*S + S - 1, and the mode's sequences come in order of b.
+// Writes their row indices to rows[] and returns the mode's row count (a
+// block-wide call). Warp 0 compacts the mode vector 32 sequences at a time.
+__device__ int mode_rows(const int* __restrict__ mode_idx, int B, int S,
+                         int M, int m, int r0, int* rows) {
+  __shared__ int s_count;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int q0 = r0 / S, q1 = (r0 + kBR - 1) / S;  // ranks that hold them
+    int count = 0;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      const int b = b0 + lane;
+      const bool hit = b < B && mode_of(mode_idx[b], M) == m;
+      const unsigned bal = __ballot_sync(0xffffffffu, hit);
+      const int rank = count + __popc(bal & ((1u << lane) - 1u));
+      if (hit && rank >= q0 && rank <= q1) {
+        const int lo = max(rank * S - r0, 0);
+        const int hi = min(rank * S + S - r0, kBR);
+        for (int j = lo; j < hi; ++j) rows[j] = b * S + r0 + j - rank * S;
       }
+      count += __popc(bal);
+    }
+    if (lane == 0) s_count = count * S;
+  }
+  __syncthreads();
+  return s_count;
+}
+
+// The boundary's tensor-core product: for each m-tile t < mt (16 columns of
+// the k-major tile ``tile`` [kp][ts] at column 16t) against the block's rows
+// ``rsm`` [16 * ceil(nr / 16)][rs] (k-contiguous; rows past nr zero), over
+// kp (a multiple of 16) in four fixed quarters of its 16-deep k-steps, one
+// a warp, each an mma chain in k order. A quarter's f32 sums land in
+// red[t][quarter][row][16] for the caller to add in quarter order: a fixed
+// order, the same for every row and every mt.
+__device__ __forceinline__ void mma_quarters(const bf16* tile, int ts,
+                                             const bf16* rsm, int rs, int kp,
+                                             int mt, int nr, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 3, rr = lane & 7;
+  const int ntiles = (nr + 7) >> 3;
+  const int ns = kp >> 4, s0 = warp * ns / 4, s1 = (warp + 1) * ns / 4;
+  for (int t = 0; t < mt; ++t) {
+    // thread: columns 16t + lane/4 (+8) x rows nt*8 + (lane%4)*2 + {0, 1}
+    float acc[kBR / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBR / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+#pragma unroll 4
+    for (int st = s0; st < s1; ++st) {
+      const int kk = st * 16;
+      uint32_t a[4];
+      ldmatrix_x4<true>(a, tile + (kk + (q >> 1) * 8 + rr) * ts + t * 16 +
+                               (q & 1) * 8);
+#pragma unroll
+      for (int p = 0; p < kBR / 16; ++p)
+        if (2 * p < ntiles) {
+          uint32_t b[4];  // rows 16p + 0-7: b[0], b[1]; + 8-15: b[2], b[3]
+          ldmatrix_x4<false>(b, rsm + (p * 16 + (q >> 1) * 8 + rr) * rs + kk +
+                                    (q & 1) * 8);
+          mma_bf16(acc[2 * p], a, b[0], b[1]);
+          if (2 * p + 1 < ntiles) mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+        }
+    }
+    float* out = red + (size_t)(t * 4 + warp) * kBR * 16;
+#pragma unroll
+    for (int nt = 0; nt < kBR / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = nt * 8 + (lane & 3) * 2 + (i & 1);
+        if (r < nr) out[r * 16 + (lane >> 2) + (i >> 1) * 8] = acc[nt][i];
+      }
+  }
+}
+
+// the four quarters of red[t][.][r][c], added in order
+__device__ __forceinline__ float quarters_sum(const float* red, int t, int r,
+                                             int c) {
+  const float* p = red + ((size_t)t * 4 * kBR + r) * 16 + c;
+  return ((p[0] + p[kBR * 16]) + p[2 * kBR * 16]) + p[3 * kBR * 16];
+}
+
+// ---------------------------------------------------------------------------
+// boundary: 1) row norms + the down-projection's partial sums of one slice
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bm_down(const T* __restrict__ x, const int* __restrict__ mode_idx, int B,
+            int S, const T* __restrict__ down_w,
+            const T* __restrict__ norm_scale, const int* __restrict__ width_t,
+            int M, float* __restrict__ partial, int d, int wmax, int mt,
+            int n_ks) {
+  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte vector
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int rows[kBR];
+  __shared__ float inv[kBR];
+  const int hid = blockIdx.x, m = hid + 1;
+  const int wt = 16 * mt, l0 = blockIdx.y * wt;  // this block's lanes
+  const int ks = blockIdx.z % n_ks, r0 = (blockIdx.z / n_ks) * kBR;
+  const int width = width_t[hid];  // in flight with the mode scan
+  const int n_m = mode_rows(mode_idx, B, S, M, m, r0, rows);
+  if (l0 >= width || r0 >= n_m) return;  // lanes past the width; no rows
+  const int nr = min(kBR, n_m - r0), r16 = (nr + 15) & ~15;
+  const int N = B * S;
+  const int k0 = ks * kKS, kn = min(kKS, d - k0);
+  const int kp = (kn + 15) & ~15;  // depth computed, zero-padded to 16
+  const int ws = wt + E, hs = kKS + E;  // padded rows: distinct banks
+  T* wsm = reinterpret_cast<T*>(smem_raw);  // [kKS][ws] weight tile
+  T* hsm = wsm + kKS * ws;                  // [kBR][hs] normed rows
+  T* ssm = hsm + kBR * hs;                  // [kKS] the head's scale
+  float* red = reinterpret_cast<float*>(ssm + kKS);  // [mt][4][kBR][16]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // the scale slice, then the weight tile, stream in while the rows' norms
+  // are taken
+  const T* sc = norm_scale + (size_t)hid * d + k0;
+  for (int c = threadIdx.x * E; c < kp; c += kThreads * E)
+    cp_async16_or_zero(ssm + c, c < kn ? sc + c : sc, c < kn);
+  rt::cp_async_commit();
+  const T* w = down_w + ((size_t)hid * d + k0) * wmax + l0;
+  const int vr = wt / E;  // 16-byte vectors a tile row; divides kThreads
+  const int c = (threadIdx.x % vr) * E;
+  for (int k = threadIdx.x / vr; k < kp; k += kThreads / vr) {
+    const bool ok = k < kn && l0 + c < wmax;
+    cp_async16_or_zero(wsm + k * ws + c, ok ? w + (size_t)k * wmax + c : w,
+                       ok);
+  }
+  rt::cp_async_commit();
+
+  // inverse rms of each row over all of d: a warp a row, eight vectors a
+  // lane in flight, summed in k order (the same lanes and order whatever
+  // the row's slot; the zeros past d add nothing)
+  for (int i = warp; i < nr; i += kThreads / 32) {
+    const T* xr = x + (size_t)rows[i] * d;
+    float ss = 0.f;
+    for (int kb = lane * E; kb < d; kb += 8 * 32 * E) {
+      uint4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int k = kb + u * 32 * E;
+        v[u] = k < d ? *reinterpret_cast<const uint4*>(xr + k)
+                     : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        float f[E];
+        u4_to_f<T>(v[u], f);
+#pragma unroll
+        for (int j = 0; j < E; ++j) ss += f[j] * f[j];
+      }
+    }
+    ss = rt::warp_sum(ss);
+    if (lane == 0) inv[i] = rsqrtf(ss / (float)d + 1e-6f);
+  }
+  rt::cp_async_wait<1>();  // the scale slice has landed
+  __syncthreads();
+  // (x * inv) * scale of this slice, rounded to the model dtype; rows past
+  // the block's and depths past d are zeros
+  const int hv = kp / E;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < r16 * hv; i += kThreads) {
+    const int r = i / hv, c = (i - r * hv) * E;
+    float h[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) h[j] = 0.f;
+    if (r < nr && c < kn) {
+      float xv[E], sv[E];
+      rt::smem16_to_f(x + (size_t)rows[r] * d + k0 + c, xv);
+      rt::smem16_to_f(ssm + c, sv);
+#pragma unroll
+      for (int j = 0; j < E; ++j) h[j] = xv[j] * inv[r] * sv[j];
+    }
+    store16(hsm + r * hs + c, h);
+  }
+  rt::cp_async_wait<0>();
+  __syncthreads();
+
+  if constexpr (sizeof(T) == 2) {
+    mma_quarters(wsm, ws, hsm, hs, kp, mt, nr, red);
+    __syncthreads();
+    for (int i = threadIdx.x; i < mt * nr * 16; i += kThreads) {
+      const int t = i / (nr * 16), r = (i >> 4) - t * nr, cc = i & 15;
+      const int l = l0 + t * 16 + cc;
+      if (l < wmax)
+        partial[((size_t)ks * N + rows[r]) * wmax + l] =
+            quarters_sum(red, t, r, cc);
+    }
+  } else {
+    // f32: each output an FMA chain over the slice in k order
+    for (int o = threadIdx.x; o < nr * wt; o += kThreads) {
+      const int r = o / wt, c = o - r * wt;
+      float acc = 0.f;
+      for (int k = 0; k < kn; ++k)
+        acc += to_f(hsm[r * hs + k]) * to_f(wsm[k * ws + c]);
+      if (l0 + c < wmax)
+        partial[((size_t)ks * N + rows[r]) * wmax + l0 + c] = acc;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// boundary: 2) codes (slices summed, rounded, masked, quantized) + the
+//    up-projection of one column tile; mode 0 copies
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bm_up(const T* __restrict__ x, const int* __restrict__ mode_idx, int B,
+          int S, const T* __restrict__ up_w, const int* __restrict__ width_t,
+          const int* __restrict__ bits_t, int M,
+          const float* __restrict__ partial, T* __restrict__ out, int d,
+          int wmax, int mt, int n_ks, int kmax) {
+  constexpr int E = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int rows[kBR];
+  const int m = blockIdx.x, hid = max(m - 1, 0);
+  const int ct = 16 * mt, c0 = blockIdx.y * ct, r0 = blockIdx.z * kBR;
+  const int width = width_t[hid], bits = bits_t[hid];  // with the scan
+  const int n_m = mode_rows(mode_idx, B, S, M, m, r0, rows);
+  if (r0 >= n_m) return;
+  const int nr = min(kBR, n_m - r0);
+  const int vr = ct / E;
+  if (m == 0) {  // the raw code z crosses unchanged
+    for (int i = threadIdx.x; i < nr * vr; i += kThreads) {
+      const int r = i / vr, c = c0 + (i - r * vr) * E;
+      if (c < d) {
+        const size_t o = (size_t)rows[r] * d + c;
+        *reinterpret_cast<uint4*>(out + o) =
+            *reinterpret_cast<const uint4*>(x + o);
+      }
+    }
     return;
   }
-  const int hid = hid_g[g], width = width_g[g];
-#pragma unroll 8
-  for (int i = threadIdx.x; i < R * width; i += blockDim.x) {
-    const int r = i / width, w = i - r * width;
-    ws[r * width + w] = to_f(wired[(size_t)(g * R + r) * wmax + w]);
+  const int kp = (width + 15) & ~15;  // lanes of the up-projection
+  const int us = ct + E, zs = kmax + E;
+  T* usm = reinterpret_cast<T*>(smem_raw);  // [kmax][us] up tile
+  T* zsm = usm + kmax * us;                 // [kBR][zs] dequantized codes
+  float* red = reinterpret_cast<float*>(zsm + kBR * zs);  // [mt][4][kBR][16]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int N = B * S;
+
+  // the up tile streams in while the codes are rebuilt
+  const T* up = up_w + (size_t)hid * wmax * d + c0;
+  const int c = (threadIdx.x % vr) * E;  // vr divides kThreads
+  for (int k = threadIdx.x / vr; k < kp; k += kThreads / vr) {
+    const bool ok = k < wmax && c0 + c < d;
+    cp_async16_or_zero(usm + k * us + c, ok ? up + (size_t)k * d + c : up,
+                       ok);
   }
-  __syncthreads();
-  if (col >= d) return;
-  float acc[R];
+  rt::cp_async_commit();
+
+  // a warp a row: z = the slices' sums in order, rounded to the model
+  // dtype, lanes >= width zero (each lane kG groups of four lanes, four
+  // slices in flight); the row's |z| maximum; then the codes and their
+  // dequantized values, each lane on the lanes it wrote
+  const size_t sl = (size_t)N * wmax;  // one slice of the partial sums
+  const float qm = (float)max((1 << (max(bits, 1) - 1)) - 1, 1);
+  for (int r = warp; r < nr; r += kThreads / 32) {
+    const float* pr = partial + (size_t)rows[r] * wmax;
+    T* zr = zsm + r * zs;
+    float mx = 0.f;
+    for (int j0 = lane * 4; j0 < kp; j0 += kG * 32 * 4) {
+      float4 acc[kG];
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  // lanes >= width carry exact zeros: skipping them leaves the sum unchanged
-  const T* u = up_w + (size_t)hid * wmax * d + col;
-#pragma unroll 16
-  for (int w = 0; w < width; ++w) {
-    const float uv = to_f(u[(size_t)w * d]);
+      for (int u = 0; u < kG; ++u) {  // j < width: j + 3 < wmax (8 | wmax)
+        const int j = j0 + u * 32 * 4;
+        acc[u] = j < width ? *reinterpret_cast<const float4*>(pr + j)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (int ks = 1; ks < n_ks; ks += 4) {
+        float4 t[4][kG];
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] += ws[r * width + w] * uv;
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int u = 0; u < kG; ++u) {
+            const int j = j0 + u * 32 * 4;
+            t[q][u] = j < width && ks + q < n_ks
+                          ? *reinterpret_cast<const float4*>(
+                                pr + (ks + q) * sl + j)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (ks + q < n_ks)
+#pragma unroll
+            for (int u = 0; u < kG; ++u) acc[u] = add4(acc[u], t[q][u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kG; ++u) {
+        const int j = j0 + u * 32 * 4;
+        if (j >= kp) continue;
+        const float a4[4] = {acc[u].x, acc[u].y, acc[u].z, acc[u].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float z = j + e < width ? round_t<T>(a4[e]) : 0.f;
+          zr[j + e] = from_f<T>(z);
+          mx = fmaxf(mx, fabsf(z));
+        }
+      }
+    }
+    if (bits == 0) continue;
+    const float scale = fmaxf(rt::warp_max(mx), 1e-8f) / qm;
+    for (int j0 = lane * 4; j0 < kp; j0 += 32 * 4)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + e;
+        if (j < width)
+          zr[j] = from_f<T>(
+              fminf(fmaxf(rintf(to_f(zr[j]) / scale), -qm), qm) * scale);
+      }
   }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    out[(size_t)(g * R + r) * d + col] = from_f<T>(acc[r]);
+
+  if constexpr (sizeof(T) == 2) {
+    const int r16 = (nr + 15) & ~15;  // rows an ldmatrix pair reads: zeros
+    for (int r = nr + warp; r < r16; r += kThreads / 32)
+      for (int k = lane * 8; k < kp; k += 32 * 8)
+        *reinterpret_cast<uint4*>(zsm + r * zs + k) = make_uint4(0, 0, 0, 0);
+    rt::cp_async_wait<0>();
+    __syncthreads();
+    mma_quarters(usm, us, zsm, zs, kp, mt, nr, red);
+    __syncthreads();
+    for (int i = threadIdx.x; i < mt * nr * 16; i += kThreads) {
+      const int t = i / (nr * 16), r = (i >> 4) - t * nr, cc = i & 15;
+      const int col = c0 + t * 16 + cc;
+      if (col < d)
+        out[(size_t)rows[r] * d + col] = from_f<T>(quarters_sum(red, t, r, cc));
+    }
+  } else {
+    rt::cp_async_wait<0>();
+    __syncthreads();
+    // f32: each output an FMA chain over the lanes in order (the lanes past
+    // the width, zeros, add nothing)
+    for (int o = threadIdx.x; o < nr * ct; o += kThreads) {
+      const int r = o / ct, c = o - r * ct;
+      if (c0 + c >= d) continue;
+      float acc = 0.f;
+      for (int k = 0; k < width; ++k)
+        acc += to_f(zsm[r * zs + k]) * to_f(usm[k * us + c]);
+      out[(size_t)rows[r] * d + c0 + c] = from_f<T>(acc);
+    }
+  }
 }
 
-template <typename T, int R>
-cudaError_t boundary_launch(const void* xp, const void* down_w, const void* up_w,
-                            const void* norm_scale, const int* hid,
-                            const int* nch, const int* width, const int* bits,
-                            void* out, float* inv, float* partial, void* wired,
-                            int P, int d, int wmax, int n_ks,
-                            cudaStream_t stream) {
-  const int G = P / R;
-  const int n_w = (wmax + kBW - 1) / kBW;
-  const int kc = (d + n_ks - 1) / n_ks;
-  const T* x = static_cast<const T*>(xp);
-  bm_rownorm<T, R><<<dim3(G, R), kThreads, 0, stream>>>(x, nch, inv, d);
-
-  const size_t smem_down = sizeof(float) * R * kc;
-  cudaError_t e = rt::allow_smem(bm_down<T, R>, smem_down);
+template <typename T>
+cudaError_t boundary_launch(const T* x, const int* mode_idx, int B, int S,
+                            const T* down_w, const T* up_w,
+                            const T* norm_scale, const int* width,
+                            const int* bits, int M, float* partial, T* out,
+                            int d, int wmax, int mt, cudaStream_t stream) {
+  constexpr int E = 16 / sizeof(T);
+  const int n_ks = (d + kKS - 1) / kKS;
+  const int n_rc = (B * S + kBR - 1) / kBR;
+  const int t16 = 16 * mt;
+  const size_t red = sizeof(float) * 4 * mt * kBR * 16;  // quarter sums
+  const size_t smem1 = sizeof(T) * ((size_t)kKS * (t16 + E) +
+                                    (size_t)kBR * (kKS + E) + kKS) + red;
+  cudaError_t e = rt::allow_smem(bm_down<T>, smem1);
   if (e != cudaSuccess) return e;
-  bm_down<T, R><<<dim3(G, n_w, n_ks), kThreads, smem_down, stream>>>(
-      x, static_cast<const T*>(down_w), static_cast<const T*>(norm_scale), hid,
-      nch, inv, partial, P, d, wmax, kc);
-
-  const size_t smem_q = sizeof(float) * wmax;
-  if ((e = rt::allow_smem(bm_quant<T, R>, smem_q)) != cudaSuccess) return e;
-  bm_quant<T, R><<<dim3(G, R), kThreads, smem_q, stream>>>(
-      partial, nch, width, bits, static_cast<T*>(wired), P, wmax, n_ks);
-
-  const size_t smem_up = sizeof(float) * R * wmax;
-  if ((e = rt::allow_smem(bm_up<T, R>, smem_up)) != cudaSuccess) return e;
-  bm_up<T, R><<<dim3(G, (d + kThreads - 1) / kThreads), kThreads, smem_up,
-                 stream>>>(x, static_cast<const T*>(up_w), hid, nch, width,
-                           static_cast<const T*>(wired), static_cast<T*>(out),
-                           d, wmax);
+  bm_down<T><<<dim3(M, (wmax + t16 - 1) / t16, n_ks * n_rc), kThreads, smem1,
+               stream>>>(x, mode_idx, B, S, down_w, norm_scale, width, M,
+                         partial, d, wmax, mt, n_ks);
+  const int kmax = (wmax + 15) & ~15;
+  const size_t smem2 =
+      sizeof(T) * ((size_t)kmax * (t16 + E) + (size_t)kBR * (kmax + E)) + red;
+  if ((e = rt::allow_smem(bm_up<T>, smem2)) != cudaSuccess) return e;
+  bm_up<T><<<dim3(M + 1, (d + t16 - 1) / t16, n_rc), kThreads, smem2,
+             stream>>>(x, mode_idx, B, S, up_w, width, bits, M, partial, out,
+                       d, wmax, mt, n_ks, kmax);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// decode tail: 1) final norm of one row (a block per row), rounded through
-//    the model dtype
+// decode tail: 1) final norm of one row (a block per real row), rounded
+//    through the model dtype; a null bias adds nothing
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float block_sum(float v, float* red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -310,7 +603,8 @@ __global__ void tail_norm(const T* __restrict__ xp, const T* __restrict__ scale,
   const float iv = rsqrtf(block_sum(s, red) / (float)d + 1e-6f);
 #pragma unroll 4
   for (int k = threadIdx.x; k < d; k += blockDim.x) {
-    const float y = (to_f(x[k]) - mu) * iv * to_f(scale[k]) + to_f(bias[k]);
+    float y = (to_f(x[k]) - mu) * iv * to_f(scale[k]);
+    if (bias != nullptr) y += to_f(bias[k]);
     h[row * d + k] = from_f<T>(y);
   }
 }
@@ -332,7 +626,7 @@ __global__ void tail_logits(const float* __restrict__ h,
                             const float* __restrict__ heads,
                             const int* __restrict__ hid_g,
                             float* __restrict__ pbest, int* __restrict__ pidx,
-                            int d, int V, int ld) {
+                            int d, int V, int ld, int n_real) {
   constexpr int R = 8;  // rows of an f32 row block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* hT = reinterpret_cast<float*>(smem_raw);  // [d][R]: rows at one k
@@ -341,13 +635,13 @@ __global__ void tail_logits(const float* __restrict__ h,
   const int vt = blockIdx.x, g = blockIdx.y;
 #pragma unroll 8
   for (int i = threadIdx.x; i < R * d; i += blockDim.x) {
-    const int r = i / d, k = i - r * d;
-    hT[k * R + r] = h[((size_t)g * R + r) * d + k];
+    const int r = i / d, k = i - r * d;  // rows >= n_real are never read
+    hT[k * R + r] = g * R + r < n_real ? h[((size_t)g * R + r) * d + k] : 0.f;
   }
   __syncthreads();
   const int c0 = vt * kVT + threadIdx.x, c1 = c0 + kTT;
   const bool ok0 = c0 < V, ok1 = c1 < V;
-  const float* w = heads + (size_t)hid_g[g] * d * V;
+  const float* w = heads + (size_t)(hid_g != nullptr ? hid_g[g] : 0) * d * V;
   float a0[R], a1[R], hv[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) a0[r] = a1[r] = 0.f;
@@ -421,38 +715,6 @@ constexpr int kMT = 128;     // threads: 4 warps, 32 vocab columns each
 constexpr int kPad = 8;      // bf16 padding of a shared-memory row (16 B)
 constexpr int kRB = 16;      // rows of a bf16 row block (block_r)
 
-// 16-byte cp.async that writes zeros when ``ok`` is false (nothing read)
-__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* g,
-                                                   bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(g), "r"(ok ? 16 : 0));
-}
-
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if constexpr (kTrans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <bool kTied>
 __host__ __device__ constexpr int stage_elems() {  // one staged tile, padded rows
   return kTied ? kMV * (kKC + kPad) : kKC * (kMV + kPad);
@@ -497,7 +759,7 @@ __global__ void __launch_bounds__(kMT)
   bf16* hsm = reinterpret_cast<bf16*>(smem_raw);  // [16][d + pad]
   bf16* ring = hsm + kRB * hs;
   constexpr int kSE = stage_elems<kTied>();
-  const bf16* w = heads + (size_t)hid_g[g] * d * V;
+  const bf16* w = heads + (size_t)(hid_g != nullptr ? hid_g[g] : 0) * d * V;
 
   // the block's normed rows; rows >= nrows are zeros
   const int c8 = d / 8;
@@ -659,14 +921,14 @@ cudaError_t tail_mma_launch(const void* hbuf, const void* heads, const int* hid,
 template <bool kTied>
 cudaError_t tail_logits_launch(const void* hbuf, const void* heads,
                                const int* hid, float* pbest, int* pidx, int G,
-                               int d, int V, int n_vt, int ld,
+                               int d, int V, int n_vt, int ld, int n_real,
                                cudaStream_t stream) {
   const size_t smem = sizeof(float) * 8 * d;
   cudaError_t e = rt::allow_smem(tail_logits<kTied>, smem);
   if (e != cudaSuccess) return e;
   tail_logits<kTied><<<dim3(n_vt, G), kTT, smem, stream>>>(
       static_cast<const float*>(hbuf), static_cast<const float*>(heads), hid,
-      pbest, pidx, d, V, ld);
+      pbest, pidx, d, V, ld, n_real);
   return cudaSuccess;
 }
 
@@ -687,7 +949,7 @@ cudaError_t tail_launch(const void* xp, const void* heads, const void* scale,
                         int n_real, void* hbuf, float* pbest, int* pidx,
                         int ld, int* tok, int G, int d, int V, int layernorm,
                         int tied, cudaStream_t stream) {
-  tail_norm<T><<<G * R, 256, 0, stream>>>(
+  tail_norm<T><<<n_real, 256, 0, stream>>>(
       static_cast<const T*>(xp), static_cast<const T*>(scale),
       static_cast<const T*>(bias), static_cast<T*>(hbuf), d, layernorm);
   int n_part = 0;
@@ -703,14 +965,13 @@ cudaError_t tail_launch(const void* xp, const void* heads, const void* scale,
     n_part = (V + kVT - 1) / kVT;
     if (n_part > ld) return cudaErrorInvalidValue;
     e = tied ? tail_logits_launch<true>(hbuf, heads, hid, pbest, pidx, G, d, V,
-                                        n_part, ld, stream)
+                                        n_part, ld, n_real, stream)
              : tail_logits_launch<false>(hbuf, heads, hid, pbest, pidx, G, d,
-                                         V, n_part, ld, stream);
+                                         V, n_part, ld, n_real, stream);
   }
   if (e != cudaSuccess) return e;
-  const int rows = G * R;
-  tail_reduce<<<(rows + 3) / 4, 128, 0, stream>>>(pbest, pidx, tok, rows,
-                                                 n_part, ld);
+  tail_reduce<<<(n_real + 3) / 4, 128, 0, stream>>>(pbest, pidx, tok, n_real,
+                                                   n_part, ld);
   return cudaGetLastError();
 }
 
@@ -718,28 +979,34 @@ cudaError_t tail_launch(const void* xp, const void* heads, const void* scale,
 
 // Plain C entry points (bound with ctypes). Pointers are device pointers;
 // the scratch buffers come from the caller. Returns cudaGetLastError().
-extern "C" int boundary_mixed_grouped_launch(
-    const void* xp, const void* down_w, const void* up_w,
-    const void* norm_scale, const int* hid, const int* nchunk,
-    const int* width, const int* bits, void* out, float* inv, float* partial,
-    void* wired, int P, int d, int wmax, int n_ks, int is_bf16,
-    void* stream) {
+extern "C" int boundary_mixed_rows_launch(
+    const void* x, const int* mode_idx, int B, int S, const void* down_w,
+    const void* up_w, const void* norm_scale, const int* width,
+    const int* bits, int M, float* partial, void* out, int d, int wmax,
+    int mt, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return boundary_launch<bf16, 16>(xp, down_w, up_w, norm_scale, hid, nchunk,
-                                     width, bits, out, inv, partial, wired, P,
-                                     d, wmax, n_ks, s);
-  return boundary_launch<float, 8>(xp, down_w, up_w, norm_scale, hid, nchunk,
-                                   width, bits, out, inv, partial, wired, P, d,
-                                   wmax, n_ks, s);
+    return boundary_launch<bf16>(
+        static_cast<const bf16*>(x), mode_idx, B, S,
+        static_cast<const bf16*>(down_w), static_cast<const bf16*>(up_w),
+        static_cast<const bf16*>(norm_scale), width, bits, M, partial,
+        static_cast<bf16*>(out), d, wmax, mt, s);
+  return boundary_launch<float>(
+      static_cast<const float*>(x), mode_idx, B, S,
+      static_cast<const float*>(down_w), static_cast<const float*>(up_w),
+      static_cast<const float*>(norm_scale), width, bits, M, partial,
+      static_cast<float*>(out), d, wmax, mt, s);
 }
 
 // ``tied``: heads is [H, V, d] (the embedding table) instead of [H, d, V].
-// ``pbest`` / ``pidx``: [G * R, ld] scratch, ld >= ceil(V / 128). Real rows
-// of row block g: ``rows_g[g]`` when given, else min(n_real - g * R, R)
-// (only the bf16 path reads them; the f32 path computes every row). The
-// caller guarantees, in bf16, d % 64 == 0, V % 8 == 0 and 16-byte aligned
-// heads; in f32, d a multiple of 8 and 16-byte aligned rows.
+// ``hid``: a head a row block, or null for head 0; ``bias``: null for none.
+// ``pbest`` / ``pidx``: [G * R, ld] scratch, ld >= ceil(V / 128). Rows
+// 0 .. n_real - 1 are normed, computed and reduced into ``tok``; no row at
+// or past n_real is read, so ``xp`` may hold n_real rows, fewer than G * R.
+// Real rows of row block g in bf16: ``rows_g[g]`` when given (then n_real
+// is G * R), else min(n_real - g * R, R). The caller guarantees, in bf16,
+// d % 64 == 0, V % 8 == 0 and 16-byte aligned heads; in f32, d a multiple
+// of 8 and 16-byte aligned rows.
 extern "C" int decode_tail_grouped_launch(
     const void* xp, const void* heads, const void* scale, const void* bias,
     const int* hid, void* hbuf, float* pbest, int* pidx, int* tok, int G,

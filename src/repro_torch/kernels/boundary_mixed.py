@@ -15,12 +15,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (boundary_mixed_grouped_ref,
+from repro_torch.kernels.ref import (boundary_mixed_rows_ref,
                                      decode_tail_grouped_ref)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = {}
 _TAIL_SLAB = 128    # vocab columns per bf16 slab of the tail (kMV in the .cu)
+_BR, _KS = 32, 512  # boundary rows a block, K-slice depth (kBR, kKS)
+_SMEM_MAX = 232448  # dynamic shared memory a block may use on Hopper
 
 
 def _fn(name, argtypes):
@@ -50,45 +52,59 @@ def _tables(what, G, *tables):
     return out
 
 
-def boundary_mixed_grouped(xp, down_w, up_w, norm_scale, hid_g, nchunk_g,
-                           width_g, bits_g, *, block_r: int,
-                           block_w: int = 128, dtype=torch.bfloat16):
-    """Mode-grouped fused boundary. ``xp``: [P, d] rows permuted so each
-    ``block_r``-row block is mode-uniform (``ops.group_layout``);
-    ``down_w``/``up_w``/``norm_scale``: the stacked bank ([M, d, wmax] /
-    [M, wmax, d] / [M, d]); per-block int32 tables ``hid_g``, ``nchunk_g``
-    (0 = raw passthrough), ``width_g``, ``bits_g``. Returns [P, d]."""
-    P, d = xp.shape
-    M, d2, wmax = down_w.shape
-    if xp.device.type == "cpu":
-        return boundary_mixed_grouped_ref(
-            xp, down_w, up_w, norm_scale, hid_g, nchunk_g, width_g, bits_g,
-            block_r=block_r, block_w=block_w, dtype=dtype)
+def boundary_mixed_grouped(x2, mode_idx, seq_len: int, bank, *,
+                           dtype=torch.bfloat16):
+    """Fused mixed-mode boundary on the rows in place: the port's
+    counterpart of the Pallas ``boundary_mixed_grouped``, which takes a
+    mode-grouped padded layout; here each block of the kernel finds the
+    rows of its mode itself. ``x2``: [N, d] rows, N = B * ``seq_len``; row
+    r rides mode ``mode_idx[r // seq_len]`` (``mode_idx``: [B] int32; 0 =
+    raw, m >= 1 = head m-1 of ``bank``, the stacked bank of
+    ``bottleneck.bank_stack``: ``down_w`` [M, d, wmax], ``up_w`` [M, wmax,
+    d], ``norm_scale`` [M, d], int32 ``width`` / ``bits`` [M], read on the
+    device). Returns [N, d] in the input order: two launches, no layout."""
+    N, d = x2.shape
+    if x2.device.type == "cpu":
+        return boundary_mixed_rows_ref(
+            x2, mode_idx.repeat_interleave(seq_len), bank, dtype)
     what = "boundary_mixed_grouped"
-    if xp.dtype not in (torch.bfloat16, torch.float32) or dtype != xp.dtype:
+    down_w, up_w, scale = bank["down_w"], bank["up_w"], bank["norm_scale"]
+    M, d2, wmax = down_w.shape
+    if x2.dtype not in (torch.bfloat16, torch.float32) or dtype != x2.dtype:
         raise TypeError(f"{what}: takes bf16 or f32 rows in the model dtype, "
-                        f"got {xp.dtype} / {dtype}")
-    r_kernel = 16 if xp.dtype == torch.bfloat16 else 8
-    if (block_r != r_kernel or block_w != 128 or d2 != d or P % block_r
-            or up_w.shape != (M, wmax, d) or norm_scale.shape != (M, d)):
-        raise ValueError(f"{what}: unsupported shapes xp {tuple(xp.shape)} "
-                         f"down {tuple(down_w.shape)} up {tuple(up_w.shape)} "
-                         f"block_r {block_r} block_w {block_w}")
-    _check_cuda(what, xp, down_w, up_w, norm_scale, dtype=xp.dtype)
-    G = P // block_r
-    hid, nch, wid, bits = _tables(what, G, hid_g, nchunk_g, width_g, bits_g)
-    n_ks = max(1, min(16, d // 128))        # K slices of the down-projection
-    out = torch.empty_like(xp)
-    inv = torch.empty(P, dtype=torch.float32, device=xp.device)
-    partial = torch.empty((n_ks, P, wmax), dtype=torch.float32,
-                          device=xp.device)
-    wired = torch.empty((P, wmax), dtype=xp.dtype, device=xp.device)
-    fn = _fn("boundary_mixed_grouped_launch", [_P] * 12 + [_I] * 5 + [_P])
-    code = fn(xp.data_ptr(), down_w.data_ptr(), up_w.data_ptr(),
-              norm_scale.data_ptr(), hid.data_ptr(), nch.data_ptr(),
-              wid.data_ptr(), bits.data_ptr(), out.data_ptr(), inv.data_ptr(),
-              partial.data_ptr(), wired.data_ptr(), P, d, wmax, n_ks,
-              int(xp.dtype == torch.bfloat16), _build.stream_ptr(xp.device))
+                        f"got {x2.dtype} / {dtype}")
+    bf16 = x2.dtype == torch.bfloat16
+    B = mode_idx.shape[0]
+    # tile width: one 16-lane m-tile a block at a few rows (every SM on the
+    # weights), four at many (fewer blocks rebuilding each row's codes)
+    mt = 4 if bf16 and N > 32 else 1
+    esz = x2.element_size()
+    t16, kmax = 16 * mt, -(-wmax // 16) * 16
+    pad, red = 16 // esz, 4 * 4 * mt * _BR * 16     # red: quarter sums
+    smem = red + max(esz * (_KS * (t16 + pad) + _BR * (_KS + pad) + _KS),
+                     esz * (kmax * (t16 + pad) + _BR * (kmax + pad)))
+    if (d2 != d or d % 8 or wmax % 8 or N == 0 or B * seq_len != N
+            or mode_idx.shape != (B,) or mode_idx.dtype != torch.int32
+            or up_w.shape != (M, wmax, d) or scale.shape != (M, d)
+            or smem > _SMEM_MAX
+            or any(t.data_ptr() % 16 for t in (x2, down_w, up_w, scale))):
+        raise ValueError(f"{what}: unsupported shapes x {tuple(x2.shape)} "
+                         f"modes {tuple(mode_idx.shape)} {mode_idx.dtype} "
+                         f"seq_len {seq_len} down {tuple(down_w.shape)} "
+                         f"up {tuple(up_w.shape)}")
+    _check_cuda(what, x2, down_w, up_w, scale, dtype=x2.dtype)
+    width, bits = _tables(what, M, bank["width"], bank["bits"])
+    _check_cuda(what, x2, mode_idx, width, bits)
+    out = torch.empty_like(x2)
+    partial = torch.empty((-(-d // _KS), N, wmax), dtype=torch.float32,
+                          device=x2.device)
+    fn = _fn("boundary_mixed_rows_launch",
+             [_P, _P, _I, _I] + [_P] * 5 + [_I, _P, _P] + [_I] * 4 + [_P])
+    code = fn(x2.data_ptr(), mode_idx.data_ptr(), B, seq_len,
+              down_w.data_ptr(), up_w.data_ptr(), scale.data_ptr(),
+              width.data_ptr(), bits.data_ptr(), M, partial.data_ptr(),
+              out.data_ptr(), d, wmax, mt, int(bf16),
+              _build.stream_ptr(x2.device))
     _build.check(code, what)
     boundary_mixed_grouped.launches += 1
     return out
@@ -97,34 +113,39 @@ def boundary_mixed_grouped(xp, down_w, up_w, norm_scale, hid_g, nchunk_g,
 boundary_mixed_grouped.launches = 0
 
 
-def decode_tail_grouped(xp, heads, norm_scale, norm_bias, hid_g, *,
+def decode_tail_grouped(xp, heads, norm_scale, norm_bias=None, hid_g=None, *,
                         block_r: int, norm_kind: str = "rmsnorm",
                         n_blocks=None, tied: bool = False, n_real=None,
                         rows_g=None):
     """Fused decode tail: final norm -> per-block LM head -> argmax -> int32
-    token. ``xp``: [P, d] rows permuted so each ``block_r``-row block is
-    head-uniform (``ops.head_layout``); ``heads``: [H, d, V], or with
-    ``tied`` the embedding table as [H, V, d], read in place;
-    ``norm_scale``/``norm_bias``: [d]; ``hid_g``: [P/block_r] int32.
-    ``n_blocks``: compute only the first row blocks (rows past them are
-    returned as 0), default all. The real rows of each block (the bf16
-    kernel computes only those): ``rows_g`` [P/block_r] int32 on the device
-    (``ops.head_rows``), or the first ``n_real`` rows of the layout, default
-    every row; in bf16 the other rows of a computed block return 0.
-    Returns [P] int32 tokens."""
+    token. ``xp``: [P, d] rows in blocks of ``block_r``; ``heads``: [H, d,
+    V], or with ``tied`` the embedding table as [H, V, d], read in place;
+    ``norm_scale``: [d]; ``norm_bias``: [d] or None; ``hid_g``: the head of
+    each block, [ceil(P / block_r)] int32 (``ops.head_layout``), or None for
+    head 0. ``n_blocks``: compute only the first row blocks (rows past them
+    are returned as 0), default all. With one head the rows are read in
+    place: P need not be a multiple of ``block_r``. The real rows, the only
+    ones the kernel reads: the first ``n_real`` (default every row of the
+    computed blocks; rows at or past it return 0), or per block ``rows_g``
+    [P / block_r] int32 on the device (``ops.head_rows``; the bf16 kernel
+    computes only those, the other rows of a block return 0). Returns [P]
+    int32 tokens."""
     P, d = xp.shape
     if tied:
         H, V, d2 = heads.shape
     else:
         H, d2, V = heads.shape
-    G = P // block_r
+    G = -(-P // block_r)
     n_run = G if n_blocks is None else int(n_blocks)
     if xp.device.type == "cpu":
         block_v = next((b for b in (512, 256, 128) if V % b == 0), V)
         hv = heads.transpose(1, 2) if tied else heads        # a view
-        tok = decode_tail_grouped_ref(xp, hv, norm_scale, norm_bias, hid_g,
+        pad = G * block_r - P
+        x_all = torch.cat([xp, xp.new_zeros((pad, d))]) if pad else xp
+        hid = torch.zeros(G, dtype=torch.int32) if hid_g is None else hid_g
+        tok = decode_tail_grouped_ref(x_all, hv, norm_scale, norm_bias, hid,
                                       block_r=block_r, block_v=block_v,
-                                      norm_kind=norm_kind)[:, 0].clone()
+                                      norm_kind=norm_kind)[:P, 0].clone()
         tok[n_run * block_r:] = 0
         return tok
     what = "decode_tail_grouped"
@@ -136,32 +157,46 @@ def decode_tail_grouped(xp, heads, norm_scale, norm_bias, hid_g, *,
     # 32-byte sectors from a 16-byte aligned start
     shape_ok = (d % 64 == 0 and V % 8 == 0) if bf16 \
         else (not tied or d % 8 == 0)
-    if (block_r != r_kernel or d2 != d or P % block_r or not 0 < n_run <= G
-            or norm_scale.shape != (d,) or norm_bias.shape != (d,)
+    # rows normed and reduced: with per-block counts every row of the
+    # computed blocks (a padded layout), else the first n_real rows
+    rows = n_run * block_r if rows_g is not None else min(n_run * block_r, P)
+    n_real = rows if n_real is None or rows_g is not None else int(n_real)
+    if (block_r != r_kernel or d2 != d or not 0 < n_run <= G
+            or not 0 < n_real <= rows or rows > P
+            or norm_scale.shape != (d,)
+            or (norm_bias is not None and norm_bias.shape != (d,))
             or norm_kind not in ("rmsnorm", "layernorm") or not shape_ok
             or heads.data_ptr() % 16):
         raise ValueError(f"{what}: unsupported shapes xp {tuple(xp.shape)} "
                          f"heads {tuple(heads.shape)} tied {tied} block_r "
-                         f"{block_r} n_blocks {n_run} norm {norm_kind}")
-    _check_cuda(what, xp, heads, norm_scale, norm_bias, dtype=xp.dtype)
-    (hid,) = _tables(what, G, hid_g)
+                         f"{block_r} n_blocks {n_run} n_real {n_real} norm "
+                         f"{norm_kind}")
+    vecs = [xp, heads, norm_scale] + ([] if norm_bias is None
+                                      else [norm_bias])
+    _check_cuda(what, *vecs, dtype=xp.dtype)
+    hid = None if hid_g is None else _tables(what, G, hid_g)[0]
     if rows_g is not None:
         (rows_g,) = _tables(what, G, rows_g)
-    rows = n_run * block_r
-    n_real = rows if n_real is None else int(n_real)
     ld = -(-V // _TAIL_SLAB)
-    hbuf = torch.empty((rows, d), dtype=xp.dtype, device=xp.device)
-    pbest = torch.empty((rows, ld), dtype=torch.float32, device=xp.device)
-    pidx = torch.empty((rows, ld), dtype=torch.int32, device=xp.device)
-    tok = torch.zeros(P, dtype=torch.int32, device=xp.device)
+    hbuf = torch.empty((n_real, d), dtype=xp.dtype, device=xp.device)
+    pbest = torch.empty((n_run * block_r, ld), dtype=torch.float32,
+                        device=xp.device)
+    pidx = torch.empty((n_run * block_r, ld), dtype=torch.int32,
+                       device=xp.device)
+    # every row written when the real rows are all of them: no memset
+    tok = (torch.empty if n_real == P else torch.zeros)(
+        P, dtype=torch.int32, device=xp.device)
     fn = _fn("decode_tail_grouped_launch",
              [_P] * 9 + [_I] * 6 + [_P, _I, _I, _P])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     code = fn(xp.data_ptr(), heads.data_ptr(), norm_scale.data_ptr(),
-              norm_bias.data_ptr(), hid.data_ptr(), hbuf.data_ptr(),
-              pbest.data_ptr(), pidx.data_ptr(), tok.data_ptr(), n_run, d, V,
+              ptr(norm_bias), ptr(hid), hbuf.data_ptr(), pbest.data_ptr(),
+              pidx.data_ptr(), tok.data_ptr(), n_run, d, V,
               int(norm_kind == "layernorm"), int(tied), int(bf16),
-              None if rows_g is None else rows_g.data_ptr(), n_real, ld,
-              _build.stream_ptr(xp.device))
+              ptr(rows_g), n_real, ld, _build.stream_ptr(xp.device))
     _build.check(code, what)
     decode_tail_grouped.launches += 1
     return tok

@@ -3,8 +3,11 @@
 A CPU tensor takes the plain PyTorch path the reference takes off a TPU
 (the serving references of ``kernels.ref``); a CUDA tensor takes the
 kernel, whose wrapper raises on a shape or type it does not take. Nothing
-falls back on the card. The row layouts (``group_layout`` /
-``head_layout``) are computed on the tensors' device without a host sync.
+falls back on the card. The boundary and the one-head decode tail take the
+rows in place; the multi-head tail's row layout (``head_layout``) is
+computed on the tensors' device without a host sync. ``group_layout``, the
+reference's mode-grouped boundary layout, stays for the blocked plain
+version ``ref.boundary_mixed_grouped_ref``.
 """
 from __future__ import annotations
 
@@ -96,21 +99,15 @@ def _block_r(x) -> int:
 
 def boundary_mixed_op(stacked, x, mode_idx, *, dtype=torch.bfloat16):
     """Fused mixed-mode bottleneck boundary. x: [B, S, d], ``mode_idx``:
-    [B] in [0, M]. CPU: the serving reference; CUDA: the grouped kernel on
-    the mode-grouped layout."""
+    [B] in [0, M]. CPU: the serving reference; CUDA: the boundary kernel on
+    the rows in place (two launches, no layout)."""
     if x.device.type == "cpu":
         return ref.boundary_mixed_ref(stacked, x, mode_idx, dtype=dtype)
     B, S, d = x.shape
-    block_r = _block_r(x)
-    rmode = mode_idx.to(torch.int32).repeat_interleave(S)   # per-token mode
-    dest, tb = group_layout(stacked, rmode, block_r, 128)
-    xp = torch.zeros((tb["P"], d), dtype=x.dtype, device=x.device)
-    xp[dest] = x.reshape(B * S, d)
-    yp = boundary_mixed_grouped(
-        xp, stacked["down_w"], stacked["up_w"], stacked["norm_scale"],
-        tb["hid"], tb["nchunk"], tb["width"], tb["bits"], block_r=block_r,
-        block_w=128, dtype=dtype)
-    return yp[dest].reshape(B, S, d)
+    y = boundary_mixed_grouped(x.reshape(B * S, d),
+                               mode_idx.to(torch.int32), S, stacked,
+                               dtype=dtype)
+    return y.reshape(B, S, d)
 
 
 def decode_tail_op(x, norm_scale, norm_bias, heads, head_idx=None, *,
@@ -118,28 +115,30 @@ def decode_tail_op(x, norm_scale, norm_bias, heads, head_idx=None, *,
     """Fused decode tail: final norm -> LM head -> argmax -> int32 tokens
     [B, S]. ``heads``: [H, d, V] stacked LM heads, or the [1, V, d]
     embedding table when ``tied`` (read in place by the kernel, never
-    copied). CPU: the serving reference; CUDA: the fused tail kernel."""
+    copied). CPU: the serving reference; CUDA: the fused tail kernel, on
+    the rows in place for one head (three launches, no layout)."""
     if x.device.type == "cpu":
         return ref.decode_tail_ref(x, norm_scale, norm_bias, heads, head_idx,
                                    norm_kind=norm_kind, tied=tied)
     B, S, d = x.shape
     H = heads.shape[0]
+    block_r = _block_r(x)
+    if H == 1:
+        tok = decode_tail_grouped(x.reshape(B * S, d), heads, norm_scale,
+                                  norm_bias, block_r=block_r,
+                                  norm_kind=norm_kind, tied=tied)
+        return tok.reshape(B, S)
     hidx = torch.zeros(B, dtype=torch.int32, device=x.device) \
         if head_idx is None else head_idx.to(torch.int32)
     rhid = hidx.repeat_interleave(S)                       # per-token head
-    block_r = _block_r(x)
     dest, hid_g, P = head_layout(rhid, H, block_r)
     xp = torch.zeros((P, d), dtype=x.dtype, device=x.device)
     xp[dest] = x.reshape(B * S, d)
-    bias = norm_bias if norm_bias is not None else torch.zeros_like(norm_scale)
-    # one head: the rows sit first, in the first ceil(rows / block_r)
-    # blocks, and the padding block behind them is never read back; several
-    # heads: each block's real rows come from the layout, on the device
-    rows = ({"n_blocks": -(-(B * S) // block_r), "n_real": B * S} if H == 1
-            else {"rows_g": head_rows(rhid, H, block_r)})
-    tok = decode_tail_grouped(xp, heads, norm_scale, bias, hid_g,
+    # each block's real rows come from the layout, on the device
+    tok = decode_tail_grouped(xp, heads, norm_scale, norm_bias, hid_g,
                               block_r=block_r, norm_kind=norm_kind,
-                              tied=tied, **rows)
+                              tied=tied,
+                              rows_g=head_rows(rhid, H, block_r))
     return tok[dest].reshape(B, S)
 
 

@@ -120,6 +120,42 @@ def boundary_mixed_grouped_ref(xp, down_w, up_w, norm_scale, hid_g, nchunk_g,
     return torch.cat(outs, dim=0)
 
 
+def boundary_mixed_rows_ref(x2, row_mode, bank, dtype=torch.bfloat16):
+    """Plain version of the boundary kernel on the rows in place. x2: [N,
+    d]; ``row_mode``: [N] mode of each row (0 = raw, as the reference reads
+    it: anything else is head clamp(m - 1, 0, M - 1)); ``bank``: the
+    stacked bank. Per row, in the kernel's order: rmsnorm x head scale ->
+    model dtype; down-projection with f32 sums, each lane rounded to the
+    model dtype (the per-chunk barrier), lanes >= width zeroed; row-wise
+    absmax quant -> dequant at the head's bits (none at 0) -> ``dtype``;
+    up-projection -> model dtype. Mode-0 rows are copied. The projections
+    sum in float64 and round once: the value every f32 summation order
+    (the kernel's, the references') approximates, so each of them sits
+    within its own rounding envelope of it. Each row is computed on its own
+    (one GEMV a projection), so a row's output does not depend on the rows
+    beside it. Returns [N, d]."""
+    M = bank["width"].shape[0]
+    mode = row_mode.long()
+    hid_r = torch.clamp(mode - 1, 0, M - 1).tolist()
+    out = x2.clone()
+    for r in torch.nonzero(mode != 0).reshape(-1).tolist():
+        hid = hid_r[r]
+        width, bits = int(bank["width"][hid]), int(bank["bits"][hid])
+        h = (_rms(x2[r:r + 1].float())
+             * bank["norm_scale"][hid].float()).to(x2.dtype)
+        z = (h.double() @ bank["down_w"][hid].double()).to(x2.dtype).float()
+        z[:, width:] = 0.0
+        if bits != 0:
+            absmax = torch.amax(torch.abs(z), dim=-1, keepdim=True)
+            # a tensor divisor: CUDA divides by a Python scalar as a multiply
+            qm = torch.full_like(absmax, max((1 << (bits - 1)) - 1, 1))
+            scale = torch.clamp(absmax, min=1e-8) / qm
+            z = torch.clamp(torch.round(z / scale), -qm, qm) * scale
+        y = z.to(dtype).double() @ bank["up_w"][hid].double()
+        out[r] = y[0].to(x2.dtype)
+    return out
+
+
 def _sum_seq(x):
     """f32 sum over the last axis in index order: x[..., 0] + x[..., 1] +
     ... (the paged kernels' order)."""
