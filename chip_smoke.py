@@ -120,6 +120,15 @@ TOL = {
     # rounding: 2 N 2^-24 sum_k |z_k| |w_k|
     "dequant": "one bf16 ulp + 2 N 2^-24 sum_k |z_k w_k|",
 }
+# device kernels a decode step of one RG-LRU layer issues fewer with its
+# float32 forms made once: the casts of w_a's and w_x's weights and biases
+# and of the conv taps (5), and -softplus(-lam) (neg, softplus, neg)
+CACHED_A_LAYER = 8
+# device launches a decode tick (continuous) or step (sync) of
+# recurrentgemma-2b measured on the H100 while those forms were made on
+# every call; the profile phase requires at least the cached forms' saving
+# (CACHED_A_LAYER a layer) below them
+UNCACHED_LAUNCHES = {"continuous": 2472, "sync": 2046}
 # device kernels one dispatcher call may issue: the boundary's two launches;
 # the one-head decode tail's three (norm, logits, reduce), no layout ops
 MAX_KERNELS = {"boundary": 2, "tail": 3}
@@ -377,6 +386,7 @@ def recording(module, name: str, sink: list, limit: int = 1):
 
 
 RLENS = (2048, 16, 700, 1333)   # a prompt as long as the window, ragged
+BENCH_SCAN = "[4, 1024, 512] kernel bench"
 
 
 def capture_recurrent(cfg, dev, seed: int):
@@ -385,8 +395,10 @@ def capture_recurrent(cfg, dev, seed: int):
     encoder output at the split and the decoder output before the tail,
     and the first RG-LRU layer's scan inputs at the shapes the scan phase
     checks — [4, 2048, D] (this prefill), [1, 16, D] and [4, 16, D] (the
-    main path's prompts), [3, 37, D] continuing from a carried state, and
-    a width that is not a multiple of 128."""
+    main path's prompts), [3, 37, D] continuing from a carried state, one
+    step [3, 1, D] from it, and a width that is not a multiple of 128 —
+    plus the kernel bench's [4, 1024, 512] scan (its inputs' law: a =
+    sigmoid(normal), b normal, no carry; numpy-seeded)."""
     import numpy as np
     import torch
 
@@ -441,6 +453,29 @@ def capture_recurrent(cfg, dev, seed: int):
     scans["[3, 37, 1000] odd width"] = (a[:, :, :1000].contiguous(),
                                         b[:, :, :1000].contiguous(),
                                         h0[:, :1000].contiguous())
+    scans["[3, 1] one step from a carried state"] = (
+        a[:, :1].contiguous(), b[:, :1].contiguous(), h0)
+    # 4-byte copies: a width that is not a multiple of 4, and rows that
+    # start one float past a 16-byte boundary
+    scans["[3, 37, 1001] width not a multiple of 4"] = (
+        a[:, :, :1001].contiguous(), b[:, :, :1001].contiguous(),
+        h0[:, :1001].contiguous())
+
+    def off_by_one_float(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    scans["[3, 37, 1000] rows one float off 16-byte alignment"] = (
+        off_by_one_float(a[:, :, :1000]), off_by_one_float(b[:, :, :1000]),
+        h0[:, :1000].contiguous())
+    rng = np.random.default_rng(seed + 20)
+    scans[BENCH_SCAN] = (
+        torch.sigmoid(torch.from_numpy(rng.standard_normal(
+            (4, 1024, 512)).astype(np.float32)).to(dev)),
+        torch.from_numpy(rng.standard_normal((4, 1024, 512)).astype(
+            np.float32)).to(dev), None)
     torch.cuda.synchronize(dev)
     valid = torch.arange(S, device=dev)[None, :] < lens_t[:, None]
     return {"params": params, "stacked": stacked, "x_enc": x_enc,
@@ -1040,45 +1075,110 @@ def phase_paged(cap, cfg, dev, seed: int, iters: int):
 # ---------------------------------------------------------------------------
 
 def phase_rglru(rcap, dev, iters: int):
-    """Every captured shape bit for bit against the plain version; device
-    ms of the kernel and of the plain version at the main path's prefill
-    shape [4, 16, D] and at a window-long prompt [4, 2048, D]. No single
+    """Every captured shape bit for bit against the plain version, with
+    the plan it launched (the planner takes every tile width and both copy
+    widths over these cases); device ms of the kernel and of the plain
+    version at the main path's prefill shape [4, 16, D], at a window-long
+    prompt [4, 2048, D] and at the kernel bench's [4, 1024, 512], each
+    beside its byte bound (12 bytes a step a channel, plus h0). No single
     PyTorch call computes this recurrence, so there is no library time."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels import rglru_scan as RS
     rows = []
     for label, (a, b, h0) in rcap["scans"].items():
-        hk = rglru_scan(a, b, h0)
-        torch.cuda.synchronize()
         hr = ref.rglru_scan_ref(a, b, h0)
+        hk = RS.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
         err = float((hk - hr).abs().max())
         check(torch.equal(hk, hr) and bool(torch.isfinite(hk).all()),
               f"rglru_scan {label}: not bit for bit (max error {err})")
         rows.append({"case": label, "shape": list(a.shape),
-                     "h0": h0 is not None, "max_abs_err": err})
+                     "h0": h0 is not None, "max_abs_err": err,
+                     "plan": RS.rglru_scan.last_plan._asdict()})
+    for want in ({"tile": t} for t in RS.TILES):
+        check(any(want.items() <= r["plan"].items() for r in rows),
+              f"rglru_scan: no captured case launched {want}")
+    check({r["plan"]["vec"] for r in rows} == {1, 4},
+          "rglru_scan: the captured cases miss a copy width")
     flush = l2_flusher(dev)
 
     def timed(key, n_iters, n_plain):
         a, b, h0 = rcap["scans"][key]
         B, S, D = a.shape
-        ms = time_ms(lambda: rglru_scan(a, b, h0), n_iters, flush)
+        ms = time_ms(lambda: RS.rglru_scan(a, b, h0), n_iters, flush)
         plain = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), n_plain, flush)
         b_ms, b_by = bound(3 * B * S * D * 4 + (B * D * 4 if h0 is not None
                                                 else 0),
                            2 * B * S * D, "float32")
         return {"timed_shape": [B, S, D], "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share": b_ms / ms,
+                "plan": RS.rglru_scan.last_plan._asdict()}
 
     head = timed("[4, 16] main-path prefill", iters, max(iters // 5, 3))
     long = timed("[4, 2048] prefill, no h0", max(iters // 5, 3), 2)
+    bench = timed(BENCH_SCAN, max(iters // 5, 3), 2)
     out = {"phase": "kernel", "name": "rglru_scan",
            "tolerance": TOL["rglru"], "cases": rows,
            "max_abs_err": max(r["max_abs_err"] for r in rows), **head,
            "library_ms": None,
-           "window_prompt": long}
+           "window_prompt": long, "bench_shape": bench}
     emit(out)
     return out
+
+
+def phase_rglru_layer(rcap, cfg, dev, iters: int):
+    """The first RG-LRU layer of full-width recurrentgemma-2b on the card
+    with its float32 forms made once (``rglru_prepare``, as the engines
+    run it) and made on each call: a prefill of 16 steps and three decode
+    steps give the same bits either way; a prepared decode step issues
+    ``CACHED_A_LAYER`` fewer device kernels (the five casts of the gate
+    weights, biases and conv taps, and -softplus(-lam)'s three ops),
+    counted as the nodes of a captured step (``graph_nodes``); the device
+    ms of one decode step each way."""
+    from repro_torch.models import rglru as RG
+    i = next(i for i in range(cfg.n_layers) if cfg.block_kind(i) == "rglru")
+    raw = rcap["params"]["layers"][i]["mix"]
+    prep = RG.rglru_prepare(raw)
+    d_rnn = cfg.d_rnn or cfg.d_model
+    x = rcap["x_enc"][:, :20].contiguous()
+    st = {k: RG.rglru_state_init(x.shape[0], d_rnn, dtype=x.dtype,
+                                 device=dev) for k in ("raw", "prep")}
+    ys = {k: RG.rglru_prefill(p, x[:, :16], st[k])
+          for k, p in (("raw", raw), ("prep", prep))}
+    check(same_bits(ys["raw"], ys["prep"]),
+          "rglru layer: the prepared prefill gives other bits")
+    for t in range(16, 19):
+        ys = {k: RG.rglru_step(p, x[:, t:t + 1], st[k])
+              for k, p in (("raw", raw), ("prep", prep))}
+        check(same_bits(ys["raw"], ys["prep"])
+              and all(same_bits(st["raw"][k], st["prep"][k])
+                      for k in ("h", "conv")),
+              f"rglru layer: the prepared step {t} gives other bits")
+    x1 = x[:, 19:20]
+    # the check is exact, so the kernels are counted as the nodes of a
+    # captured step: a profiler trace may drop device events
+    kernels = {k: graph_nodes(lambda p=p, k=k: RG.rglru_step(p, x1, st[k]))
+               for k, p in (("raw", raw), ("prep", prep))}
+    check(kernels["raw"] - kernels["prep"] == CACHED_A_LAYER,
+          f"rglru layer: a prepared decode step issues {kernels['prep']} "
+          f"device kernels, the unprepared {kernels['raw']}; expected "
+          f"{CACHED_A_LAYER} fewer")
+    step_ms = {k: time_ms(lambda p=p, k=k: RG.rglru_step(p, x1, st[k]),
+                          iters)
+               for k, p in (("raw", raw), ("prep", prep))}
+    n = sum(cfg.block_kind(j) == "rglru" for j in range(cfg.n_layers))
+    emit({"phase": "rglru_layer", "arch": cfg.name, "layer": i,
+          "rows": x.shape[0], "bits": "prefill and 3 steps bit for bit",
+          "device_kernels_a_step": kernels, "step_ms": step_ms,
+          "rglru_layers": n,
+          "kernels_removed_a_model_step": n * CACHED_A_LAYER,
+          "ms_removed_a_model_step": n * (step_ms["raw"] - step_ms["prep"]),
+          "f32_forms_mb": sum(t.numel() * t.element_size() for t in (
+              prep["f32"]["w_a"]["w"], prep["f32"]["w_a"]["b"],
+              prep["f32"]["w_x"]["w"], prep["f32"]["w_x"]["b"],
+              prep["f32"]["conv"], prep["f32"]["log_a"])) * n / 1e6})
 
 
 # ---------------------------------------------------------------------------
@@ -1349,19 +1449,32 @@ def counting(module, name: str, counts: dict):
         setattr(module, name, orig)
 
 
+def check_f32_forms(calls: dict, kinds: list, label: str) -> None:
+    """The engine made each RG-LRU layer's float32 forms once, when it
+    prepared its parameters, and no step made them again."""
+    n = kinds.count("rglru")
+    made = calls.get("_f32_forms", 0)
+    check(made == n, f"{label}: the RG-LRU float32 forms were made {made} "
+                     f"times for {n} RG-LRU layers (a step made them)")
+
+
 def phase_main_path(cfg, smi: str):
     """The arch's serving entry point at full width with every launch
     counter at 0 just before and read just after, prefill dispatches and
     decode ticks counted beside them (warm-up included). Per decode tick
     the device loop launches one boundary, one tail and one paged
     attention per layer on the paged pool; per prefill dispatch one
-    boundary and one scan per RG-LRU layer."""
+    boundary and one scan per RG-LRU layer. The RG-LRU layers' float32
+    forms are made once, when the engine prepares its parameters, and
+    never on a step."""
     from repro_torch.core import split as SP
     from repro_torch.launch import serve
+    from repro_torch.models import rglru as RG
     fns = zero_counts()
     calls: dict = {}
     with counting(SP, "split_prefill_mixed", calls), \
-            counting(SP, "split_decode_step_mixed", calls):
+            counting(SP, "split_decode_step_mixed", calls), \
+            counting(RG, "_f32_forms", calls):
         summary = serve.main(SERVE[cfg.name] + ["--device", "cuda"])
     launches = {k: f.launches for k, f in fns.items()}
     prefills = calls.get("split_prefill_mixed", 0)
@@ -1385,6 +1498,7 @@ def phase_main_path(cfg, smi: str):
     check(launches == expect,
           f"main path {cfg.name}: launches {launches} for {prefills} "
           f"prefill dispatches and {ticks} decode ticks, expected {expect}")
+    check_f32_forms(calls, kinds, f"main path {cfg.name}")
     emit({"phase": "main_path", "engine": "continuous", "arch": cfg.name,
           "dtype": cfg.dtype, "paged": summary["paged"],
           "requests_finished": summary["requests_finished"],
@@ -1394,7 +1508,7 @@ def phase_main_path(cfg, smi: str):
           "decode_tok_per_s": summary["decode_tok_per_s"],
           "mode_counts": summary["mode_counts"], "launches": launches,
           "prefill_dispatches": prefills, "decode_step_calls": ticks,
-          "card": smi})
+          "rglru_f32_forms_made": calls.get("_f32_forms", 0), "card": smi})
     return launches
 
 
@@ -1412,11 +1526,22 @@ def phase_profile(cfg, engine: str):
     prof = summary["profile"]
     steps = (summary["decode_ticks"] if engine == "continuous"
              else len(summary["generated"][0]))
+    per_step = prof["kernel_launches"] / max(steps, 1)
+    n_rglru = sum(cfg.block_kind(i) == "rglru" for i in range(cfg.n_layers))
+    ceiling = None
+    if n_rglru and prof["kernel_launches"]:
+        ceiling = UNCACHED_LAUNCHES[engine] - CACHED_A_LAYER * n_rglru
+        check(per_step <= ceiling,
+              f"profile {engine} {cfg.name}: {per_step:.1f} device launches "
+              f"a decode step, above {ceiling} (the per-step RG-LRU float32 "
+              f"casts are back)")
     emit({"phase": "profile", "engine": engine, "arch": cfg.name,
           "decode_steps": steps,
           "device_traced": prof["kernel_launches"] > 0,
-          "launches_per_decode_step": prof["kernel_launches"] / max(steps, 1),
-          **prof})
+          "launches_per_decode_step": per_step,
+          "launches_ceiling": ceiling,
+          "to_copy_ms_per_decode_step": prof["to_copy"]["device_ms"]
+          / max(steps, 1), **prof})
 
 
 # ---------------------------------------------------------------------------
@@ -1477,12 +1602,14 @@ def phase_sync_main_path(cfg, smi: str):
     RG-LRU layer; no boundary, paged attention or wire kernel."""
     from repro_torch.core import split as SP
     from repro_torch.launch import serve
+    from repro_torch.models import rglru as RG
     from repro_torch.models import transformer as T
     fns = zero_counts()
     calls: dict = {}
     with counting(T, "prefill", calls), \
             counting(SP, "split_decode_step", calls), \
-            counting(T, "decode_step", calls):
+            counting(T, "decode_step", calls), \
+            counting(RG, "_f32_forms", calls):
         summary = serve.main(SYNC[cfg.name] + ["--device", "cuda"])
     launches = {k: f.launches for k, f in fns.items()}
     prefills = calls.get("prefill", 0)
@@ -1506,13 +1633,14 @@ def phase_sync_main_path(cfg, smi: str):
     check(launches == expect,
           f"sync main path {cfg.name}: launches {launches} for {prefills} "
           f"prefills and {steps} decode steps, expected {expect}")
+    check_f32_forms(calls, kinds, f"sync main path {cfg.name}")
     emit({"phase": "main_path", "engine": "sync", "arch": cfg.name,
           "dtype": cfg.dtype, "prefill_s": summary["prefill_s"],
           "decode_tok_per_s": summary["decode_tok_per_s"],
           "tokens": summary["tokens"], "mode_counts": summary["mode_counts"],
           "wire_bytes_per_token": summary["wire_bytes_per_token"],
           "launches": launches, "prefills": prefills, "decode_steps": steps,
-          "card": smi})
+          "rglru_f32_forms_made": calls.get("_f32_forms", 0), "card": smi})
     return launches
 
 
@@ -1611,6 +1739,7 @@ def main(argv=None) -> int:
               phase_rglru(rcap, dev, args.iters),
               *phase_wire(cap, rcap, cfg, rcfg, dev, args.seed, args.iters)):
         results[r["name"]] = r
+    phase_rglru_layer(rcap, rcfg, dev, args.iters)
     del cap, rcap
     gc.collect()
     torch.cuda.empty_cache()

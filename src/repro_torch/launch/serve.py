@@ -82,7 +82,9 @@ def _sync(dev: torch.device):
 def profile_summary(prof, seconds: float, top: int = 12) -> dict:
     """Device busy time of a ``torch.profiler`` run: the sum of its CUDA
     kernels' durations (one stream, so they do not overlap), the idle
-    share of the wall time, and the kernels that took the most time."""
+    share of the wall time, the kernels that took the most time, and the
+    calls and device time of ``aten::_to_copy`` (dtype casts, and the few
+    host-to-device uploads of tokens and positions)."""
     by_name = {}
     for e in prof.events():
         if e.device_type.name != "CUDA":
@@ -91,9 +93,13 @@ def profile_summary(prof, seconds: float, top: int = 12) -> dict:
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    casts = [e for e in prof.key_averages() if e.key == "aten::_to_copy"]
     return {"wall_s": seconds, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / max(seconds, 1e-9),
             "kernel_launches": sum(n for _, n in by_name.values()),
+            "to_copy": {"calls": sum(e.count for e in casts),
+                        "device_ms": sum(e.device_time_total
+                                         for e in casts) / 1e3},
             "top_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": n}
                             for k, (us, n) in rows]}
 
@@ -202,7 +208,7 @@ def run_sync(args, cfg, params):
             tok = first
             for _ in range(args.gen):
                 logits, eng.states, pb = SP.split_decode_step(
-                    params, tok, eng.states, eng.pos, cfg, mode=mode)
+                    eng.params, tok, eng.states, eng.pos, cfg, mode=mode)
                 eng.pos += 1
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)
                 out.append(tok)

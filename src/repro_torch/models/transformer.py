@@ -26,7 +26,8 @@ from repro_torch.models.layers import (embed_apply, embed_init, dense_init,
                                        mlp_apply, mlp_init, norm_apply,
                                        norm_init)
 from repro_torch.models.rglru import (rglru_init, rglru_prefill,
-                                      rglru_state_init, rglru_step)
+                                      rglru_prepare, rglru_state_init,
+                                      rglru_step)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _KINDS = ("attn", "rglru")
@@ -217,6 +218,19 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        dtype=dt)
     return params
+
+
+def prepare_params(params, cfg: ModelConfig) -> Dict[str, Any]:
+    """``params`` with each RG-LRU layer's per-step float32 forms made once
+    (``rglru_prepare``), as the serving engines run them: a new top-level
+    tree sharing every tensor of ``params``, which stays as it is. Trees
+    without RG-LRU layers come back unchanged."""
+    kinds = _kinds(cfg)
+    if "rglru" not in kinds:
+        return params
+    layers = tuple({**p, "mix": rglru_prepare(p["mix"])} if k == "rglru"
+                   else p for p, k in zip(params["layers"], kinds))
+    return {**params, "layers": layers}
 
 
 def _stack(trees):

@@ -263,7 +263,8 @@ class ContinuousBatchingEngine:
     the paged or the dense pool. ``orchestrator`` is shared (mode
     calibration is global) but tracks one link per request id;
     ``default_channel`` serves requests that arrive without their own
-    ``Channel``. The pool lives on the device of ``params``."""
+    ``Channel``. The pool lives on the device of ``params``; the engine
+    runs a prepared view of them (``T.prepare_params``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 8,
                  cache_len: int = 128,
@@ -296,7 +297,7 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "repro_torch serves the mixed-mode split path only: params "
                 "need a bottleneck mode bank (init_split_params)")
-        self.params = params
+        self.params = T.prepare_params(params, cfg)
         self.cfg = cfg
         self.device = params["embed"]["table"].device
         self.orch = orchestrator

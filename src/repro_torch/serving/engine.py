@@ -59,8 +59,9 @@ class GenStats:
 
 
 class ServingEngine:
-    """Static-batch split serving on one device. ``mesh=`` and
-    ``telemetry=`` are not ported yet and raise."""
+    """Static-batch split serving on one device, on a prepared view of
+    ``params`` (``T.prepare_params``). ``mesh=`` and ``telemetry=`` are not
+    ported yet and raise."""
 
     def __init__(self, params, cfg: ModelConfig, *, cache_len: int = 512,
                  batch: int = 1,
@@ -70,7 +71,7 @@ class ServingEngine:
             raise NotImplementedError(
                 "repro_torch serves on one device without telemetry; mesh "
                 "sharding and telemetry are not ported yet")
-        self.params = params
+        self.params = T.prepare_params(params, cfg)
         self.cfg = cfg
         self.cache_len = cache_len
         self.batch = batch
