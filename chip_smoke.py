@@ -19,10 +19,13 @@ Phases, each printing one JSON line; any failure exits nonzero:
    attention, the first RG-LRU layer's gates for the scan, the rmsnormed
    encoder output and each bank's own projections for the wire pair
    (``bottleneck_quant``, ``dequant_matmul``; also at the kernel bench's
-   f32 shape; bits 8, 4 and 1, with a row of zeros); paged attention in
-   its one-range and its split form at the main path's decode shape and
-   at the capture's long shape (positions up to 999), bf16 bit for bit
-   against the plain version and the split-order mirror; the boundary on
+   f32 shape; bits 8, 4 and 1, with a row of zeros; an f32 output, a
+   depth and a width off 16-byte rows, operands off 16-byte alignment and
+   N 4096; one device kernel a call, each launch's plan printed); paged
+   attention in its one-range and its split form at the main path's
+   decode shape and at the capture's long shape (positions up to 999),
+   bf16 bit for bit against the plain version and the split-order
+   mirror; the boundary on
    the rows in place, every row bit-identical alone and in its pool, and
    at most two device kernels a dispatcher call; the tail with 4 real rows
    of a 16-row block, with three heads, and with one head on the rows in
@@ -167,8 +170,9 @@ def dtype_name(dt) -> str:
 # ---------------------------------------------------------------------------
 
 # measurements the profiler traced no device work for, by helper: those
-# were taken without CUPTI (CUDA events, a captured graph's nodes)
-UNTRACED = {"time_ms": 0, "device_kernels": 0}
+# were taken without CUPTI (CUDA events, a captured graph's nodes); and the
+# kernel events that one-kernel timings found missing from their traces
+UNTRACED = {"time_ms": 0, "device_kernels": 0, "kernel_events_missed": 0}
 
 
 def device_events(run, tries: int = 3) -> list:
@@ -207,7 +211,8 @@ def event_ms(fn, iters: int, flush=None) -> float:
     return total / iters
 
 
-def time_ms(fn, iters: int, flush=None, by_kernel=None) -> float:
+def time_ms(fn, iters: int, flush=None, by_kernel=None,
+            one_kernel: bool = False) -> float:
     """Mean device time of one call of ``fn``: the durations of the device
     work it launches, summed over ``iters`` calls from a ``torch.profiler``
     trace, over ``iters``. Host time between launches is not counted (a
@@ -215,6 +220,9 @@ def time_ms(fn, iters: int, flush=None, by_kernel=None) -> float:
     the Python wrapper). ``flush`` (traced but not counted) evicts the L2
     cache before each call where the caller would find the operands cold.
     ``by_kernel``: a dict that receives ms per call of each kernel name.
+    ``one_kernel``: a call is one device kernel, so the mean is over the
+    kernels traced (a trace can miss events: a missed kernel must not count
+    as a call of no time; ``UNTRACED["kernel_events_missed"]`` counts them).
     Where the profiler traces no device work the time is ``event_ms``'s,
     with no split by kernel, and ``UNTRACED`` counts it."""
     for _ in range(2):
@@ -230,14 +238,18 @@ def time_ms(fn, iters: int, flush=None, by_kernel=None) -> float:
     if not events:
         UNTRACED["time_ms"] += 1
         return event_ms(fn, iters, flush)
-    per = {}
+    per, traced = {}, 0
     for e in events:
         if FLUSH_OP not in e.name:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+            traced += 1
     us = sum(per.values())
     check(us > 0, "the profiler traced no device work of the timed call")
     if by_kernel is not None:
         by_kernel.update({k[:60]: v / iters / 1e3 for k, v in per.items()})
+    if one_kernel:
+        UNTRACED["kernel_events_missed"] += max(0, iters - traced)
+        return us / traced / 1e3
     return us / iters / 1e3
 
 
@@ -1213,6 +1225,20 @@ def bench_inputs(dev):
             "down": normal((2048, 512), 0.02), "up": normal((512, 2048), 0.02)}
 
 
+def off_alignment(x):
+    """A contiguous copy of ``x`` whose storage starts one element past a
+    16-byte boundary (the wire kernels' narrow copy path)."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def plan_of(fn) -> dict:
+    return fn.last_plan._asdict()
+
+
 def check_bq(x, w, bits: int, label: str, zero_row: bool):
     """Kernel codes and scales against the plain version (``TOL``). With
     ``zero_row`` row 0 is zeroed first: its codes must be 0 and its scale
@@ -1245,38 +1271,44 @@ def check_bq(x, w, bits: int, label: str, zero_row: bool):
     return codes, scales, {"case": f"{label} {tuple(x.shape)} x "
                                    f"{tuple(w.shape)} bits {bits}",
                            "codes_max_diff": int(d.max()),
-                           "codes_frac_diff": frac, "scale_max_rel": srel}
+                           "codes_frac_diff": frac, "scale_max_rel": srel,
+                           "plan": plan_of(bottleneck_quant)}
 
 
-def check_dq(codes, scales, w, label: str):
-    """Kernel output (bf16) against the plain version within one bf16 ulp
-    plus the f32 sums' rounding (``TOL["dequant"]``)."""
+def check_dq(codes, scales, w, label: str, out_dtype=None):
+    """Kernel output against the plain version: bf16 within one bf16 ulp
+    plus the f32 sums' rounding, f32 within that rounding alone
+    (``TOL["dequant"]``)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_matmul import dequant_matmul
-    y = dequant_matmul(codes, scales, w).float()
+    out_dtype = out_dtype or torch.bfloat16
+    y = dequant_matmul(codes, scales, w, out_dtype=out_dtype).float()
     torch.cuda.synchronize()
-    yr = ref.dequant_matmul_ref(codes, scales, w).float()
+    yr = ref.dequant_matmul_ref(codes, scales, w, out_dtype).float()
     mag = torch.maximum(y.abs(), yr.abs()).clamp(min=1e-30)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     z = codes.float() * scales
     env = 2 * codes.shape[1] * 2.0 ** -24 * (z.abs() @ w.float().abs())
     err = (y - yr).abs()
-    ratio = float((err / (ulp + env)).max())
+    tol = ulp + env if out_dtype == torch.bfloat16 else env
+    ratio = float((err / tol.clamp(min=1e-38)).max())
     check(ratio <= 1.0 and bool(torch.isfinite(y).all()),
-          f"dequant_matmul {label}: error {float(err.max())} beyond one bf16 "
-          f"ulp + the f32 rounding (worst ratio {ratio:.3f})")
-    return {"case": f"{label} {tuple(codes.shape)} x {tuple(w.shape)}",
+          f"dequant_matmul {label} ({dtype_name(out_dtype)} out): error "
+          f"{float(err.max())} beyond the tolerance (worst ratio "
+          f"{ratio:.3f})")
+    return {"case": f"{label} {tuple(codes.shape)} x {tuple(w.shape)} -> "
+                    f"{dtype_name(out_dtype)}",
             "max_abs_err": float(err.max()),
             "outputs_beyond_one_ulp": int((err > ulp).sum()),
-            "envelope_ratio": ratio}
+            "envelope_ratio": ratio, "plan": plan_of(dequant_matmul)}
 
 
 def time_wire(inp, dev, iters: int):
     """Device ms of both kernels, their plain versions and, as a yardstick
     the port never calls, ``torch.matmul`` of the GEMM part alone (no
     PyTorch call computes either fused function), at one wire's 512 rows;
-    with each call's bound."""
+    with each call's bound and plan."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.bottleneck_quant import bottleneck_quant
@@ -1292,31 +1324,79 @@ def time_wire(inp, dev, iters: int):
                        2 * M * K * N, dt)
     out["bottleneck_quant"] = {
         "timed_shape": [M, K, N], "dtype": dt,
-        "ms": time_ms(lambda: bottleneck_quant(x, wd), iters, flush),
+        "ms": time_ms(lambda: bottleneck_quant(x, wd), iters, flush,
+                      one_kernel=True),
         "plain_ms": time_ms(lambda: ref.bottleneck_quant_ref(x, wd),
                             iters, flush),
         "bound_ms": b_ms, "bound_by": b_by,
-        "matmul_ms": time_ms(lambda: torch.matmul(x, wd), iters, flush)}
-    # the dequantized operand is f32, so the f32 peak bounds the product
+        "matmul_ms": time_ms(lambda: torch.matmul(x, wd), iters, flush),
+        "plan": plan_of(bottleneck_quant)}
+    # the codes are exact in bf16, so one bf16 tensor-core pass over the
+    # product is the least the card needs, whatever w's dtype
     b_ms, b_by = bound(M * N + M * 4 + N * D * wu.element_size() + M * D * 2,
-                       2 * M * N * D + M * N, "float32")
+                       2 * M * N * D, "bfloat16")
     out["dequant_matmul"] = {
         "timed_shape": [M, N, D], "dtype": dtype_name(wu.dtype),
         "ms": time_ms(lambda: dequant_matmul(codes, scales, wu), iters,
-                      flush),
+                      flush, one_kernel=True),
         "plain_ms": time_ms(lambda: ref.dequant_matmul_ref(codes, scales,
                                                            wu), iters, flush),
         "bound_ms": b_ms, "bound_by": b_by,
-        "matmul_ms": time_ms(lambda: torch.matmul(z, wu), iters, flush)}
+        "matmul_ms": time_ms(lambda: torch.matmul(z, wu), iters, flush),
+        "plan": plan_of(dequant_matmul)}
     return out
+
+
+def narrow_cases(wire, dev, seed: int):
+    """The cases beyond the wires' own shapes, on one bf16 wire: a depth
+    not a multiple of 8 and rows off 16-byte alignment for each kernel
+    (their narrow copies), an f32 output, and N 4096 (numpy-seeded w).
+    Returns (bottleneck_quant records, dequant_matmul records)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.bottleneck_quant import bottleneck_quant
+    from repro_torch.kernels.dequant_matmul import dequant_matmul
+    x, wd, wu, lab = wire["x"], wire["down"], wire["up"], wire["label"]
+    bq, dq = [], []
+    codes, scales, row = check_bq(x, wd, 8, f"{lab}", zero_row=True)
+    bq.append(row)
+    dq.append(check_dq(codes, scales, wu, lab, out_dtype=torch.float32))
+    dq.append(check_dq(codes, scales, off_alignment(wu),
+                       f"{lab} w off 16-byte alignment"))
+    check(not dequant_matmul.last_plan.vec_b,
+          "dequant_matmul: a w off alignment took 16-byte copies")
+    k = x.shape[1] - 5
+    bq.append(check_bq(x[:, :k].contiguous(), wd[:k].contiguous(), 8,
+                       f"{lab} K {k}", zero_row=True)[2])
+    check(not bottleneck_quant.last_plan.vec_a,
+          f"bottleneck_quant: K {k} took 16-byte copies of x")
+    bq.append(check_bq(off_alignment(x), wd, 4,
+                       f"{lab} x off 16-byte alignment", zero_row=False)[2])
+    check(not bottleneck_quant.last_plan.vec_a,
+          "bottleneck_quant: an x off alignment took 16-byte copies")
+    n = wd.shape[1] - 4                      # codes rows of 2 (N) bytes
+    codes, scales, row = check_bq(x, wd[:, :n].contiguous(), 8,
+                                  f"{lab} N {n}", zero_row=True)
+    bq.append(row)
+    dq.append(check_dq(codes, scales, wu[:n].contiguous(), f"{lab} N {n}"))
+    check(not dequant_matmul.last_plan.vec_a,
+          f"dequant_matmul: codes of width {n} took 16-byte copies")
+    rng = np.random.default_rng(seed + 800)
+    w4k = torch.from_numpy((0.02 * rng.standard_normal(
+        (x.shape[1], 4096))).astype(np.float32)).to(dev, x.dtype)
+    bq.append(check_bq(x, w4k, 8, f"{lab} N 4096", zero_row=True)[2])
+    return bq, dq
 
 
 def phase_wire(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
     """Both wire kernels against their plain versions at both full-width
     wires (bf16, the banks' own weights; 512, 37 and 1 rows) and at the
-    bench's f32 shape, for bits 8, 4 and 1; then their times at 512 rows.
-    Returns one kernel-line record for each, headed by the bench shape
-    (the path that runs them)."""
+    bench's f32 shape, for bits 8, 4 and 1, plus ``narrow_cases``; each
+    one device kernel a call; then their times at 512 rows. Returns one
+    kernel-line record for each, headed by the bench shape (the path that
+    runs them)."""
+    from repro_torch.kernels.bottleneck_quant import bottleneck_quant
+    from repro_torch.kernels.dequant_matmul import dequant_matmul
     wires = [bench_inputs(dev), wire_inputs(cap, cfg, dev, seed),
              wire_inputs(rcap, rcfg, dev, seed)]
     bq_rows, dq_rows = [], []
@@ -1329,6 +1409,20 @@ def phase_wire(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
                 bq_rows.append(row)
                 dq_rows.append(check_dq(codes, scales, inp["up"],
                                         f"{inp['label']} bits {bits}"))
+    bq, dq = narrow_cases(wires[2], dev, seed)
+    bq_rows += bq
+    dq_rows += dq
+    kernels = {}
+    for inp in wires:
+        codes, scales = bottleneck_quant(inp["x"], inp["down"])
+        kernels[inp["label"]] = {
+            "bottleneck_quant": graph_nodes(
+                lambda: bottleneck_quant(inp["x"], inp["down"])),
+            "dequant_matmul": graph_nodes(
+                lambda: dequant_matmul(codes, scales, inp["up"]))}
+        for name, n in kernels[inp["label"]].items():
+            check(n == 1, f"{name} {inp['label']}: one call issues {n} "
+                          f"device kernels, not 1")
     timed = [time_wire(inp, dev, iters) for inp in wires]
     recs = []
     for name, rows, err in (
@@ -1343,6 +1437,8 @@ def phase_wire(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
                              f"zero row exact" if name == "bottleneck_quant"
                              else TOL["dequant"]),
                "cases": rows, "max_abs_err": err, **head,
+               "device_kernels_a_call": {k: v[name]
+                                         for k, v in kernels.items()},
                "library_ms": None,
                "yardstick": "torch.matmul of the GEMM part alone "
                             "(matmul_ms), never called by the port",

@@ -97,7 +97,10 @@
 #include "common.cuh"
 
 using rt::bf16;
+using rt::cp_async16_or_zero;
 using rt::from_f;
+using rt::ldmatrix_x4;
+using rt::mma_bf16;
 using rt::round_t;
 using rt::to_f;
 
@@ -109,38 +112,6 @@ constexpr int kKS = 512;       // depth of a K slice of the down-projection
 constexpr int kG = 5;          // groups of 4 code lanes a lane loads at once
 constexpr int kTT = 256;       // threads of the tail's logit kernel
 constexpr int kVT = 2 * kTT;   // vocab columns per tail block (two a thread)
-
-// 16-byte cp.async that writes zeros when ``ok`` is false (nothing read)
-__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* g,
-                                                   bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(g), "r"(ok ? 16 : 0));
-}
-
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if constexpr (kTrans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // 16 bytes of floats stored as 8 bf16 (rounded to nearest even) or 4 f32
 __device__ __forceinline__ void store16(bf16* p, const float* v) {

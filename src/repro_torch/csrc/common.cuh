@@ -1,7 +1,8 @@
 // Shared device helpers for the repro_torch kernels: element-type
 // conversions (float and bf16), warp reductions, 16-byte cp.async copies
-// and shared-memory reads, and a launch helper that lifts the dynamic
-// shared-memory limit once per kernel instantiation.
+// and shared-memory reads, the bf16 tensor-core fragments (ldmatrix,
+// mma.sync m16n8k16 with f32 accumulation), and a launch helper that lifts
+// the dynamic shared-memory limit once per kernel instantiation.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,6 +74,42 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 16-byte cp.async that writes zeros when ``ok`` is false (nothing read)
+__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* g,
+                                                   bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(g), "r"(ok ? 16 : 0));
+}
+
+// four 8x8 bf16 matrices from shared memory, one row address a lane (lane
+// l gives row l % 8 of matrix l / 8); kTrans transposes each on load
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+// c[16x8] += a[16x16] @ b[16x8], bf16 in, f32 accumulate (a: 4 registers
+// of the A fragment, b0 / b1: k rows 0-7 / 8-15 of the B fragment)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 16 bytes of shared memory as floats: 8 bf16 or 4 f32 values

@@ -1,11 +1,12 @@
 """The encoder-side wire op: the hand-written CUDA kernel of
 ``csrc/bottleneck_quant.cu`` (replacing the Pallas kernel of
 ``repro/kernels/bottleneck_quant.py``), a down-projection with a fused
-row-wise symmetric quantization. Its plain PyTorch version is
-``ref.bottleneck_quant_ref``, which ``ops.bottleneck_quant_op`` takes for
-CPU tensors; this wrapper takes CUDA tensors only, launches the kernel or
-raises, and never falls back. ``bottleneck_quant.launches`` counts kernel
-launches.
+row-wise symmetric quantization, one cluster launch a call. Its plain
+PyTorch version is ``ref.bottleneck_quant_ref``, which
+``ops.bottleneck_quant_op`` takes for CPU tensors; this wrapper takes CUDA
+tensors only, launches the kernel or raises, and never falls back.
+``bottleneck_quant.launches`` counts kernel launches and
+``bottleneck_quant.last_plan`` is the ``wire_plan`` of the last one.
 """
 from __future__ import annotations
 
@@ -14,11 +15,37 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.wire_plan import BQ_MAX_N, wire_plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fn = None
-MAX_N = 4096        # pass 2 keeps a row of N f32 sums in shared memory
-_SMS = 132          # H100 SXM
+_sms = {}
+_held = {}
+MAX_N = BQ_MAX_N    # a cluster keeps a row tile's N f32 sums on chip
+
+
+def held_clusters(dev, bf16: bool, block_n: int, cluster: int,
+                  smem: int) -> int:
+    """Clusters of the kernel's launch the card ``dev`` holds at once
+    (cudaOccupancyMaxActiveClusters), asked once for each launch shape."""
+    key = (dev, bf16, block_n, cluster, smem)
+    if key not in _held:
+        query = _build.bind("bottleneck_quant",
+                            "bottleneck_quant_max_clusters", [_I] * 4 + [_P])
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _build.check(query(int(bf16), block_n, cluster, smem,
+                               ctypes.byref(out)), "bottleneck_quant")
+        _held[key] = out.value
+    return _held[key]
+
+
+def n_sms(dev) -> int:
+    """The SM count of the card ``dev``."""
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sms[dev]
 
 
 def check_wire(what, tensors, dtypes):
@@ -57,25 +84,29 @@ def bottleneck_quant(x, w, *, bits: int = 8):
     if M < 1 or K < 1 or not 1 <= N <= MAX_N:
         raise ValueError(f"{what}: takes M, K >= 1 and 1 <= N <= {MAX_N}, "
                          f"got {M}, {K}, {N}")
-    if not isinstance(bits, int) or not 1 <= bits <= 8:
-        raise ValueError(f"{what}: bits {bits!r} outside 1..8")
+    bf = x.dtype == torch.bfloat16
+    plan = wire_plan(what, M, K, N, bf16=bf, n_sms=n_sms(x.device),
+                     aligned=(x.data_ptr() % 16 == 0, w.data_ptr() % 16 == 0),
+                     bits=bits, max_clusters=lambda bn, cl, smem: (
+                         held_clusters(x.device, bf, bn, cl, smem)))
     qmax = max((1 << (bits - 1)) - 1, 1)
-    # K slices: enough (16-row tile, slice) blocks for two per SM, at least
-    # 256 deep each, at most 16
-    n_ks = max(1, min(16, K // 256, -(-2 * _SMS // -(-M // 16))))
-    partial = torch.empty((n_ks, M, N), dtype=torch.float32, device=x.device)
     codes = torch.empty((M, N), dtype=torch.int8, device=x.device)
     scales = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     if _fn is None:
         _fn = _build.bind("bottleneck_quant", "bottleneck_quant_launch",
-                          [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I, _P])
-    code = _fn(x.data_ptr(), w.data_ptr(), partial.data_ptr(),
-               codes.data_ptr(), scales.data_ptr(), M, K, N, n_ks,
-               float(qmax), int(x.dtype == torch.bfloat16),
+                          [_P] * 4 + [_I] * 9 + [ctypes.c_float]
+                          + [_I] * 3 + [_P])
+    code = _fn(x.data_ptr(), w.data_ptr(), codes.data_ptr(),
+               scales.data_ptr(), M, K, N, int(bf), plan.block_n,
+               plan.cluster, plan.col_groups, plan.col_tiles, plan.k_slice,
+               float(qmax),
+               int(plan.vec_a), int(plan.vec_b), plan.smem_bytes,
                _build.stream_ptr(x.device))
     _build.check(code, what)
     bottleneck_quant.launches += 1
+    bottleneck_quant.last_plan = plan
     return codes, scales
 
 
 bottleneck_quant.launches = 0
+bottleneck_quant.last_plan = None

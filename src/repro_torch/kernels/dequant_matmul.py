@@ -1,10 +1,12 @@
 """The decoder-side wire op: the hand-written CUDA kernel of
 ``csrc/dequant_matmul.cu`` (replacing the Pallas kernel of
 ``repro/kernels/dequant_matmul.py``), a fused dequantize and
-up-projection. Its plain PyTorch version is ``ref.dequant_matmul_ref``,
-which ``ops.dequant_matmul_op`` takes for CPU tensors; this wrapper takes
-CUDA tensors only, launches the kernel or raises, and never falls back.
-``dequant_matmul.launches`` counts kernel launches.
+up-projection on the tensor cores, one launch a call. Its plain PyTorch
+version is ``ref.dequant_matmul_ref``, which ``ops.dequant_matmul_op``
+takes for CPU tensors; this wrapper takes CUDA tensors only, launches the
+kernel or raises, and never falls back. ``dequant_matmul.launches`` counts
+kernel launches and ``dequant_matmul.last_plan`` is the ``wire_plan`` of
+the last one.
 """
 from __future__ import annotations
 
@@ -13,11 +15,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bottleneck_quant import check_wire
+from repro_torch.kernels.bottleneck_quant import check_wire, n_sms
+from repro_torch.kernels.wire_plan import DQ_MAX_K, wire_plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fn = None
-MAX_N = 2048        # a block keeps 16 rows of N f32 operands in shared memory
+MAX_N = DQ_MAX_K
 
 
 def dequant_matmul(codes, scales, w, *, out_dtype=torch.bfloat16):
@@ -42,17 +45,24 @@ def dequant_matmul(codes, scales, w, *, out_dtype=torch.bfloat16):
     if M < 1 or D < 1 or not 1 <= N <= MAX_N:
         raise ValueError(f"{what}: takes M, D >= 1 and 1 <= N <= {MAX_N}, "
                          f"got {M}, {N}, {D}")
+    bf = w.dtype == torch.bfloat16
+    plan = wire_plan(what, M, N, D, bf16=bf, n_sms=n_sms(codes.device),
+                     aligned=(codes.data_ptr() % 16 == 0,
+                              w.data_ptr() % 16 == 0))
     y = torch.empty((M, D), dtype=out_dtype, device=codes.device)
     if _fn is None:
         _fn = _build.bind("dequant_matmul", "dequant_matmul_launch",
-                          [_P] * 4 + [_I] * 5 + [_P])
+                          [_P] * 4 + [_I] * 10 + [_P])
     code = _fn(codes.data_ptr(), scales.data_ptr(), w.data_ptr(),
-               y.data_ptr(), M, N, D, int(w.dtype == torch.bfloat16),
-               int(out_dtype == torch.bfloat16),
+               y.data_ptr(), M, N, D, int(bf),
+               int(out_dtype == torch.bfloat16), plan.block_m, plan.block_n,
+               int(plan.vec_a), int(plan.vec_b), plan.smem_bytes,
                _build.stream_ptr(codes.device))
     _build.check(code, what)
     dequant_matmul.launches += 1
+    dequant_matmul.last_plan = plan
     return y
 
 
 dequant_matmul.launches = 0
+dequant_matmul.last_plan = None
