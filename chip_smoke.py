@@ -9,14 +9,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
 2. build: every kernel of ``src/repro_torch/csrc`` compiled with ``nvcc``
    for ``sm_90a`` (one process per source, all started together);
 3. capture: one prefill of each full-width model (qwen2.5-3b on the paged
-   arena, recurrentgemma-2b on the dense state; random weights from
-   ``--seed``), keeping what the kernel phases feed their kernels;
+   arena, recurrentgemma-2b and xlstm-125m on the dense state; random
+   weights from ``--seed``), keeping what the kernel phases feed their
+   kernels;
 4. one phase per kernel, holding it against its plain PyTorch version on
    the card at the full-width shapes, with inputs taken from those
    prefills: the encoder output at the split for the boundary (both
    models' banks), the decoder output for the decode tail (qwen's LM head
-   and recurrentgemma's tied embedding table), the page arena for paged
-   attention, the first RG-LRU layer's gates for the scan, the rmsnormed
+   and recurrentgemma's tied embedding table; xlstm-125m's at d 768, W 192
+   and its [768, 50304] head after a layernorm with a bias), the page
+   arena for paged attention, the first RG-LRU layer's gates and the first
+   mLSTM layer's normalizer inputs for the scan, the rmsnormed
    encoder output and each bank's own projections for the wire pair
    (``bottleneck_quant``, ``dequant_matmul``; also at the kernel bench's
    f32 shape; bits 8, 4 and 1, with a row of zeros; an f32 output, a
@@ -33,9 +36,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
    kernel, its plain version and, where one exists, the one PyTorch call
    that computes the same function (a yardstick the port never calls; for
    the wire pair, which no one call computes, ``torch.matmul`` of the GEMM
-   part, labelled as such);
+   part, labelled as such); then one RG-LRU layer prepared and not, and
+   xlstm-125m's device kernels and ms of one decode tick and of one
+   prefill dispatch at the main path's shapes;
 5. reference: the continuous engine at reduced shapes in float32 on the
-   card (kernels) and on the CPU (plain versions), for both archs, must
+   card (kernels) and on the CPU (plain versions), for each arch, must
    decode the same tokens, modes and wire bytes;
 6. main path, for each arch: ``repro_torch.launch.serve.main --engine
    continuous`` at full width in bf16 with the launch counters set to 0
@@ -47,7 +52,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
 8. the same three for the synchronous engine (``--engine sync``, the
    orchestrator's policy): a reduced f32 reference under the orchestrator
    and on mode 1, the full-width path with its launches asserted (one
-   decode tail a step, one scan per RG-LRU layer a prefill), a profile;
+   decode tail a step, one scan per RG-LRU or mLSTM layer a prefill), a
+   profile;
 9. bench: ``repro_torch.benchmarks.bench_kernels.main --device cuda``,
    whose parity checks must hold, which must launch the wire pair, and
    whose fused boundary + tail tick must beat the unfused chain (the
@@ -494,6 +500,71 @@ def capture_recurrent(cfg, dev, seed: int):
             "x_dec": x_dec, "valid": valid, "scans": scans}
 
 
+XLENS = (512, 16, 300, 77)   # ragged; one prompt 32 times the main path's
+
+
+def capture_xlstm(cfg, dev, seed: int):
+    """One ragged prefill of full-width xlstm-125m on the dense state (mLSTM
+    and sLSTM carries): the encoder output at the split, the decoder output
+    before the tail, and the first mLSTM layer's normalizer scan inputs —
+    [4, 512, 1536] (this prefill), [4, 16, 1536] (the main path's prompts,
+    from a fresh state: a zero carry passed as h0) and [3, 37, 1536]
+    continuing from the carry that prefill left."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bottleneck
+    from repro_torch.core import split as SP
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    params = SP.init_split_params(gen, cfg)
+    stacked = bottleneck.bank_stack(params["bneck_modes"], cfg.split)
+    lens = np.asarray(XLENS, np.int64)
+    B, S = len(lens), max(XLENS)
+    toks = torch.from_numpy(
+        MarkovTokenSource(cfg, seed=7).batch(B, S)["tokens"]).to(dev)
+    lens_t = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    modes = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=dev)
+    s = cfg.split.split_at
+    kinds = SP._kinds(cfg)
+    x = T.embed_tokens(params, toks, cfg)
+    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    states = T.init_decode_state(cfg, B, S, device=dev)
+    enc_l, dec_l = SP.slice_layers(params["layers"], cfg, s)
+    enc_st, dec_st = SP._split_states(states, cfg, s)
+    with recording(ops, "rglru_scan_op", []) as long_scan:
+        x_enc = T.run_layers_prefill(enc_l, x, positions, enc_st, cfg,
+                                     kinds=kinds[:s], lengths=lens_t)
+    y = bottleneck.boundary_mixed(stacked, x_enc, modes,
+                                  dtype=T.model_dtype(cfg))
+    x_dec = T.run_layers_prefill(dec_l, y, positions, dec_st, cfg,
+                                 kinds=kinds[s:], lengths=lens_t)
+    del states, enc_st, dec_st
+
+    def first_layer(x_in, st, nb):
+        sink = []
+        with recording(ops, "rglru_scan_op", sink):
+            T.run_layers_prefill(params["layers"][:1], x_in,
+                                 positions[:nb, :x_in.shape[1]], st, cfg,
+                                 kinds=kinds[:1])
+        return sink[0]
+
+    scans = {f"{cfg.name} [4, 512] prefill": long_scan[0]}
+    st = T.init_decode_state(cfg, 4, 16, device=dev)[:1]
+    scans[f"{cfg.name} [4, 16] main-path prefill"] = first_layer(
+        x[:, :16], st, 4)
+    carry = {k: v[:3].clone() for k, v in st[0].items()}
+    scans[f"{cfg.name} [3, 37] from a carried state"] = first_layer(
+        x[:3, 16:53], (carry,), 3)
+    torch.cuda.synchronize(dev)
+    valid = torch.arange(S, device=dev)[None, :] < lens_t[:, None]
+    return {"params": params, "stacked": stacked, "x_enc": x_enc,
+            "x_dec": x_dec, "valid": valid, "scans": scans}
+
+
 def pick_rows(x, valid, n: int, seed: int):
     """``n`` real token rows of a [B, S, d] activation as [n, 1, d]."""
     import numpy as np
@@ -514,12 +585,15 @@ EXTRA_HEADS = ((512, 4), (384, 1), (256, 0))
 
 
 def test_bank(stacked, d: int, dev, seed: int):
+    """The model's bank and the synthetic heads, scaled down by wmax / 512
+    where the model's own width is under 512 (xlstm-125m: 192, 144, 96)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     wmax = stacked["down_w"].shape[2]
     dt = stacked["down_w"].dtype
+    widths = [min(w, w * wmax // 512) for w, _ in EXTRA_HEADS]
     downs, ups = [stacked["down_w"]], [stacked["up_w"]]
-    for w, _ in EXTRA_HEADS:
+    for w in widths:
         dw = torch.randn((1, d, wmax), generator=gen, device=dev)
         uw = torch.randn((1, wmax, d), generator=gen, device=dev)
         dw, uw = dw / math.sqrt(d), uw / math.sqrt(w)
@@ -533,7 +607,7 @@ def test_bank(stacked, d: int, dev, seed: int):
         "norm_scale": torch.cat([stacked["norm_scale"], torch.ones(
             (len(EXTRA_HEADS), d), dtype=dt, device=dev)]).contiguous(),
         "width": torch.cat([stacked["width"], torch.tensor(
-            [w for w, _ in EXTRA_HEADS], dtype=torch.int32, device=dev)]),
+            widths, dtype=torch.int32, device=dev)]),
         "bits": torch.cat([stacked["bits"], torch.tensor(
             [b for _, b in EXTRA_HEADS], dtype=torch.int32, device=dev)]),
     }
@@ -666,11 +740,21 @@ def time_boundary(cap, d: int, dev, seed: int, iters: int):
             "device_kernels_per_call": kernels}
 
 
-def phase_boundary(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
+def phase_boundary(cap, rcap, xcap, cfg, rcfg, xcfg, dev, seed: int,
+                   iters: int):
     import torch
     gen = torch.Generator(device="cpu").manual_seed(seed)
     cases = (boundary_cases(cap, cfg.name, cfg.d_model, dev, seed, gen)
-             + boundary_cases(rcap, rcfg.name, rcfg.d_model, dev, seed, gen))
+             + boundary_cases(rcap, rcfg.name, rcfg.d_model, dev, seed, gen)
+             + boundary_cases(xcap, xcfg.name, xcfg.d_model, dev, seed, gen))
+    # xlstm-125m: d 768 is one K slice of 512 and one of 256; its 4-row
+    # decode shape (one m-tile a block) and its prefill (four)
+    x4 = pick_rows(xcap["x_enc"], xcap["valid"], 4, seed + 4)
+    for dt in (torch.bfloat16, torch.float32):
+        bank = {k: (v.to(dt) if v.is_floating_point() else v)
+                for k, v in xcap["stacked"].items()}
+        cases.append((f"{xcfg.name} {dtype_name(dt)} decode 4 rows", bank,
+                      x4.to(dt), torch.tensor([1, 1, 0, 1], device=dev)))
     # the reduced config's widths (bank narrower than one 128-lane chunk)
     for dt in (torch.bfloat16, torch.float32):
         small = {"down_w": torch.randn((4, 128, 32), generator=gen),
@@ -697,12 +781,14 @@ def phase_boundary(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
         rows.append({"case": label, "max_abs_err": e, "envelope_ratio": r})
 
     # timing at each main path's decode shape (qwen2.5-3b: width 512,
-    # recurrentgemma-2b: width 640, both 8 bits); qwen's is the headline
+    # recurrentgemma-2b: width 640, xlstm-125m: width 192, all 8 bits);
+    # qwen's is the headline
     timed = time_boundary(cap, cfg.d_model, dev, seed, iters)
     out = {"phase": "kernel", "name": "boundary_mixed_grouped",
            "tolerance": TOL["boundary"], "cases": rows,
            "max_abs_err": worst, **timed, "library_ms": None,
-           rcfg.name: time_boundary(rcap, rcfg.d_model, dev, seed, iters)}
+           rcfg.name: time_boundary(rcap, rcfg.d_model, dev, seed, iters),
+           xcfg.name: time_boundary(xcap, xcfg.d_model, dev, seed, iters)}
     emit(out)
     return out
 
@@ -774,19 +860,22 @@ def tail_block_cases(x_dec, valid, head, scale, seed: int, rows: list,
                      "max_abs_err": gap})
 
 
-def tail_kernels(x4, scale, head, tied=False) -> float:
-    """Device kernels of one one-head ``ops.decode_tail_op`` call without a
-    bias (the main path's); at most ``MAX_KERNELS["tail"]``."""
+def tail_kernels(x4, scale, head, tied=False, bias=None,
+                 norm_kind="rmsnorm") -> float:
+    """Device kernels of one one-head ``ops.decode_tail_op`` call as the
+    main path makes it (a bias with a layernorm); at most
+    ``MAX_KERNELS["tail"]``."""
     from repro_torch.kernels import ops
-    n = device_kernels(lambda: ops.decode_tail_op(x4, scale, None, head,
-                                                  tied=tied))
+    n = device_kernels(lambda: ops.decode_tail_op(x4, scale, bias, head,
+                                                  tied=tied,
+                                                  norm_kind=norm_kind))
     check(n <= MAX_KERNELS["tail"],
           f"tail: one dispatcher call issues {n} device kernels, more than "
           f"{MAX_KERNELS['tail']}")
     return n
 
 
-def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
+def phase_tail(cap, rcap, xcap, cfg, xcfg, dev, seed: int, iters: int):
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.boundary_mixed import decode_tail_grouped
@@ -853,6 +942,7 @@ def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
     b_ms, b_by = bound(2 * (V * d + 4 * d + 2 * d) + 4 * 4, 2 * 4 * d * V,
                        "bfloat16")
     tied = tail_tied(rcap, dev, seed, iters, rows)
+    layernorm = tail_layernorm(xcap, xcfg, dev, seed, iters, rows)
     out = {"phase": "kernel", "name": "decode_tail_grouped",
            "tolerance": f"tokens equal except near-ties (relative top-two "
                         f"gap < {TOL['tail_rel_gap']}); exact tie -> lowest "
@@ -862,9 +952,64 @@ def phase_tail(cap, rcap, cfg, dev, seed: int, iters: int):
            "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
            "bound_ms": b_ms, "bound_by": b_by, "bound_over_ms": b_ms / ms,
            "device_kernels_per_call": kernels, "library_ms": None,
-           "tied": tied}
+           "tied": tied, xcfg.name: layernorm}
     emit(out)
     return out
+
+
+def tail_layernorm(xcap, cfg, dev, seed: int, iters: int, rows: list):
+    """xlstm-125m's tail: a layernorm with a bias, then the untied [768,
+    50304] head (V a multiple of 128, not of 256: 393 slabs). The model's
+    norm is perturbed (scale 1 + 0.1 N, bias 0.1 N; init makes ones and
+    zeros). Tokens against the plain logits at 1, 4 and 13 rows, an
+    injected exact tie, and the timing and device kernels of the main
+    path's 4 rows in place."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.boundary_mixed import decode_tail_grouped
+    params = xcap["params"]
+    head = params["lm_head"]["w"][None]                        # [1, d, V]
+    fn = params["final_norm"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    scale = (fn["scale"].float() + 0.1 * torch.randn(
+        fn["scale"].shape, generator=gen, device=dev)).to(head.dtype)
+    bias = (fn["bias"].float() + 0.1 * torch.randn(
+        fn["bias"].shape, generator=gen, device=dev)).to(head.dtype)
+    V, d = head.shape[2], head.shape[1]
+    ln = dict(bias=bias, norm_kind="layernorm")
+    for n in (1, 4, 13):
+        x = pick_rows(xcap["x_dec"], xcap["valid"], n, seed + 700 + n)
+        diff, gap = check_tail(x, scale, head, f"{cfg.name} layernorm "
+                               f"bf16 pool {n}", **ln)
+        rows.append({"case": f"{cfg.name} layernorm bfloat16 pool {n}",
+                     "tokens_differing": diff, "max_abs_err": gap})
+    x = pick_rows(xcap["x_dec"], xcap["valid"], 8, seed + 750)
+    top = int(ref.decode_tail_ref(x, scale, bias, head,
+                                  norm_kind="layernorm")[0, 0])
+    low = 5 if top > 5 else top
+    tied = head.clone()
+    tied[0, :, low] = head[0, :, top]
+    tied[0, :, (top + V // 2) % V] = head[0, :, top]
+    check_tail(x, scale, tied, f"{cfg.name} layernorm exact tie",
+               expect=low, **ln)
+    rows.append({"case": f"{cfg.name} layernorm exact tie", "expected": low})
+    del tied
+    x4 = pick_rows(xcap["x_dec"], xcap["valid"], 4, seed + 800)
+    parts = {}
+    ms = time_ms(lambda: decode_tail_grouped(x4[:, 0], head, scale, bias,
+                                             block_r=16,
+                                             norm_kind="layernorm"), iters,
+                 by_kernel=parts)
+    kernels = tail_kernels(x4, scale, head, **ln)
+    plain = time_ms(lambda: ref.decode_tail_ref(x4, scale, bias, head,
+                                                norm_kind="layernorm"), iters)
+    b_ms, b_by = bound(2 * (V * d + 4 * d + 3 * d) + 4 * 4, 2 * 4 * d * V,
+                       "bfloat16")
+    return {"timed_shape": {"rows": 4, "d": d, "V": V,
+                            "norm": "layernorm + bias"},
+            "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_over_ms": b_ms / ms,
+            "device_kernels_per_call": kernels}
 
 
 def tail_tied(rcap, dev, seed: int, iters: int, rows: list):
@@ -1086,19 +1231,22 @@ def phase_paged(cap, cfg, dev, seed: int, iters: int):
 # kernel 4: the RG-LRU scan
 # ---------------------------------------------------------------------------
 
-def phase_rglru(rcap, dev, iters: int):
+def phase_rglru(rcap, xcap, dev, iters: int):
     """Every captured shape bit for bit against the plain version, with
     the plan it launched (the planner takes every tile width and both copy
     widths over these cases); device ms of the kernel and of the plain
     version at the main path's prefill shape [4, 16, D], at a window-long
     prompt [4, 2048, D] and at the kernel bench's [4, 1024, 512], each
-    beside its byte bound (12 bytes a step a channel, plus h0). No single
-    PyTorch call computes this recurrence, so there is no library time."""
+    beside its byte bound (12 bytes a step a channel, plus h0); and at
+    xlstm-125m's normalizer shapes [4, 16, 1536] and [4, 512, 1536]. No
+    single PyTorch call computes this recurrence, so there is no library
+    time."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as RS
     rows = []
-    for label, (a, b, h0) in rcap["scans"].items():
+    scans = {**rcap["scans"], **xcap["scans"]}
+    for label, (a, b, h0) in scans.items():
         hr = ref.rglru_scan_ref(a, b, h0)
         hk = RS.rglru_scan(a, b, h0)
         torch.cuda.synchronize()
@@ -1116,7 +1264,7 @@ def phase_rglru(rcap, dev, iters: int):
     flush = l2_flusher(dev)
 
     def timed(key, n_iters, n_plain):
-        a, b, h0 = rcap["scans"][key]
+        a, b, h0 = scans[key]
         B, S, D = a.shape
         ms = time_ms(lambda: RS.rglru_scan(a, b, h0), n_iters, flush)
         plain = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), n_plain, flush)
@@ -1131,11 +1279,16 @@ def phase_rglru(rcap, dev, iters: int):
     head = timed("[4, 16] main-path prefill", iters, max(iters // 5, 3))
     long = timed("[4, 2048] prefill, no h0", max(iters // 5, 3), 2)
     bench = timed(BENCH_SCAN, max(iters // 5, 3), 2)
+    xl = "xlstm-125m"
+    xlstm = {"main_path_prefill": timed(f"{xl} [4, 16] main-path prefill",
+                                        iters, max(iters // 5, 3)),
+             "prompt_512": timed(f"{xl} [4, 512] prefill",
+                                 max(iters // 5, 3), 2)}
     out = {"phase": "kernel", "name": "rglru_scan",
            "tolerance": TOL["rglru"], "cases": rows,
            "max_abs_err": max(r["max_abs_err"] for r in rows), **head,
            "library_ms": None,
-           "window_prompt": long, "bench_shape": bench}
+           "window_prompt": long, "bench_shape": bench, xl: xlstm}
     emit(out)
     return out
 
@@ -1191,6 +1344,42 @@ def phase_rglru_layer(rcap, cfg, dev, iters: int):
               prep["f32"]["w_a"]["w"], prep["f32"]["w_a"]["b"],
               prep["f32"]["w_x"]["w"], prep["f32"]["w_x"]["b"],
               prep["f32"]["conv"], prep["f32"]["log_a"])) * n / 1e6})
+
+
+def phase_xlstm_tick(xcap, cfg, dev, iters: int):
+    """Full-width xlstm-125m on prepared parameters, as the engines run it:
+    the device kernels (``device_kernels``) and device ms of one continuous
+    decode tick on 4 slots, and of one prefill dispatch of 4 prompts of 16
+    tokens (the main path's shapes). A prefill steps each layer's cell loop
+    16 times (the scan carries only the mLSTM normalizer), so one dispatch
+    launches about as many kernels as 16 ticks."""
+    import torch
+    from repro_torch.core import split as SP
+    from repro_torch.models import transformer as T
+    params = T.prepare_params(xcap["params"], cfg)
+    stacked = xcap["stacked"]
+    modes = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+    toks = (torch.arange(64, device=dev).reshape(4, 16) * 7919
+            % cfg.vocab_size).to(torch.int32)
+    lens = torch.full((4,), 16, dtype=torch.int32, device=dev)
+    states = T.init_decode_state(cfg, 4, 16, device=dev)
+    tok = toks[:, -1:].contiguous()
+
+    def prefill():
+        return SP.split_prefill_mixed(params, stacked, toks, states, cfg,
+                                      modes, lengths=lens)
+
+    def tick():
+        return SP.split_decode_step_mixed(params, stacked, tok, states, lens,
+                                          cfg, modes, return_tokens=True)
+
+    out = {"phase": "xlstm_tick", "arch": cfg.name, "slots": 4,
+           "prompt": 16}
+    for name, fn, n in (("prefill_dispatch", prefill, 3),
+                        ("decode_tick", tick, iters)):
+        out[name] = {"device_kernels": device_kernels(fn, calls=2),
+                     "ms": time_ms(fn, n)}
+    emit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -1457,7 +1646,8 @@ SERVE_COMMON = ["--engine", "continuous", "--requests", "8", "--prompt-len",
                 "16", "--gen", "16", "--n-slots", "4"]
 SERVE = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SERVE_COMMON],
          "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SERVE_COMMON,
-                               "--cache-len", "2048"]}
+                               "--cache-len", "2048"],
+         "xlstm-125m": ["--arch", "xlstm-125m", *SERVE_COMMON]}
 
 
 def phase_reference(arch: str, device: str = "cuda"):
@@ -1546,12 +1736,30 @@ def counting(module, name: str, counts: dict):
 
 
 def check_f32_forms(calls: dict, kinds: list, label: str) -> None:
-    """The engine made each RG-LRU layer's float32 forms once, when it
-    prepared its parameters, and no step made them again."""
-    n = kinds.count("rglru")
-    made = calls.get("_f32_forms", 0)
-    check(made == n, f"{label}: the RG-LRU float32 forms were made {made} "
-                     f"times for {n} RG-LRU layers (a step made them)")
+    """The engine made each RG-LRU and sLSTM layer's float32 forms once,
+    when it prepared its parameters, and no step made them again."""
+    for kind, fn in (("rglru", "_f32_forms"), ("slstm", "_slstm_f32_forms")):
+        n = kinds.count(kind)
+        made = calls.get(fn, 0)
+        check(made == n, f"{label}: the {kind} float32 forms were made "
+                         f"{made} times for {n} {kind} layers (a step made "
+                         f"them)")
+
+
+def scan_layers(kinds: list) -> int:
+    """Layers whose prefill launches the scan: RG-LRU, and mLSTM (its
+    normalizer)."""
+    return kinds.count("rglru") + kinds.count("mlstm")
+
+
+@contextlib.contextmanager
+def counting_f32_forms(calls: dict):
+    """Count the float32 forms the RG-LRU and sLSTM layers make."""
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import xlstm as XL
+    with counting(RG, "_f32_forms", calls), \
+            counting(XL, "_slstm_f32_forms", calls):
+        yield calls
 
 
 def phase_main_path(cfg, smi: str):
@@ -1560,17 +1768,17 @@ def phase_main_path(cfg, smi: str):
     decode ticks counted beside them (warm-up included). Per decode tick
     the device loop launches one boundary, one tail and one paged
     attention per layer on the paged pool; per prefill dispatch one
-    boundary and one scan per RG-LRU layer. The RG-LRU layers' float32
+    boundary and one scan per RG-LRU or mLSTM layer (none a tick: a
+    decode step is one cell step). The RG-LRU and sLSTM layers' float32
     forms are made once, when the engine prepares its parameters, and
     never on a step."""
     from repro_torch.core import split as SP
     from repro_torch.launch import serve
-    from repro_torch.models import rglru as RG
     fns = zero_counts()
     calls: dict = {}
     with counting(SP, "split_prefill_mixed", calls), \
             counting(SP, "split_decode_step_mixed", calls), \
-            counting(RG, "_f32_forms", calls):
+            counting_f32_forms(calls):
         summary = serve.main(SERVE[cfg.name] + ["--device", "cuda"])
     launches = {k: f.launches for k, f in fns.items()}
     prefills = calls.get("split_prefill_mixed", 0)
@@ -1586,7 +1794,7 @@ def phase_main_path(cfg, smi: str):
               "decode_tail_grouped": ticks,
               "paged_attention": (kinds.count("attn") * ticks
                                   if summary["paged"] else 0),
-              "rglru_scan": kinds.count("rglru") * prefills,
+              "rglru_scan": scan_layers(kinds) * prefills,
               "bottleneck_quant": 0, "dequant_matmul": 0}
     for k, n in expect.items():
         if n:
@@ -1604,7 +1812,9 @@ def phase_main_path(cfg, smi: str):
           "decode_tok_per_s": summary["decode_tok_per_s"],
           "mode_counts": summary["mode_counts"], "launches": launches,
           "prefill_dispatches": prefills, "decode_step_calls": ticks,
-          "rglru_f32_forms_made": calls.get("_f32_forms", 0), "card": smi})
+          "rglru_f32_forms_made": calls.get("_f32_forms", 0),
+          "slstm_f32_forms_made": calls.get("_slstm_f32_forms", 0),
+          "card": smi})
     return launches
 
 
@@ -1648,7 +1858,8 @@ SYNC_COMMON = ["--engine", "sync", "--policy", "orchestrator", "--requests",
                "8", "--prompt-len", "16", "--gen", "16"]
 SYNC = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SYNC_COMMON],
         "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SYNC_COMMON,
-                              "--cache-len", "2048"]}
+                              "--cache-len", "2048"],
+        "xlstm-125m": ["--arch", "xlstm-125m", *SYNC_COMMON]}
 
 
 def phase_sync_reference(arch: str, device: str = "cuda"):
@@ -1695,17 +1906,16 @@ def phase_sync_main_path(cfg, smi: str):
     counter at 0 just before and read just after, prefills and decode
     steps counted beside them. Per decode step (the orchestrator's, which
     ends in the fused tail) one decode tail; per prefill one scan per
-    RG-LRU layer; no boundary, paged attention or wire kernel."""
+    RG-LRU or mLSTM layer; no boundary, paged attention or wire kernel."""
     from repro_torch.core import split as SP
     from repro_torch.launch import serve
-    from repro_torch.models import rglru as RG
     from repro_torch.models import transformer as T
     fns = zero_counts()
     calls: dict = {}
     with counting(T, "prefill", calls), \
             counting(SP, "split_decode_step", calls), \
             counting(T, "decode_step", calls), \
-            counting(RG, "_f32_forms", calls):
+            counting_f32_forms(calls):
         summary = serve.main(SYNC[cfg.name] + ["--device", "cuda"])
     launches = {k: f.launches for k, f in fns.items()}
     prefills = calls.get("prefill", 0)
@@ -1721,7 +1931,7 @@ def phase_sync_main_path(cfg, smi: str):
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
     expect = {k: 0 for k in fns}
     expect["decode_tail_grouped"] = steps
-    expect["rglru_scan"] = kinds.count("rglru") * prefills
+    expect["rglru_scan"] = scan_layers(kinds) * prefills
     for k, n in expect.items():
         if n:
             check(launches[k] > 0, f"sync main path: kernel {k} never "
@@ -1736,7 +1946,9 @@ def phase_sync_main_path(cfg, smi: str):
           "tokens": summary["tokens"], "mode_counts": summary["mode_counts"],
           "wire_bytes_per_token": summary["wire_bytes_per_token"],
           "launches": launches, "prefills": prefills, "decode_steps": steps,
-          "rglru_f32_forms_made": calls.get("_f32_forms", 0), "card": smi})
+          "rglru_f32_forms_made": calls.get("_f32_forms", 0),
+          "slstm_f32_forms_made": calls.get("_slstm_f32_forms", 0),
+          "card": smi})
     return launches
 
 
@@ -1818,6 +2030,7 @@ def main(argv=None) -> int:
 
     cfg = get_config("qwen2.5-3b")
     rcfg = get_config("recurrentgemma-2b")
+    xcfg = get_config("xlstm-125m")
     t0 = time.perf_counter()
     cap = capture(cfg, dev, args.seed)
     emit({"phase": "capture", "arch": cfg.name,
@@ -1827,25 +2040,31 @@ def main(argv=None) -> int:
     rcap = capture_recurrent(rcfg, dev, args.seed)
     emit({"phase": "capture", "arch": rcfg.name,
           "seconds": time.perf_counter() - t0, "lengths": list(RLENS)})
+    t0 = time.perf_counter()
+    xcap = capture_xlstm(xcfg, dev, args.seed)
+    emit({"phase": "capture", "arch": xcfg.name,
+          "seconds": time.perf_counter() - t0, "lengths": list(XLENS)})
     results = {}
-    for r in (phase_boundary(cap, rcap, cfg, rcfg, dev, args.seed,
-                             args.iters),
-              phase_tail(cap, rcap, cfg, dev, args.seed, args.iters),
+    for r in (phase_boundary(cap, rcap, xcap, cfg, rcfg, xcfg, dev,
+                             args.seed, args.iters),
+              phase_tail(cap, rcap, xcap, cfg, xcfg, dev, args.seed,
+                         args.iters),
               phase_paged(cap, cfg, dev, args.seed, args.iters),
-              phase_rglru(rcap, dev, args.iters),
+              phase_rglru(rcap, xcap, dev, args.iters),
               *phase_wire(cap, rcap, cfg, rcfg, dev, args.seed, args.iters)):
         results[r["name"]] = r
     phase_rglru_layer(rcap, rcfg, dev, args.iters)
-    del cap, rcap
+    phase_xlstm_tick(xcap, xcfg, dev, args.iters)
+    del cap, rcap, xcap
     gc.collect()
     torch.cuda.empty_cache()
 
     by_path = {}
-    for c in (cfg, rcfg):
+    for c in (cfg, rcfg, xcfg):
         phase_reference(c.name)
         by_path[f"{c.name} continuous"] = phase_main_path(c, smi)
         phase_profile(c, "continuous")
-    for c in (cfg, rcfg):
+    for c in (cfg, rcfg, xcfg):
         phase_sync_reference(c.name)
         by_path[f"{c.name} sync"] = phase_sync_main_path(c, smi)
         phase_profile(c, "sync")

@@ -7,9 +7,10 @@ leaf under its ``"/"``-joined path (``"layers/mix/wq/w"``,
 bfloat16 arrays or as their uint16 view plus the checkpoint's ``__meta__``
 dtype table. Both packages keep the same tree (stacked ``[L, ...]`` layer
 leaves for homogeneous archs, a tuple of per-layer trees for heterogeneous
-ones such as recurrentgemma-2b, the mode bank as a tuple of heads; float32
-leaves such as the RG-LRU's ``lam`` stay float32), so conversion is a
-re-nesting plus a dtype-exact copy.
+ones such as recurrentgemma-2b and xlstm-125m, whose sLSTM keeps bare
+``[H, hd, hd]`` recurrent leaves ``r_*``; the mode bank as a tuple of
+heads; float32 leaves such as the RG-LRU's ``lam`` stay float32), so
+conversion is a re-nesting plus a dtype-exact copy.
 """
 from __future__ import annotations
 

@@ -8,6 +8,7 @@ the orchestrator picking the transmit mode from simulated mmWave channels
         --requests 8 --prompt-len 16 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --cache-len 2048 --policy static1
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
     # continuous batching: per-request channels, per-slot bottleneck modes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --engine continuous --requests 8 --prompt-len 16 --gen 16
@@ -20,10 +21,12 @@ Policies (sync engine):
   static0       always mode 0 (raw boundary, most informative)
   static1       always mode 1 (bottleneck z', cheapest)
 
-The continuous engine serves qwen2.5-3b from the paged pool and
-recurrentgemma-2b (RG-LRU and local-attention blocks) from the dense slot
-pool, whose rolling caches hold ``min(--cache-len, local_window)`` rows;
-the sync engine keeps one dense state of ``--requests`` rows.
+``--arch`` takes the archs of the port's registry. The continuous engine
+serves qwen2.5-3b from the paged pool, and recurrentgemma-2b (RG-LRU and
+local-attention blocks) and xlstm-125m (mLSTM and sLSTM blocks) from the
+dense slot pool, whose rolling caches hold ``min(--cache-len,
+local_window)`` rows (the recurrent carries do not depend on it); the
+sync engine keeps one dense state of ``--requests`` rows.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
 raises rather than falling back to the CPU.

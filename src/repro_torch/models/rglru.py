@@ -3,11 +3,14 @@ around the RG-LRU (real-gated linear recurrent unit) with a short causal
 depthwise conv [arXiv:2402.19427] (mirrors the serving parts of
 ``repro.models.rglru``).
 
-The prefill's recurrence runs through ``ops.rglru_scan_op`` (the CUDA
-kernel on the card, the plain scan on the CPU); decode is one recurrence
-step with the carried state. The state ``{"h", "conv"}`` is updated in
-place (the reference returns a new one). The training path
-(``rglru_full``) is a later slice.
+The prefill's and the full-sequence pass's recurrence runs through
+``ops.rglru_scan_op`` (the CUDA kernel on the card, the plain scan on the
+CPU); their cell routes (``rglru_full(train=True)``,
+``rglru_prefill(use_scan_op=False)``) step ``chunked_scan`` instead and
+give the same bits. Decode is one recurrence step with the carried state.
+The state ``{"h", "conv"}`` is updated in place (the reference returns a
+new one). The reference's log-depth ``use_assoc_scan`` waits for the
+training slice.
 
 The reference promotes the model-dtype gate and conv weights to float32
 against the f32 recurrence input on every call. ``rglru_prepare`` makes
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _normal, dense_init
+from repro_torch.models.scan_utils import chunked_scan
 
 _C = 8.0          # RG-LRU gate exponent constant
 _CONV_W = 4       # temporal conv width
@@ -88,14 +92,46 @@ def rglru_state_init(batch: int, d_rnn: int, dtype=torch.float32,
     }
 
 
-def rglru_prefill(p, x, state, *, lengths=None):
+def _cell_scan(a, b, h0):
+    """The recurrence a step at a time through ``chunked_scan``: the
+    product and the sum rounded separately, as the plain scan does."""
+    def cell(carry, ab):
+        at, bt = ab
+        hh = at * carry + bt
+        return hh, hh
+
+    _, h = chunked_scan(cell, h0, (a.swapaxes(0, 1), b.swapaxes(0, 1)))
+    return h.swapaxes(0, 1)
+
+
+def rglru_full(p, x, *, train: bool = False):
+    """Full-sequence Griffin recurrent block from a zero state.
+    x: [B, S, d] -> [B, S, d]. Default (eval) path: ``ops.rglru_scan_op``;
+    ``train=True`` keeps the cell scan, as the reference does (the kernel
+    has no backward)."""
+    from repro_torch.kernels import ops
+
+    B, S, _ = x.shape
+    f = p.get("f32") or _f32_forms(p)
+    gate = _gate_branch(p, x)
+    u = (x @ p["in_rec"]["w"]).float()
+    pad = torch.cat([u.new_zeros((B, _CONV_W - 1, u.shape[2])), u], dim=1)
+    u = sum(pad[:, i:i + S, :] * f["conv"][i] for i in range(_CONV_W))
+    a, b = _gates(f, u)
+    h = (_cell_scan(a, b, a.new_zeros((B, a.shape[2]))) if train
+         else ops.rglru_scan_op(a, b))
+    return (h.to(x.dtype) * gate) @ p["out"]["w"]
+
+
+def rglru_prefill(p, x, state, *, lengths=None, use_scan_op: bool = True):
     """Full-sequence pass that leaves behind the decode state of each row.
 
     x: [B, S, d]; ``state``: the carry to continue (fresh zeros for a new
     prompt), updated in place. ``lengths``: optional [B] true lengths of a
     right-padded batch — pad steps are identity updates (a=1, b=0), so
     ``h[:, -1]`` is the carry after each row's own last real token.
-    Returns y [B, S, d]."""
+    ``use_scan_op=False`` steps the cell scan instead of the scan op (the
+    same bits). Returns y [B, S, d]."""
     from repro_torch.kernels import ops
 
     B, S, _ = x.shape
@@ -114,7 +150,8 @@ def rglru_prefill(p, x, state, *, lengths=None):
              < lengths[:, None])[..., None]
     a = torch.where(valid, a, 1.0)
     b = torch.where(valid, b, 0.0)
-    h = ops.rglru_scan_op(a, b, state["h"])
+    h = (ops.rglru_scan_op(a, b, state["h"]) if use_scan_op
+         else _cell_scan(a, b, state["h"]))
     y = (h.to(x.dtype) * gate) @ p["out"]["w"]
     # conv state after len steps = the last CONV_W-1 rows of
     # [carried history, u_0 .. u_{len-1}] = hist[len : len + CONV_W - 1]

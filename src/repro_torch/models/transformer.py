@@ -1,7 +1,7 @@
 """Decoder-only transformer for the ported families (mirrors the serving
 parts of ``repro.models.transformer``): homogeneous attention stacks
 (dense GQA) and heterogeneous block patterns (RecurrentGemma's RG-LRU and
-local-attention blocks).
+local-attention blocks, xLSTM's alternating mLSTM and sLSTM blocks).
 
 Homogeneous archs keep stacked ``[L, ...]`` layer leaves, and the layer
 runners loop over per-layer slices (views, no copies) where the reference
@@ -9,7 +9,7 @@ scans; heterogeneous archs keep a tuple of per-layer trees, as the
 reference does. Decode state is updated in place: the paged arena
 ``{"k", "v"}`` of ``[L, n_pages, page_len, n_kv, hd]`` leaves, stacked
 dense rolling caches ``[L, B, cache_len, n_kv, hd]``, or a tuple of
-per-layer states (rolling caches and RG-LRU carries).
+per-layer states (rolling caches, RG-LRU and xLSTM carries).
 """
 from __future__ import annotations
 
@@ -28,9 +28,14 @@ from repro_torch.models.layers import (embed_apply, embed_init, dense_init,
 from repro_torch.models.rglru import (rglru_init, rglru_prefill,
                                       rglru_prepare, rglru_state_init,
                                       rglru_step)
+from repro_torch.models.xlstm import (mlstm_init, mlstm_prefill,
+                                      mlstm_state_init, mlstm_step,
+                                      slstm_init, slstm_prefill,
+                                      slstm_prepare, slstm_state_init,
+                                      slstm_step)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_KINDS = ("attn", "rglru")
+_KINDS = ("attn", "rglru", "mlstm", "slstm")
 
 
 def model_dtype(cfg: ModelConfig):
@@ -68,8 +73,8 @@ def _check_supported(cfg: ModelConfig):
     if cfg.is_moe or cfg.frontend != "none" \
             or not set(_kinds(cfg)) <= set(_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs dense attention and RG-LRU "
-            f"blocks only (xLSTM, MoE and multimodal archs are later "
+            f"{cfg.name}: repro_torch runs dense attention, RG-LRU, mLSTM "
+            f"and sLSTM blocks only (MoE and multimodal archs are later "
             f"slices)")
 
 
@@ -123,9 +128,13 @@ def block_init(gen, cfg: ModelConfig, kind: str = "attn"):
     elif kind == "rglru":
         p["mix"] = rglru_init(gen, cfg.d_model, cfg.d_rnn or cfg.d_model,
                               dtype=dt)
+    elif kind == "mlstm":
+        p["mix"] = mlstm_init(gen, cfg.d_model, cfg.n_heads, dtype=dt)
+    elif kind == "slstm":
+        p["mix"] = slstm_init(gen, cfg.d_model, cfg.n_heads, dtype=dt)
     else:
         raise ValueError(kind)
-    if cfg.d_ff:
+    if kind in ("attn", "rglru") and cfg.d_ff:
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, dtype=dt,
                                device=gen.device)
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype=dt)
@@ -147,7 +156,7 @@ def _attn_dims(cfg: ModelConfig):
 def block_apply_decode(p, x, state, cur_pos, cfg: ModelConfig,
                        kind: str = "attn", block_table=None):
     """One-token decode through one block; ``state`` (its paged arena,
-    rolling cache or RG-LRU carry) updates in place. Returns x."""
+    rolling cache, RG-LRU or xLSTM carry) updates in place. Returns x."""
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn" and block_table is not None:
         mix = paged_decode_attention(p["mix"], h, state, block_table,
@@ -157,6 +166,10 @@ def block_apply_decode(p, x, state, cur_pos, cfg: ModelConfig,
                                window=_attn_window(cfg), **_attn_dims(cfg))
     elif kind == "rglru":
         mix = rglru_step(p["mix"], h, state)
+    elif kind == "mlstm":
+        mix = mlstm_step(p["mix"], h, state, cfg.n_heads)
+    elif kind == "slstm":
+        mix = slstm_step(p["mix"], h, state, cfg.n_heads)
     else:
         raise ValueError(kind)
     return _mlp_residual(p, x + mix, cfg)
@@ -166,7 +179,7 @@ def block_apply_prefill(p, x, positions, state, cfg: ModelConfig,
                         kind: str = "attn", lengths=None, block_table=None):
     """Full-sequence block that also fills its decode state (in place):
     K/V rows into the arena through ``block_table`` or into the rolling
-    cache, or the RG-LRU carry. Returns x."""
+    cache, or the recurrent carry. Returns x."""
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn" and block_table is not None:
         mix = paged_prefill_attention(p["mix"], h, positions, state,
@@ -178,6 +191,10 @@ def block_apply_prefill(p, x, positions, state, cfg: ModelConfig,
                                 **_attn_dims(cfg))
     elif kind == "rglru":
         mix = rglru_prefill(p["mix"], h, state, lengths=lengths)
+    elif kind == "mlstm":
+        mix = mlstm_prefill(p["mix"], h, state, cfg.n_heads, lengths=lengths)
+    elif kind == "slstm":
+        mix = slstm_prefill(p["mix"], h, state, cfg.n_heads, lengths=lengths)
     else:
         raise ValueError(kind)
     return _mlp_residual(p, x + mix, cfg)
@@ -194,6 +211,11 @@ def block_state_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
     if kind == "rglru":
         return rglru_state_init(batch, cfg.d_rnn or cfg.d_model, dtype=dt,
                                 device=device)
+    if kind == "mlstm":
+        return mlstm_state_init(batch, cfg.d_model, cfg.n_heads,
+                                device=device)
+    if kind == "slstm":
+        return slstm_state_init(batch, cfg.d_model, device=device)
     raise ValueError(kind)
 
 
@@ -220,15 +242,19 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     return params
 
 
+_PREPARE = {"rglru": rglru_prepare, "slstm": slstm_prepare}
+
+
 def prepare_params(params, cfg: ModelConfig) -> Dict[str, Any]:
-    """``params`` with each RG-LRU layer's per-step float32 forms made once
-    (``rglru_prepare``), as the serving engines run them: a new top-level
-    tree sharing every tensor of ``params``, which stays as it is. Trees
-    without RG-LRU layers come back unchanged."""
+    """``params`` with each RG-LRU and sLSTM layer's per-step float32 forms
+    made once (``rglru_prepare``, ``slstm_prepare``), as the serving
+    engines run them: a new top-level tree sharing every tensor of
+    ``params``, which stays as it is. Trees without such layers come back
+    unchanged."""
     kinds = _kinds(cfg)
-    if "rglru" not in kinds:
+    if not set(kinds) & set(_PREPARE):
         return params
-    layers = tuple({**p, "mix": rglru_prepare(p["mix"])} if k == "rglru"
+    layers = tuple({**p, "mix": _PREPARE[k](p["mix"])} if k in _PREPARE
                    else p for p, k in zip(params["layers"], kinds))
     return {**params, "layers": layers}
 

@@ -89,7 +89,8 @@ def gather_rows(pool_states, idx, axis: int):
 
 class SlotPool:
     """Fixed pool of decode slots with recycled dense state: per-slot
-    rolling KV caches and RG-LRU carries, written in place on the device."""
+    rolling KV caches and recurrent carries (RG-LRU, mLSTM, sLSTM; the
+    xLSTM stabiliser starts at -inf), written in place on the device."""
 
     paged = False
 

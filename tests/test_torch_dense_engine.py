@@ -2,14 +2,16 @@
 JAX package's.
 
 Both engines serve the same requests (numpy prompts, per-request simulated
-channels with the same seeds) on the reduced recurrentgemma-2b config in
-float32 — RG-LRU and local-attention blocks, a tied LM head — with weights
-converted from JAX's ``init_split_params``. A recurrent arch takes the
-dense ``SlotPool`` (per-slot rolling caches and recurrent carries), and
+channels with the same seeds) on reduced configs in float32 with weights
+converted from JAX's ``init_split_params``: recurrentgemma-2b (RG-LRU and
+local-attention blocks, a tied LM head) and xlstm-125m (alternating mLSTM
+and sLSTM blocks, an untied head after a layernorm). A recurrent arch
+takes the dense ``SlotPool`` (per-slot rolling caches and recurrent
+carries, the xLSTM stabiliser starting at -inf); on recurrentgemma-2b
 prompts plus generations run past the local window, so the rolling cache
 wraps. Per-tick modes, wire bytes, the tick-exact lifecycle and the
-decoded tokens must be identical. Each JAX engine runs once per module and
-loop kind.
+decoded tokens must be identical. Each JAX engine runs once per module,
+arch and loop kind.
 """
 import dataclasses
 
@@ -45,12 +47,13 @@ from repro_torch.serving import Request as TRequest
 from repro_torch.serving.batcher import SlotPool
 
 ARCH = "recurrentgemma-2b"
+XLSTM = "xlstm-125m"
 N_REQ = 8
 
 
-def _cfgs():
-    return (dataclasses.replace(j_reduced(ARCH), dtype="float32"),
-            dataclasses.replace(t_reduced(ARCH), dtype="float32"))
+def _cfgs(arch=ARCH):
+    return (dataclasses.replace(j_reduced(arch), dtype="float32"),
+            dataclasses.replace(t_reduced(arch), dtype="float32"))
 
 
 def _requests(cfg, fleet, chan_cfg, request_cls):
@@ -96,21 +99,37 @@ def _summary(eng, done):
 
 
 @pytest.fixture(scope="module")
-def weights():
-    jcfg, _ = _cfgs()
-    jp = JSP.init_split_params(jax.random.PRNGKey(0), jcfg)
-    return jp, params_from_flat(checkpoint._flatten(jp), device="cpu")
+def weights_of():
+    """The JAX weights and their conversion, made once per arch."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            jcfg, _ = _cfgs(arch)
+            jp = JSP.init_split_params(jax.random.PRNGKey(0), jcfg)
+            made[arch] = jp, params_from_flat(checkpoint._flatten(jp),
+                                              device="cpu")
+        return made[arch]
+    return get
+
+
+@pytest.fixture(scope="module")
+def weights(weights_of):
+    return weights_of(ARCH)
 
 
 ENGINE_KW = dict(n_slots=3, cache_len=32)
 
 
-@pytest.fixture(scope="module", params=[True, False],
-                ids=["host_loop", "device_window"])
-def runs(request, weights):
-    host_loop = request.param
-    jcfg, tcfg = _cfgs()
-    jp, tp = weights
+@pytest.fixture(scope="module",
+                params=[(ARCH, True), (ARCH, False), (XLSTM, True),
+                        (XLSTM, False)],
+                ids=["host_loop", "device_window", f"{XLSTM}-host_loop",
+                     f"{XLSTM}-device_window"])
+def runs(request, weights_of):
+    arch, host_loop = request.param
+    jcfg, tcfg = _cfgs(arch)
+    jp, tp = weights_of(arch)
     jeng = JEngine(jp, jcfg, host_loop=host_loop,
                    orchestrator=_orch(jcfg, JB, JProfile, JReq, JOrch),
                    **ENGINE_KW)
@@ -201,3 +220,17 @@ def test_serve_recurrentgemma_cpu_and_refuses_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", ARCH, "--reduced", "--requests", "1",
                     "--gen", "2"])
+
+
+@pytest.mark.parametrize("engine", ["continuous", "sync"])
+def test_serve_xlstm_cpu_on_both_engines(engine):
+    """``serve.main`` serves reduced xlstm-125m on the CPU on both engines:
+    every request finishes with its tokens, on the dense pool."""
+    out = serve.main(["--arch", XLSTM, "--reduced", "--device", "cpu",
+                      "--engine", engine, "--requests", "3", "--gen", "5"])
+    if engine == "continuous":
+        assert out["requests_finished"] == 3 and out["paged"] is False
+        assert all(len(t) == 5 for t in out["tokens"].values())
+    else:
+        assert out["tokens"] == 15 and len(out["generated"]) == 3
+        assert all(len(r) == 5 for r in out["generated"])

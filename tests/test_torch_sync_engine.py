@@ -1,6 +1,7 @@
 """The port's synchronous split-serving path against the JAX package's, on
-reduced float32 qwen2.5-3b (dense GQA, full attention) and
-recurrentgemma-2b (RG-LRU and local attention, tied head), with weights
+reduced float32 qwen2.5-3b (dense GQA, full attention),
+recurrentgemma-2b (RG-LRU and local attention, tied head) and xlstm-125m
+(mLSTM and sLSTM, layernorm, untied head), with weights
 converted from JAX's ``init_split_params`` and three extra bottleneck
 modes (bits 4, 1 and 0 besides the config's 8), so every wire format is
 crossed: ``T.prefill`` / ``T.decode_step``, ``split_decode_step`` /
@@ -37,7 +38,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as TT
 from repro_torch.serving import ServingEngine as TEngine
 
-ARCHS = ("qwen2.5-3b", "recurrentgemma-2b")
+ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "xlstm-125m")
 EXTRA_MODES = ((16, 4), (24, 1), (8, 0))
 LOGIT_RTOL = 2e-6
 B, S, CACHE = 2, 8, 32
