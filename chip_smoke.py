@@ -39,25 +39,33 @@ Phases, each printing one JSON line; any failure exits nonzero:
    part, labelled as such); then one RG-LRU layer prepared and not, and
    xlstm-125m's device kernels and ms of one decode tick and of one
    prefill dispatch at the main path's shapes;
-5. reference: the continuous engine at reduced shapes in float32 on the
-   card (kernels) and on the CPU (plain versions), for each arch, must
-   decode the same tokens, modes and wire bytes;
-6. main path, for each arch: ``repro_torch.launch.serve.main --engine
+5. the dense archs stablelm-3b, granite-8b and internlm2-20b, one at a
+   time (captured at full width, freed after): the boundary at their (d,
+   W) at 4 rows, the 64-row prefill dispatch and 512 rows, with the tile
+   width the plan picked (f32 rows where no tile fits must raise); paged
+   attention at their head_dim and GQA group (80 / 1, 128 / 4, 128 / 6) in
+   both forms; the tail at their heads (layernorm with a bias, tied,
+   d 6144) with the plan of each call;
+6. reference: the continuous engine at reduced shapes in float32 on the
+   card (kernels) and on the CPU (plain versions), for each arch (and
+   stablelm-3b at d_model 160, head_dim 80), must decode the same tokens,
+   modes and wire bytes;
+7. main path, for each arch: ``repro_torch.launch.serve.main --engine
    continuous`` at full width in bf16 with the launch counters set to 0
    just before and read just after; every request must finish, every
    kernel of the path must have launched, and the launches must match the
    path's prefill dispatches and decode ticks;
-7. profile: each main path once more under ``torch.profiler``, for the
+8. profile: each main path once more under ``torch.profiler``, for the
    device busy time and the kernels that take it;
-8. the same three for the synchronous engine (``--engine sync``, the
+9. the same three for the synchronous engine (``--engine sync``, the
    orchestrator's policy): a reduced f32 reference under the orchestrator
    and on mode 1, the full-width path with its launches asserted (one
    decode tail a step, one scan per RG-LRU or mLSTM layer a prefill), a
    profile;
-9. bench: ``repro_torch.benchmarks.bench_kernels.main --device cuda``,
-   whose parity checks must hold, which must launch the wire pair, and
-   whose fused boundary + tail tick must beat the unfused chain (the
-   reference bench gate's ``MEGA_FLOOR``, 1.0).
+10. bench: ``repro_torch.benchmarks.bench_kernels.main --device cuda``,
+    whose parity checks must hold, which must launch the wire pair, and
+    whose fused boundary + tail tick must beat the unfused chain (the
+    reference bench gate's ``MEGA_FLOOR``, 1.0).
 
 Kernel times and counts come from ``torch.profiler`` traces; a trace with
 no device work in it is taken again, and if CUPTI still delivers nothing
@@ -146,7 +154,14 @@ MAX_KERNELS = {"boundary": 2, "tail": 3}
 MEGA_FLOOR = 1.0
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the script's elapsed
+    seconds."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj, default=str), flush=True)
 
 
@@ -652,7 +667,8 @@ def boundary_envelope(bank, x2, rmode, yr):
 def check_boundary(bank, x, modes, label):
     """The kernel on the rows in place against its plain version: mode-0
     rows bit for bit, quantized rows inside the envelope, and each sequence
-    called alone bit-identical to its rows in the pool."""
+    called alone bit-identical to its rows in the pool. Returns (max error,
+    worst envelope ratio, the pool's plan)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.boundary_mixed import boundary_mixed_grouped
@@ -661,6 +677,7 @@ def check_boundary(bank, x, modes, label):
     modes = modes.to(torch.int32)
     rmode = modes.repeat_interleave(S)
     yk = boundary_mixed_grouped(x2, modes, S, bank, dtype=x.dtype)
+    plan = boundary_mixed_grouped.last_plan
     torch.cuda.synchronize()
     yr = ref.boundary_mixed_rows_ref(x2, rmode, bank, x.dtype)
     raw = rmode == 0
@@ -679,7 +696,7 @@ def check_boundary(bank, x, modes, label):
         check(same_bits(alone, yk[b * S:(b + 1) * S]),
               f"boundary {label}: sequence {b} alone differs from its rows "
               f"in the pool")
-    return float(err.max()), ratio
+    return float(err.max()), ratio, plan
 
 
 def boundary_cases(cap, label: str, d: int, dev, seed: int, gen):
@@ -705,36 +722,43 @@ def boundary_cases(cap, label: str, d: int, dev, seed: int, gen):
     return cases
 
 
-def time_boundary(cap, d: int, dev, seed: int, iters: int):
+def time_boundary(cap, d: int, dev, seed: int, iters: int, seq: int = 1):
     """Device ms of the kernel and of its plain version at the main path's
-    decode shape: 4 slots on the model's own bank, one in raw mode 0;
-    with the bound of that call and the device kernels one dispatcher call
-    issues (at most ``MAX_KERNELS["boundary"]``)."""
+    decode shape (``seq`` 1: 4 slots, one row each) or prefill dispatch
+    (``seq`` 16: 4 prompts of 16 tokens, 64 rows) on the model's own bank,
+    one sequence in raw mode 0; with the bound of that call, the tile the
+    plan picked and the device kernels one dispatcher call issues (at most
+    ``MAX_KERNELS["boundary"]``)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.boundary_mixed import boundary_mixed_grouped
     st = cap["stacked"]
-    x4 = pick_rows(cap["x_enc"], cap["valid"], 4, seed + 4)
-    x2 = x4.reshape(4, d)
+    x4 = (pick_rows(cap["x_enc"], cap["valid"], 4, seed + 4) if seq == 1
+          else cap["x_enc"][:4, :seq].contiguous())
+    n = 4 * seq
+    x2 = x4.reshape(n, d)
     modes4 = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
     flush = l2_flusher(dev)
     parts = {}
-    ms = time_ms(lambda: boundary_mixed_grouped(x2, modes4, 1, st,
+    ms = time_ms(lambda: boundary_mixed_grouped(x2, modes4, seq, st,
                                                 dtype=x2.dtype), iters, flush,
                  parts)
+    plan = boundary_mixed_grouped.last_plan
     plain = time_ms(lambda: ref.boundary_mixed_rows_ref(
-        x2, modes4, st, x2.dtype), max(iters // 5, 3), flush)
+        x2, modes4.repeat_interleave(seq), st, x2.dtype),
+        max(iters // 5, 3), flush)
     kernels = device_kernels(lambda: ops.boundary_mixed_op(
         st, x4, modes4, dtype=x4.dtype))
     check(kernels <= MAX_KERNELS["boundary"],
           f"boundary: one dispatcher call issues {kernels} device kernels, "
           f"more than {MAX_KERNELS['boundary']}")
     w = int(st["width"][0])
-    nq = int((modes4 > 0).sum())
-    nbytes = 2 * (2 * 4 * d + 2 * d * w + d)
+    nq = int((modes4 > 0).sum()) * seq
+    nbytes = 2 * (2 * n * d + 2 * d * w + d)
     b_ms, b_by = bound(nbytes, 2 * 2 * d * w * nq, "bfloat16")
-    return {"timed_shape": {"rows": 4, "d": d, "width": w,
-                            "modes": [1, 1, 0, 1]},
+    return {"timed_shape": {"rows": n, "d": d, "width": w,
+                            "modes": [1, 1, 0, 1], "tokens_a_sequence": seq},
+            "mt": plan["mt"], "smem": plan["smem"],
             "ms": ms, "ms_by_kernel": parts, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by,
             "device_kernels_per_call": kernels}
@@ -776,9 +800,10 @@ def phase_boundary(cap, rcap, xcap, cfg, rcfg, xcfg, dev, seed: int,
                       x, torch.randint(0, 5, (32,), generator=gen).to(dev)))
     worst, rows = 0.0, []
     for label, bank, x, modes in cases:
-        e, r = check_boundary(bank, x, modes, label)
+        e, r, plan = check_boundary(bank, x, modes, label)
         worst = max(worst, e)
-        rows.append({"case": label, "max_abs_err": e, "envelope_ratio": r})
+        rows.append({"case": label, "max_abs_err": e, "envelope_ratio": r,
+                     "mt": plan["mt"]})
 
     # timing at each main path's decode shape (qwen2.5-3b: width 512,
     # recurrentgemma-2b: width 640, xlstm-125m: width 192, all 8 bits);
@@ -1149,12 +1174,12 @@ def check_paged(q, kp, vp, bt, pos, pps, label, oracle=False):
                                             else [])}
 
 
-def phase_paged(cap, cfg, dev, seed: int, iters: int):
+def phase_paged(cap, cfg, dev, seed: int, iters: int, f32_long=True):
     """The one-range and the split form at the long shape (the capture's
     positions, up to 999) and at the main path's decode shape, bf16 bit
     for bit and f32 within tolerance against the plain version and the
-    split-order mirror; then times at both shapes beside SDPA on the
-    gathered K/V and the bound."""
+    split-order mirror (f32 at the long shape only with ``f32_long``); then
+    times at both shapes beside SDPA on the gathered K/V and the bound."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (pages_per_split_for,
@@ -1184,6 +1209,8 @@ def phase_paged(cap, cfg, dev, seed: int, iters: int):
         name = dtype_name(dt)
         for pps, form in ((nb, "one range"), (auto, f"split {auto}"),
                           (3, "split 3")):
+            if dt == torch.float32 and not f32_long:
+                break
             rows.append(check_paged(qd, kd, vd, bt, pos, pps,
                                     f"{name} long {form}",
                                     oracle=pps != 3))
@@ -1213,7 +1240,7 @@ def phase_paged(cap, cfg, dev, seed: int, iters: int):
     long["plain_ms"] = time_ms(lambda: ref.paged_attention_ref(
         q, kp, vp, bt, pos), 2, flush)
     plen, n_kv, hd, nq = kp.shape[1], kp.shape[2], kp.shape[3], q4.shape[1]
-    out = {"phase": "kernel", "name": "paged_attention",
+    out = {"phase": "kernel", "name": "paged_attention", "arch": cfg.name,
            "tolerance": f"bf16 bit for bit (and {TOL['paged_bf16_abs']} "
                         f"abs), f32 {TOL['paged_f32_abs']} abs",
            "cases": rows, "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -1639,6 +1666,175 @@ def phase_wire(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
 
 
 # ---------------------------------------------------------------------------
+# the dense archs: stablelm-3b, granite-8b, internlm2-20b
+# ---------------------------------------------------------------------------
+
+DENSE = ("stablelm-3b", "granite-8b", "internlm2-20b")
+# the reduced stablelm-3b at the full model's proportion (head_dim 80 =
+# d_model / n_heads); the reduced config keeps head_dim 80 too
+HD80 = {"d_model": 160, "n_heads": 2, "n_kv_heads": 2, "head_dim": 80}
+
+
+def free_cuda() -> None:
+    """Return what the last phase freed to the card (a full-width model
+    between phases)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_boundary(cap, cfg, dev, seed: int, iters: int) -> dict:
+    """The boundary at a dense arch's (d, W), on the model's bank and the
+    synthetic heads: 4 rows of a decode tick, the 64-row prefill dispatch
+    (4 prompts of 16 tokens) and 512 rows, each row bit-identical alone and
+    in its pool, with the tile the plan picked; device ms at the tick and
+    the dispatch on the model's bank; f32 rows, the reduced configs' type,
+    where their plan fits, and where no tile fits the call raises."""
+    import torch
+    from repro_torch.kernels.boundary_mixed import (boundary_mixed_grouped,
+                                                    boundary_plan)
+    d, wmax = cfg.d_model, cfg.split.d_bottleneck
+    bank = test_bank(cap["stacked"], d, dev, seed)
+    M = bank["width"].shape[0]
+    x4 = pick_rows(cap["x_enc"], cap["valid"], 4, seed + 4)
+    cases = [("bf16 decode 4 rows", bank, x4,
+              torch.tensor([1, 1, 0, 1], device=dev)),
+             ("bf16 prefill 4 x 16", bank,
+              cap["x_enc"][:4, :16].contiguous(),
+              torch.tensor([1, 0, M, 2], device=dev)),
+             ("bf16 prefill 8 x 64", bank, cap["x_enc"][:, :64].contiguous(),
+              (torch.arange(8) % (M + 1)).to(dev))]
+    f32 = {k: (v.float() if v.is_floating_point() else v)
+           for k, v in cap["stacked"].items()}
+    try:
+        boundary_plan(4, d, wmax, torch.float32)
+        cases.append(("f32 decode 4 rows", f32, x4.float(),
+                      torch.tensor([1, 1, 0, 1], device=dev)))
+    except ValueError:
+        raised = False
+        try:
+            boundary_mixed_grouped(x4.float().reshape(4, d), torch.tensor(
+                [1, 1, 0, 1], dtype=torch.int32, device=dev), 1, f32,
+                dtype=torch.float32)
+        except ValueError:
+            raised = True
+        check(raised, f"boundary {cfg.name}: f32 rows on a {wmax}-lane bank "
+                      f"(no tile fits) did not raise")
+    rows = []
+    for label, b, x, modes in cases:
+        e, r, plan = check_boundary(b, x, modes, f"{cfg.name} {label}")
+        rows.append({"case": label, "rows": x.shape[0] * x.shape[1],
+                     "max_abs_err": e, "envelope_ratio": r, "mt": plan["mt"],
+                     "smem": plan["smem"]})
+    want = boundary_plan(64, d, wmax, torch.bfloat16)[0]
+    check(rows[1]["mt"] == want,
+          f"boundary {cfg.name}: the prefill dispatch ran mt {rows[1]['mt']}, "
+          f"the plan says {want}")
+    del f32
+    return {"cases": rows, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "decode": time_boundary(cap, d, dev, seed, iters),
+            "prefill": time_boundary(cap, d, dev, seed, iters, seq=16)}
+
+
+def dense_tail(cap, cfg, dev, seed: int, iters: int) -> dict:
+    """The tail at a dense arch's head (stablelm-3b: a layernorm with a
+    bias, untied [2560, 50304]; granite-8b: tied [49152, 4096], read in
+    place; internlm2-20b: untied [6144, 92544]): tokens against the plain
+    logits at 1, 4, 8 and 13 rows, with the plan of each call; an injected
+    exact tie; the device ms, kernels and bound at the main path's 4 rows.
+    The model's norm is perturbed (init makes ones and zeros)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.boundary_mixed import decode_tail_grouped
+    params = cap["params"]
+    tied = cfg.tie_embeddings
+    head = (params["embed"]["table"] if tied else params["lm_head"]["w"])[None]
+    V = head.shape[1] if tied else head.shape[2]
+    d = cfg.d_model
+    fn = params["final_norm"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    scale = (fn["scale"].float() + 0.1 * torch.randn(
+        fn["scale"].shape, generator=gen, device=dev)).to(head.dtype)
+    kw = {"tied": tied, "norm_kind": cfg.norm}
+    if cfg.norm == "layernorm":
+        kw["bias"] = (fn["bias"].float() + 0.1 * torch.randn(
+            fn["bias"].shape, generator=gen, device=dev)).to(head.dtype)
+    bias = kw.get("bias")
+    rows = []
+    for n in (1, 4, 8, 13):
+        x = pick_rows(cap["x_dec"], cap["valid"], n, seed + 900 + n)
+        diff, gap = check_tail(x, scale, head, f"{cfg.name} bf16 pool {n}",
+                               **kw)
+        rows.append({"case": f"bfloat16 pool {n}", "tokens_differing": diff,
+                     "max_abs_err": gap,
+                     "plan": dict(decode_tail_grouped.last_plan)})
+    x = pick_rows(cap["x_dec"], cap["valid"], 8, seed + 950)
+    top = int(ref.decode_tail_ref(x, scale, bias, head, tied=tied,
+                                  norm_kind=cfg.norm)[0, 0])
+    low = 5 if top > 5 else top
+    tie = head.clone()
+    if tied:
+        tie[0, low] = head[0, top]
+        tie[0, (top + V // 2) % V] = head[0, top]
+    else:
+        tie[0, :, low] = head[0, :, top]
+        tie[0, :, (top + V // 2) % V] = head[0, :, top]
+    check_tail(x, scale, tie, f"{cfg.name} exact tie", expect=low, **kw)
+    rows.append({"case": "bfloat16 exact tie", "expected": low})
+    del tie
+    x4 = pick_rows(cap["x_dec"], cap["valid"], 4, seed + 960)
+    parts = {}
+    ms = time_ms(lambda: decode_tail_grouped(
+        x4[:, 0], head, scale, bias, block_r=16, tied=tied,
+        norm_kind=cfg.norm), iters, by_kernel=parts)
+    plan = dict(decode_tail_grouped.last_plan)
+    kernels = tail_kernels(x4, scale, head, **kw)
+    plain = time_ms(lambda: ref.decode_tail_ref(x4, scale, bias, head,
+                                                tied=tied,
+                                                norm_kind=cfg.norm),
+                    max(iters // 5, 3))
+    n_vec = 3 if bias is not None else 2
+    b_ms, b_by = bound(2 * (V * d + 4 * d + n_vec * d) + 4 * 4,
+                       2 * 4 * d * V, "bfloat16")
+    return {"cases": rows,
+            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in rows),
+            "timed_shape": {"rows": 4, "d": d, "V": V, "tied": tied,
+                            "norm": cfg.norm},
+            "plan": plan, "ms": ms, "ms_by_kernel": parts,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_over_ms": b_ms / ms, "device_kernels_per_call": kernels,
+            "library_ms": None}
+
+
+def phase_dense_kernels(cfg, dev, seed: int, iters: int) -> dict:
+    """One full-width dense arch: capture its prefill (about 40 GB of
+    weights for internlm2-20b, so one arch at a time, freed after), then
+    the boundary, paged attention (its head_dim and GQA group: stablelm-3b
+    80 and 1, granite-8b 128 and 4, internlm2-20b 128 and 6) and the tail
+    at its shapes. Emits one line and returns it."""
+    t0 = time.perf_counter()
+    cap = capture(cfg, dev, seed)
+    emit({"phase": "capture", "arch": cfg.name,
+          "seconds": time.perf_counter() - t0,
+          "lengths": [int(n) for n in cap["lens"]]})
+    out = {"phase": "kernels_at_arch", "arch": cfg.name,
+           "head_dim": cfg.head_dim, "gqa_group": cfg.n_heads // cfg.n_kv_heads,
+           "boundary_mixed_grouped": dense_boundary(cap, cfg, dev, seed,
+                                                    iters),
+           "decode_tail_grouped": dense_tail(cap, cfg, dev, seed, iters)}
+    # f32 (the reduced configs' type) at the decode shape; at the long
+    # shape qwen2.5-3b's phase holds it
+    paged = phase_paged(cap, cfg, dev, seed, iters, f32_long=False)
+    out["paged_attention"] = {k: paged[k] for k in (
+        "timed_shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "long", "max_abs_err")}
+    del cap
+    free_cuda()
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the serving entry point
 # ---------------------------------------------------------------------------
 
@@ -1647,10 +1843,11 @@ SERVE_COMMON = ["--engine", "continuous", "--requests", "8", "--prompt-len",
 SERVE = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SERVE_COMMON],
          "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SERVE_COMMON,
                                "--cache-len", "2048"],
-         "xlstm-125m": ["--arch", "xlstm-125m", *SERVE_COMMON]}
+         "xlstm-125m": ["--arch", "xlstm-125m", *SERVE_COMMON],
+         **{a: ["--arch", a, *SERVE_COMMON] for a in DENSE}}
 
 
-def phase_reference(arch: str, device: str = "cuda"):
+def phase_reference(arch: str, device: str = "cuda", variant=None):
     """The serving entry point at reduced shapes in f32 on the card and on
     the CPU, on the same weights (drawn on the CPU and copied, since the
     two devices' generators draw different numbers). With every request on
@@ -1659,7 +1856,8 @@ def phase_reference(arch: str, device: str = "cuda"):
     modes (a slow uplink) the modes and wire bytes must be equal; the
     tokens may part where a code of the 8-bit wire sits on a rounding edge
     and the two sides' sums round it differently, so their agreement is
-    reported, not required."""
+    reported, not required. ``variant``: config fields replaced in the
+    reduced config (``HD80``)."""
     import dataclasses
 
     import torch
@@ -1668,10 +1866,12 @@ def phase_reference(arch: str, device: str = "cuda"):
     from repro_torch.core import split as SP
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32",
+                              **(variant or {}))
     cpu = SP.init_split_params(torch.Generator().manual_seed(0), cfg)
     gpu = T.tree_map(lambda t: t.to(device), cpu)
-    out = {"phase": "reference", "arch": arch}
+    out = {"phase": "reference", "arch": arch, "head_dim": cfg.head_dim,
+           "d_model": cfg.d_model}
     for label, mbps in (("mode0", "1000"), ("mixed", "1")):
         args = SERVE[arch] + ["--reduced", "--mean-mbps", mbps, "--device"]
         got = serve.run_continuous(serve.parser().parse_args(args + [device]),
@@ -1790,6 +1990,8 @@ def phase_main_path(cfg, smi: str):
         check(len(t) == 16 and all(0 <= v < cfg.vocab_size for v in t),
               f"main path: request {rid} returned {len(t)} tokens")
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+    check(summary["paged"] == (cfg.name in DENSE or cfg.name == "qwen2.5-3b"),
+          f"main path {cfg.name}: paged pool {summary['paged']}")
     expect = {"boundary_mixed_grouped": ticks + prefills,
               "decode_tail_grouped": ticks,
               "paged_attention": (kinds.count("attn") * ticks
@@ -1850,6 +2052,54 @@ def phase_profile(cfg, engine: str):
           / max(steps, 1), **prof})
 
 
+def phase_profile_summary():
+    """``serve.profile_summary``, which reads the profiler's raw events,
+    against the ``FunctionEvent`` tree of the same trace (``prof.events()``
+    and ``key_averages``, which it replaced: their parse took most of each
+    profile phase at full width), on the continuous engine at reduced f32
+    qwen2.5-3b on the card: the same kernels, device busy time and casts,
+    the casts' device ms within 1e-4 relative (a cast nested in a cast
+    counts twice in ``key_averages``). Both summaries' host seconds are
+    printed."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import split as SP
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(get_reduced("qwen2.5-3b"), dtype="float32")
+    params = SP.init_split_params(torch.Generator(device="cuda").manual_seed(
+        0), cfg)
+    args = serve.parser().parse_args(SERVE[cfg.name] + ["--device", "cuda"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve.run_continuous(args, cfg, params)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = serve.profile_summary(prof, 1.0)
+    t1 = time.perf_counter()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    casts = [e for e in prof.key_averages() if e.key == "aten::_to_copy"]
+    t2 = time.perf_counter()
+    want = {"kernel_launches": len(dev),
+            "device_busy_s": sum(e.time_range.elapsed_us() for e in dev) / 1e6,
+            "calls": sum(e.count for e in casts),
+            "device_ms": sum(e.device_time_total for e in casts) / 1e3}
+    check(got["kernel_launches"] == want["kernel_launches"] > 0
+          and math.isclose(got["device_busy_s"], want["device_busy_s"],
+                           rel_tol=1e-9)
+          and got["to_copy"]["calls"] == want["calls"]
+          and math.isclose(got["to_copy"]["device_ms"], want["device_ms"],
+                           rel_tol=1e-4),
+          f"profile summary: {got} against the event tree's {want}")
+    emit({"phase": "profile_summary", "raw_events_s": t1 - t0,
+          "event_tree_s": t2 - t1, "summary": {
+              k: got[k] for k in ("kernel_launches", "device_busy_s",
+                                  "to_copy")}, "event_tree": want})
+
+
 # ---------------------------------------------------------------------------
 # the synchronous engine and the kernel bench
 # ---------------------------------------------------------------------------
@@ -1859,7 +2109,8 @@ SYNC_COMMON = ["--engine", "sync", "--policy", "orchestrator", "--requests",
 SYNC = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SYNC_COMMON],
         "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SYNC_COMMON,
                               "--cache-len", "2048"],
-        "xlstm-125m": ["--arch", "xlstm-125m", *SYNC_COMMON]}
+        "xlstm-125m": ["--arch", "xlstm-125m", *SYNC_COMMON],
+        **{a: ["--arch", a, *SYNC_COMMON] for a in DENSE}}
 
 
 def phase_sync_reference(arch: str, device: str = "cuda"):
@@ -2056,18 +2307,29 @@ def main(argv=None) -> int:
     phase_rglru_layer(rcap, rcfg, dev, args.iters)
     phase_xlstm_tick(xcap, xcfg, dev, args.iters)
     del cap, rcap, xcap
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
+    # the dense archs at full width, one model on the card at a time
+    dense = [get_config(a) for a in DENSE]
+    for c in dense:
+        phase_dense_kernels(c, dev, args.seed, args.iters)
 
+    phase_profile_summary()
     by_path = {}
-    for c in (cfg, rcfg, xcfg):
+    archs = (cfg, rcfg, xcfg, *dense)
+    for c in archs:
         phase_reference(c.name)
+        if c.name == "stablelm-3b":
+            phase_reference(c.name, variant=HD80)
         by_path[f"{c.name} continuous"] = phase_main_path(c, smi)
+        free_cuda()
         phase_profile(c, "continuous")
-    for c in (cfg, rcfg, xcfg):
+        free_cuda()
+    for c in archs:
         phase_sync_reference(c.name)
         by_path[f"{c.name} sync"] = phase_sync_main_path(c, smi)
+        free_cuda()
         phase_profile(c, "sync")
+        free_cuda()
     by_path["bench"] = phase_bench()
 
     emit({"phase": "untraced", "measurements": UNTRACED})

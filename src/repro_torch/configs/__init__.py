@@ -14,12 +14,15 @@ _MODULES: Dict[str, str] = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "granite-8b": "repro_torch.configs.granite_8b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
 }
 
 #: archs of the reference registry the port does not run yet
 _NOT_PORTED = (
-    "musicgen-large", "stablelm-3b", "llava-next-34b", "phi3.5-moe-42b-a6.6b",
-    "mixtral-8x7b", "internlm2-20b", "granite-8b", "lumos5g-lstm",
+    "musicgen-large", "llava-next-34b", "phi3.5-moe-42b-a6.6b",
+    "mixtral-8x7b", "lumos5g-lstm",
 )
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -79,6 +79,11 @@
 //    persistent block per SM walks a contiguous run of 128-column vocab
 //    slabs; the head streams through a 5-stage cp.async ring of 64-deep
 //    tiles (about 70 KB in flight an SM) that flows across slab edges.
+//    Beside the ring, shared memory holds 16 rows of a row block, or 8 (a
+//    half of it) where no block has more real rows or 16 rows of a wide d
+//    do not fit (internlm2-20b's 6144): each half then streams the head.
+//    The dispatcher's plan (``tail_plan``) picks; it never changes a
+//    value.
 //    The untied [d, V] tile is k-major, so its A fragments come from
 //    ldmatrix.trans; the tied [V, d] table is read in place, never copied,
 //    its rows k-contiguous (plain ldmatrix). Rows in shared memory are
@@ -692,33 +697,36 @@ __host__ __device__ constexpr int stage_elems() {  // one staged tile, padded ro
 }
 
 template <bool kTied>
-size_t tail_mma_smem(int d) {
-  return sizeof(bf16) * ((size_t)kRB * (d + kPad) +
+size_t tail_mma_smem(int d, int rows_cap) {
+  return sizeof(bf16) * ((size_t)rows_cap * (d + kPad) +
                          (size_t)kStages * stage_elems<kTied>());
 }
 
-// Block (x, g): the contiguous run of vocab slabs x of row block g. A slab's
-// logits: acc[mt][nt] is the m16n8 tile of this warp's vocab columns
-// warp*32 + mt*16 and rows nt*8; thread t holds vocab (t/4, +8) x rows
-// (t%4)*2 + {0, 1}. Rows past the block's real rows are zero and never
-// compared; a block with none writes (-inf, 0) pairs.
+// Block (x, y): the contiguous run of vocab slabs x of the rows_cap rows
+// (16, or 8: a half) of row block y * rows_cap / 16 that start at row
+// y * rows_cap. A slab's logits: acc[mt][nt] is the m16n8 tile of this
+// warp's vocab columns warp*32 + mt*16 and rows nt*8; thread t holds vocab
+// (t/4, +8) x rows (t%4)*2 + {0, 1}. Rows past the block's real rows are
+// zero and never compared; a block with none writes (-inf, 0) pairs. With
+// a cap of 8 the second ldmatrix pair repeats row 7, unused (one n-tile).
 template <bool kTied>
 __global__ void __launch_bounds__(kMT)
     tail_mma(const bf16* __restrict__ h, const bf16* __restrict__ heads,
              const int* __restrict__ hid_g, const int* __restrict__ rows_g,
              int n_real, float* __restrict__ pbest, int* __restrict__ pidx,
-             int ld, int d, int V, int n_slabs) {
+             int ld, int d, int V, int n_slabs, int rows_cap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float rb[kMT / 32][kRB];
   __shared__ int ri[kMT / 32][kRB];
-  const int g = blockIdx.y, tid = threadIdx.x;
+  const int g = blockIdx.y * rows_cap / kRB, tid = threadIdx.x;
+  const int r0 = blockIdx.y * rows_cap;  // this block's first row
   const int warp = tid >> 5, lane = tid & 31;
-  const int nrows = rows_g != nullptr ? rows_g[g]
-                                      : min(max(n_real - g * kRB, 0), kRB);
+  const int nrows = min(max((rows_g != nullptr ? g * kRB + rows_g[g] : n_real)
+                                - r0, 0), rows_cap);
   if (nrows == 0) {
-    if (tid < kRB) {
-      pbest[(size_t)(g * kRB + tid) * ld + blockIdx.x] = -INFINITY;
-      pidx[(size_t)(g * kRB + tid) * ld + blockIdx.x] = 0;
+    if (tid < rows_cap) {
+      pbest[(size_t)(r0 + tid) * ld + blockIdx.x] = -INFINITY;
+      pidx[(size_t)(r0 + tid) * ld + blockIdx.x] = 0;
     }
     return;
   }
@@ -727,18 +735,18 @@ __global__ void __launch_bounds__(kMT)
   const int s0 = blockIdx.x * per + min((int)blockIdx.x, extra);
   const int ns = per + ((int)blockIdx.x < extra ? 1 : 0);
   const int hs = d + kPad;
-  bf16* hsm = reinterpret_cast<bf16*>(smem_raw);  // [16][d + pad]
-  bf16* ring = hsm + kRB * hs;
+  bf16* hsm = reinterpret_cast<bf16*>(smem_raw);  // [rows_cap][d + pad]
+  bf16* ring = hsm + rows_cap * hs;
   constexpr int kSE = stage_elems<kTied>();
   const bf16* w = heads + (size_t)(hid_g != nullptr ? hid_g[g] : 0) * d * V;
 
   // the block's normed rows; rows >= nrows are zeros
   const int c8 = d / 8;
-  for (int i = tid; i < kRB * c8; i += kMT) {
+  for (int i = tid; i < rows_cap * c8; i += kMT) {
     const int r = i / c8, c = i - r * c8;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (r < nrows)
-      v = *reinterpret_cast<const uint4*>(h + ((size_t)g * kRB + r) * d + c * 8);
+      v = *reinterpret_cast<const uint4*>(h + ((size_t)r0 + r) * d + c * 8);
     *reinterpret_cast<uint4*>(hsm + r * hs + c * 8) = v;
   }
 
@@ -784,7 +792,8 @@ __global__ void __launch_bounds__(kMT)
     }
   // ldmatrix row addresses of this lane: matrix q = lane / 8, row lane % 8
   const int q = lane >> 3, rr = lane & 7;
-  const bf16* b_base = hsm + ((q >> 1) * 8 + rr) * hs + (q & 1) * 8;
+  const bf16* b_base =
+      hsm + min((q >> 1) * 8 + rr, rows_cap - 1) * hs + (q & 1) * 8;
   for (int it = 0; it < total; ++it) {
     rt::cp_async_wait<kStages - 2>();
     __syncthreads();            // tile `it` landed; tile it - 1 is consumed
@@ -841,7 +850,7 @@ __global__ void __launch_bounds__(kMT)
       }
     }
   __syncthreads();
-  if (tid < kRB) {
+  if (tid < rows_cap) {
     float bv = -INFINITY;
     int bi = 0;
     if (tid < nrows) {
@@ -850,8 +859,8 @@ __global__ void __launch_bounds__(kMT)
       for (int wi = 1; wi < kMT / 32; ++wi)
         rt::arg_better(bv, bi, rb[wi][tid], ri[wi][tid]);
     }
-    pbest[(size_t)(g * kRB + tid) * ld + blockIdx.x] = bv;
-    pidx[(size_t)(g * kRB + tid) * ld + blockIdx.x] = bi;
+    pbest[(size_t)(r0 + tid) * ld + blockIdx.x] = bv;
+    pidx[(size_t)(r0 + tid) * ld + blockIdx.x] = bi;
   }
 }
 
@@ -872,19 +881,26 @@ __global__ void tail_reduce(const float* __restrict__ pbest,
   if (lane == 0) tok[row] = bi;
 }
 
+// the rows a block holds (16, or 8: a row block is then two blocks, each
+// streaming the head) come from the dispatcher's plan; about one block an
+// SM
 template <bool kTied>
 cudaError_t tail_mma_launch(const void* hbuf, const void* heads, const int* hid,
                             const int* rows_g, int n_real, float* pbest,
                             int* pidx, int ld, int G, int d, int V, int n_sms,
-                            int* n_part, cudaStream_t stream) {
+                            int rows_cap, int* n_part, cudaStream_t stream) {
+  if (rows_cap != 8 && rows_cap != kRB) return cudaErrorInvalidValue;
+  // row blocks of rows_cap: those holding a real row
+  const int gy = rows_g != nullptr ? G * (kRB / rows_cap)
+                                   : (n_real + rows_cap - 1) / rows_cap;
   const int n_slabs = (V + kMV - 1) / kMV;
-  const int gx = std::max(1, std::min(n_slabs, std::min(ld, n_sms / G)));
-  const size_t smem = tail_mma_smem<kTied>(d);
+  const int gx = std::max(1, std::min(n_slabs, std::min(ld, n_sms / gy)));
+  const size_t smem = tail_mma_smem<kTied>(d, rows_cap);
   cudaError_t e = rt::allow_smem(tail_mma<kTied>, smem);
   if (e != cudaSuccess) return e;
-  tail_mma<kTied><<<dim3(gx, G), kMT, smem, stream>>>(
+  tail_mma<kTied><<<dim3(gx, gy), kMT, smem, stream>>>(
       static_cast<const bf16*>(hbuf), static_cast<const bf16*>(heads), hid,
-      rows_g, n_real, pbest, pidx, ld, d, V, n_slabs);
+      rows_g, n_real, pbest, pidx, ld, d, V, n_slabs, rows_cap);
   *n_part = gx;
   return cudaSuccess;
 }
@@ -919,7 +935,7 @@ cudaError_t tail_launch(const void* xp, const void* heads, const void* scale,
                         const void* bias, const int* hid, const int* rows_g,
                         int n_real, void* hbuf, float* pbest, int* pidx,
                         int ld, int* tok, int G, int d, int V, int layernorm,
-                        int tied, cudaStream_t stream) {
+                        int tied, int rows_cap, cudaStream_t stream) {
   tail_norm<T><<<n_real, 256, 0, stream>>>(
       static_cast<const T*>(xp), static_cast<const T*>(scale),
       static_cast<const T*>(bias), static_cast<T*>(hbuf), d, layernorm);
@@ -927,11 +943,11 @@ cudaError_t tail_launch(const void* xp, const void* heads, const void* scale,
   cudaError_t e;
   if constexpr (sizeof(T) == 2) {
     e = tied ? tail_mma_launch<true>(hbuf, heads, hid, rows_g, n_real, pbest,
-                                     pidx, ld, G, d, V, sm_count(), &n_part,
-                                     stream)
+                                     pidx, ld, G, d, V, sm_count(), rows_cap,
+                                     &n_part, stream)
              : tail_mma_launch<false>(hbuf, heads, hid, rows_g, n_real, pbest,
-                                      pidx, ld, G, d, V, sm_count(), &n_part,
-                                      stream);
+                                      pidx, ld, G, d, V, sm_count(), rows_cap,
+                                      &n_part, stream);
   } else {
     n_part = (V + kVT - 1) / kVT;
     if (n_part > ld) return cudaErrorInvalidValue;
@@ -977,18 +993,20 @@ extern "C" int boundary_mixed_rows_launch(
 // Real rows of row block g in bf16: ``rows_g[g]`` when given (then n_real
 // is G * R), else min(n_real - g * R, R). The caller guarantees, in bf16,
 // d % 64 == 0, V % 8 == 0 and 16-byte aligned heads; in f32, d a multiple
-// of 8 and 16-byte aligned rows.
+// of 8 and 16-byte aligned rows. bf16 only: ``rows_cap`` (8 or 16) is the
+// rows a block keeps in shared memory (8: each row block runs as two
+// halves); a plan whose shared memory the card refuses returns its error.
 extern "C" int decode_tail_grouped_launch(
     const void* xp, const void* heads, const void* scale, const void* bias,
     const int* hid, void* hbuf, float* pbest, int* pidx, int* tok, int G,
     int d, int V, int layernorm, int tied, int is_bf16, const int* rows_g,
-    int n_real, int ld, void* stream) {
+    int n_real, int ld, int rows_cap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return tail_launch<bf16, 16>(xp, heads, scale, bias, hid, rows_g, n_real,
                                  hbuf, pbest, pidx, ld, tok, G, d, V,
-                                 layernorm, tied, s);
+                                 layernorm, tied, rows_cap, s);
   return tail_launch<float, 8>(xp, heads, scale, bias, hid, rows_g, n_real,
                                hbuf, pbest, pidx, ld, tok, G, d, V, layernorm,
-                               tied, s);
+                               tied, rows_cap, s);
 }

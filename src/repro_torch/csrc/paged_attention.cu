@@ -36,10 +36,13 @@
 //       and pv of the range, V streamed once, into scratch;
 //    C) the serial l / acc combine over pages, one thread per (head, lane),
 //       and the division.
-// Within a block (hd threads per head slice): the g = nq / n_kv query
-// heads of one KV head share each staged K/V row (GQA). The block reads its
-// position and its block-table row in parallel, so a decode waits on two
-// dependent trips to memory (table, then K/V), not three. Scores: one lane
+// Within a block (hd threads per head slice, rounded up to whole warps: the
+// lanes past the slices idle in pv and the stores, so every warp loop and
+// full-mask shuffle runs on whole warps at any hd % 16 == 0, e.g. 80): the
+// g = nq / n_kv query heads of one KV head share each staged K/V row
+// (GQA). The block reads its position and its block-table row in
+// parallel, so a decode waits on two dependent trips to memory (table,
+// then K/V), not three. Scores: one lane
 // per row, a warp per 32 rows and two heads, q read from shared memory as a
 // broadcast, K rows padded by 16 bytes so the 16-byte row reads of a warp
 // do not collide. Page statistics: a warp per head, a lane per page, the
@@ -47,7 +50,8 @@
 // one V element and the g probabilities of a row as float4 broadcasts and
 // runs one FMA chain per head of its slice (hd threads a slice of 4, 8 or
 // 16 heads, a template argument: no branch in the row loop). The combine's
-// loads are double-buffered into shared memory ahead of its serial chain.
+// loads are double-buffered into shared memory ahead of its serial chain
+// (a thread per head-dim lane, rounded up to whole warps).
 //
 // Every sum runs in index order (q . k over the head dim, p over a page's
 // rows, p . v over them), the order ref.paged_attention_ref fixes. With
@@ -81,6 +85,9 @@ struct Geo {  // shapes of one call
 };
 
 __host__ __device__ inline size_t al16(size_t b) { return (b + 15) & ~size_t(15); }
+
+// threads of a block: n, rounded up to whole warps
+__host__ __device__ inline int whole_warps(int n) { return (n + 31) & ~31; }
 
 struct Carve {  // bump allocator over dynamic shared memory
   unsigned char* p;
@@ -218,17 +225,18 @@ __device__ __forceinline__ void page_stats(const float* ss, int CR, int np, cons
 }
 
 // pv of np staged pages for this thread's lane c = t % hd and its PER heads
-// from h0 = (t / hd) * PER (the block has hd * ceil(g / PER) threads): each
-// row's V element once, its probabilities as float4 broadcasts, PER
-// independent FMA chains over the page's rows in order, no branch inside
-// the row loop; each page's pv folded into acc (one range) or written
-// rounded to global scratch (split). Heads past g compute on padding and
-// are dropped.
+// from h0 = (t / hd) * PER (threads t < hd * gp / PER, the slices; the
+// block's last warp may hold idle threads past them): each row's V element
+// once, its probabilities as float4 broadcasts, PER independent FMA chains
+// over the page's rows in order, no branch inside the row loop; each
+// page's pv folded into acc (one range) or written rounded to global
+// scratch (split). Heads past g compute on padding and are dropped.
 template <typename T, int PER, bool kStore>
 __device__ __forceinline__ void chunk_pv(const T* vs, const float* pt,
                                          const float* cs, int np, const Geo& G,
                                          float* acc, T* pvg, size_t bk,
                                          int jg0) {
+  if ((int)threadIdx.x >= G.hd * (G.gp / PER)) return;  // idle lanes
   const int c = threadIdx.x % G.hd, h0 = (threadIdx.x / G.hd) * PER;
   for (int jj = 0; jj < np; ++jj) {
     float pv[PER];
@@ -358,6 +366,7 @@ __global__ void __launch_bounds__(256)
                             0, 0);
     __syncthreads();  // the next fetch overwrites this stage, ss and pt
   }
+  if ((int)threadIdx.x >= G.hd * (G.gp / PER)) return;  // idle lanes
   const int c = threadIdx.x % G.hd, h0 = (threadIdx.x / G.hd) * PER;
 #pragma unroll
   for (int k = 0; k < PER; ++k)
@@ -521,7 +530,8 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------------------
 // split C: the serial l / acc combine over pages, a block per query head and
-// a thread per head-dim lane. Tiles of kTP pages (pv rows by cp.async, corr
+// a thread per head-dim lane (whole warps; lanes c >= hd only stage). Tiles
+// of kTP pages (pv rows by cp.async, corr
 // and psum by plain loads) are staged into shared memory, the next tile in
 // flight while the chain folds this one.
 // ---------------------------------------------------------------------------
@@ -570,6 +580,7 @@ __global__ void paged_combine(const int* __restrict__ positions,
     }
   };
   const int nt = (n + kTP - 1) / kTP;
+  const bool lane_live = c < G.hd;
   float l = 0.f, acc = 0.f;
   if (nt > 0) stage(0);
   for (int tile = 0; tile < nt; ++tile) {
@@ -581,18 +592,20 @@ __global__ void paged_combine(const int* __restrict__ positions,
       rt::cp_async_wait<0>();
     }
     __syncthreads();
-    const T* v = vt(s) + c;
-    const float* cs = ct(s);
-    const float* pss = pt(s);
+    if (lane_live) {
+      const T* v = vt(s) + c;
+      const float* cs = ct(s);
+      const float* pss = pt(s);
 #pragma unroll 8
-    for (int j = 0; j < np; ++j) {
-      const float cj = cs[j];
-      l = __fadd_rn(round_t<T>(__fmul_rn(l, cj)), pss[j]);
-      acc = __fadd_rn(round_t<T>(__fmul_rn(acc, cj)), to_f(v[j * G.hd]));
+      for (int j = 0; j < np; ++j) {
+        const float cj = cs[j];
+        l = __fadd_rn(round_t<T>(__fmul_rn(l, cj)), pss[j]);
+        acc = __fadd_rn(round_t<T>(__fmul_rn(acc, cj)), to_f(v[j * G.hd]));
+      }
     }
     __syncthreads();  // the next stage() overwrites this tile
   }
-  out[((size_t)b * G.nq + hq) * G.hd + c] = from_f<T>(acc / l);
+  if (lane_live) out[((size_t)b * G.nq + hq) * G.hd + c] = from_f<T>(acc / l);
 }
 
 template <typename T, int PER>
@@ -602,7 +615,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    void* sc, float* pmax, float* corr, float* psum, void* pv,
                    cudaStream_t stream) {
   const int g = nq / n_kv, slices = (g + PER - 1) / PER;
-  const int threads = hd * slices;
+  const int threads = whole_warps(hd * slices);
   const bool one = pps >= nb;
   const int span = one ? nb : pps;  // pages one block walks, at most
   Geo G{nq, n_kv, g, hd, plen, nb, 0, 0, slices * PER, 0, scale};
@@ -640,7 +653,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                                                  pps);
   paged_values<T, PER><<<grid, threads, sb, stream>>>(
       vt, bt, pos, sct, pmax, corr, psum, pvt, G, pps);
-  paged_combine<T><<<B * nq, hd, sc_, stream>>>(pos, corr, psum, pvt, o, G);
+  paged_combine<T><<<B * nq, whole_warps(hd), sc_, stream>>>(pos, corr, psum,
+                                                              pvt, o, G);
   return cudaGetLastError();
 }
 
@@ -674,7 +688,7 @@ cudaError_t launch_any(const void* q, const void* kp, const void* vp,
 // and pv [B, n_kv, nb, g, hd] in the input type, pmax / corr / psum
 // [B, n_kv, g, nb] f32. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue when a chunk of one page does not fit in shared
-// memory. The caller guarantees hd % 32 == 0, hd <= 256, nq % n_kv == 0,
+// memory. The caller guarantees hd % 16 == 0, hd <= 256, nq % n_kv == 0,
 // nq / n_kv <= 16 and 16-byte aligned arenas.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,

@@ -22,7 +22,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = {}
 _TAIL_SLAB = 128    # vocab columns per bf16 slab of the tail (kMV in the .cu)
 _BR, _KS = 32, 512  # boundary rows a block, K-slice depth (kBR, kKS)
-_SMEM_MAX = 232448  # dynamic shared memory a block may use on Hopper
+# dynamic shared memory a block may use on Hopper: the card's 232,448 bytes
+# less room for the kernels' static arrays (under 1 KB)
+_SMEM_MAX = 232448 - 1024
 
 
 def _fn(name, argtypes):
@@ -52,6 +54,48 @@ def _tables(what, G, *tables):
     return out
 
 
+def boundary_plan(N: int, d: int, wmax: int, dtype):
+    """(mt, shared-memory bytes a block) of the boundary kernels on ``N``
+    rows of width ``d`` against a bank ``wmax`` lanes wide: the tile width
+    in 16-lane m-tiles. bf16 at more than 32 rows takes the widest of 4, 2
+    and 1 whose blocks fit (fewer blocks rebuilding each row's codes);
+    fewer rows, and f32, take 1 (every SM on the weights). ``mt`` changes
+    which block computes a value, never the value. Raises ``ValueError``
+    where no tile fits."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    pad, kmax = 16 // esz, -(-wmax // 16) * 16
+    for mt in (4, 2, 1) if esz == 2 and N > 32 else (1,):
+        t16 = 16 * mt
+        red = 4 * 4 * mt * _BR * 16                # f32 quarter sums
+        down = esz * (_KS * (t16 + pad) + _BR * (_KS + pad) + _KS)
+        up = esz * (kmax * (t16 + pad) + _BR * (kmax + pad))
+        smem = red + max(down, up)
+        if smem <= _SMEM_MAX:
+            return mt, smem
+    raise ValueError(f"boundary_mixed_grouped: a bank {wmax} lanes wide "
+                     f"needs {smem} bytes of shared memory a block even at "
+                     f"one m-tile ({dtype}), over {_SMEM_MAX}")
+
+
+def tail_plan(d: int, tied: bool, rows: int):
+    """(rows_cap, shared-memory bytes a block) of the bf16 tail's logits
+    kernel for row blocks of at most ``rows`` real rows: the rows of width
+    ``d`` a block keeps beside its 5-stage ring of 64-deep head tiles. 16
+    where a block may hold more than 8 real rows and they fit; else 8, a
+    half of a row block (each half then streams the head). Never changes a
+    value. Raises ``ValueError`` where 8 rows do not fit."""
+    # a staged tile, rows padded by 16 bytes: 128 table rows x 64 deep
+    # (tied), or 64 head rows x 128 columns
+    ring = 5 * 2 * (_TAIL_SLAB * (64 + 8) if tied else 64 * (_TAIL_SLAB + 8))
+    for cap in (16, 8) if rows > 8 else (8,):
+        smem = 2 * cap * (d + 8) + ring
+        if smem <= _SMEM_MAX:
+            return cap, smem
+    raise ValueError(f"decode_tail_grouped: 8 rows of width {d} beside the "
+                     f"head's ring need {smem} bytes of shared memory, over "
+                     f"{_SMEM_MAX}")
+
+
 def boundary_mixed_grouped(x2, mode_idx, seq_len: int, bank, *,
                            dtype=torch.bfloat16):
     """Fused mixed-mode boundary on the rows in place: the port's
@@ -75,23 +119,15 @@ def boundary_mixed_grouped(x2, mode_idx, seq_len: int, bank, *,
                         f"got {x2.dtype} / {dtype}")
     bf16 = x2.dtype == torch.bfloat16
     B = mode_idx.shape[0]
-    # tile width: one 16-lane m-tile a block at a few rows (every SM on the
-    # weights), four at many (fewer blocks rebuilding each row's codes)
-    mt = 4 if bf16 and N > 32 else 1
-    esz = x2.element_size()
-    t16, kmax = 16 * mt, -(-wmax // 16) * 16
-    pad, red = 16 // esz, 4 * 4 * mt * _BR * 16     # red: quarter sums
-    smem = red + max(esz * (_KS * (t16 + pad) + _BR * (_KS + pad) + _KS),
-                     esz * (kmax * (t16 + pad) + _BR * (kmax + pad)))
     if (d2 != d or d % 8 or wmax % 8 or N == 0 or B * seq_len != N
             or mode_idx.shape != (B,) or mode_idx.dtype != torch.int32
             or up_w.shape != (M, wmax, d) or scale.shape != (M, d)
-            or smem > _SMEM_MAX
             or any(t.data_ptr() % 16 for t in (x2, down_w, up_w, scale))):
         raise ValueError(f"{what}: unsupported shapes x {tuple(x2.shape)} "
                          f"modes {tuple(mode_idx.shape)} {mode_idx.dtype} "
                          f"seq_len {seq_len} down {tuple(down_w.shape)} "
                          f"up {tuple(up_w.shape)}")
+    mt, smem = boundary_plan(N, d, wmax, x2.dtype)
     _check_cuda(what, x2, down_w, up_w, scale, dtype=x2.dtype)
     width, bits = _tables(what, M, bank["width"], bank["bits"])
     _check_cuda(what, x2, mode_idx, width, bits)
@@ -107,10 +143,12 @@ def boundary_mixed_grouped(x2, mode_idx, seq_len: int, bank, *,
               _build.stream_ptr(x2.device))
     _build.check(code, what)
     boundary_mixed_grouped.launches += 1
+    boundary_mixed_grouped.last_plan = {"rows": N, "mt": mt, "smem": smem}
     return out
 
 
 boundary_mixed_grouped.launches = 0
+boundary_mixed_grouped.last_plan = None
 
 
 def decode_tail_grouped(xp, heads, norm_scale, norm_bias=None, hid_g=None, *,
@@ -177,6 +215,10 @@ def decode_tail_grouped(xp, heads, norm_scale, norm_bias=None, hid_g=None, *,
     hid = None if hid_g is None else _tables(what, G, hid_g)[0]
     if rows_g is not None:
         (rows_g,) = _tables(what, G, rows_g)
+    rows_cap = 0
+    if bf16:
+        rows_cap = tail_plan(
+            d, tied, 16 if rows_g is not None else min(n_real, 16))[0]
     ld = -(-V // _TAIL_SLAB)
     hbuf = torch.empty((n_real, d), dtype=xp.dtype, device=xp.device)
     pbest = torch.empty((n_run * block_r, ld), dtype=torch.float32,
@@ -187,7 +229,7 @@ def decode_tail_grouped(xp, heads, norm_scale, norm_bias=None, hid_g=None, *,
     tok = (torch.empty if n_real == P else torch.zeros)(
         P, dtype=torch.int32, device=xp.device)
     fn = _fn("decode_tail_grouped_launch",
-             [_P] * 9 + [_I] * 6 + [_P, _I, _I, _P])
+             [_P] * 9 + [_I] * 6 + [_P] + [_I] * 3 + [_P])
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -196,10 +238,12 @@ def decode_tail_grouped(xp, heads, norm_scale, norm_bias=None, hid_g=None, *,
               ptr(norm_bias), ptr(hid), hbuf.data_ptr(), pbest.data_ptr(),
               pidx.data_ptr(), tok.data_ptr(), n_run, d, V,
               int(norm_kind == "layernorm"), int(tied), int(bf16),
-              ptr(rows_g), n_real, ld, _build.stream_ptr(xp.device))
+              ptr(rows_g), n_real, ld, rows_cap, _build.stream_ptr(xp.device))
     _build.check(code, what)
     decode_tail_grouped.launches += 1
+    decode_tail_grouped.last_plan = {"rows_cap": rows_cap}
     return tok
 
 
 decode_tail_grouped.launches = 0
+decode_tail_grouped.last_plan = None

@@ -55,7 +55,7 @@ def paged_attention(q, k_pages, v_pages, block_table, positions, *,
     nb = block_table.shape[1]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: takes bf16 or f32, got {q.dtype}")
-    if (hd2 != hd or hd % 32 or hd > 256 or nq % n_kv or nq // n_kv > 16
+    if (hd2 != hd or hd % 16 or hd > 256 or nq % n_kv or nq // n_kv > 16
             or v_pages.shape != k_pages.shape
             or block_table.shape[0] != B or positions.shape != (B,)):
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)} "

@@ -9,6 +9,7 @@ the orchestrator picking the transmit mode from simulated mmWave channels
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --cache-len 2048 --policy static1
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-20b
     # continuous batching: per-request channels, per-slot bottleneck modes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --engine continuous --requests 8 --prompt-len 16 --gen 16
@@ -22,7 +23,8 @@ Policies (sync engine):
   static1       always mode 1 (bottleneck z', cheapest)
 
 ``--arch`` takes the archs of the port's registry. The continuous engine
-serves qwen2.5-3b from the paged pool, and recurrentgemma-2b (RG-LRU and
+serves the dense archs (qwen2.5-3b, stablelm-3b, granite-8b,
+internlm2-20b) from the paged pool, and recurrentgemma-2b (RG-LRU and
 local-attention blocks) and xlstm-125m (mLSTM and sLSTM blocks) from the
 dense slot pool, whose rolling caches hold ``min(--cache-len,
 local_window)`` rows (the recurrent carries do not depend on it); the
@@ -34,6 +36,7 @@ raises rather than falling back to the CPU.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import json
 import os
@@ -87,22 +90,41 @@ def profile_summary(prof, seconds: float, top: int = 12) -> dict:
     kernels' durations (one stream, so they do not overlap), the idle
     share of the wall time, the kernels that took the most time, and the
     calls and device time of ``aten::_to_copy`` (dtype casts, and the few
-    host-to-device uploads of tokens and positions)."""
-    by_name = {}
-    for e in prof.events():
-        if e.device_type.name != "CUDA":
-            continue
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    host-to-device uploads of tokens and positions; its device time is
+    that of the kernels launched by a cast or by an op nested in one, as
+    ``key_averages`` counts it). Read from the profiler's raw events: the
+    ``FunctionEvent`` tree of ``prof.events()`` costs far more host time
+    than the run it describes at full width."""
+    from torch.autograd import DeviceType
+    by_name, kernels, ops, casts = {}, [], {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            us, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+            kernels.append((e.linked_correlation_id(), e.duration_ns()))
+        elif e.linked_correlation_id() == 0:     # an op called on the host
+            t, start = e.start_thread_id(), e.start_ns()
+            ops[e.correlation_id()] = (t, start)
+            if e.name() == "aten::_to_copy":
+                casts.setdefault(t, []).append((start, e.end_ns()))
+    for spans in casts.values():
+        spans.sort()
+    starts = {t: [a for a, _ in spans] for t, spans in casts.items()}
+
+    def in_cast(op) -> bool:
+        t, start = op
+        i = bisect.bisect_right(starts.get(t, ()), start) - 1
+        return i >= 0 and start <= casts[t][i][1]
+
+    cast_ns = sum(ns for corr, ns in kernels
+                  if corr in ops and in_cast(ops[corr]))
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    casts = [e for e in prof.key_averages() if e.key == "aten::_to_copy"]
     return {"wall_s": seconds, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / max(seconds, 1e-9),
             "kernel_launches": sum(n for _, n in by_name.values()),
-            "to_copy": {"calls": sum(e.count for e in casts),
-                        "device_ms": sum(e.device_time_total
-                                         for e in casts) / 1e3},
+            "to_copy": {"calls": sum(len(v) for v in casts.values()),
+                        "device_ms": cast_ns / 1e6},
             "top_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": n}
                             for k, (us, n) in rows]}
 
@@ -243,7 +265,11 @@ def run_sync(args, cfg, params):
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS,
+                    help="an arch of the port's registry: dense "
+                         "(qwen2.5-3b, stablelm-3b, granite-8b, "
+                         "internlm2-20b) or recurrent (recurrentgemma-2b, "
+                         "xlstm-125m)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--engine", default="sync",
                     choices=["sync", "continuous"],

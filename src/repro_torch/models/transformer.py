@@ -231,9 +231,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     dt = model_dtype(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=dt)}
-    blocks = [block_init(gen, cfg, cfg.block_kind(i))
-              for i in range(cfg.n_layers)]
-    params["layers"] = _stack(blocks) if cfg.homogeneous else tuple(blocks)
+    if cfg.homogeneous:
+        params["layers"] = _stacked_init(gen, cfg, cfg.block_kind(0))
+    else:
+        params["layers"] = tuple(block_init(gen, cfg, cfg.block_kind(i))
+                                 for i in range(cfg.n_layers))
     params["final_norm"] = norm_init(cfg.d_model, cfg.norm, dtype=dt,
                                      device=gen.device)
     if not cfg.tie_embeddings:
@@ -259,10 +261,25 @@ def prepare_params(params, cfg: ModelConfig) -> Dict[str, Any]:
     return {**params, "layers": layers}
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked_init(gen, cfg: ModelConfig, kind: str):
+    """``n_layers`` blocks of one kind as stacked ``[L, ...]`` leaves, drawn
+    block by block in layer order (the numbers ``torch.stack`` of the
+    per-block trees holds) and written into the stack as each is made, so
+    the peak is the stack plus one block."""
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    first = block_init(gen, cfg, kind)
+    stack = tree_map(lambda a: a.new_empty((cfg.n_layers,) + a.shape), first)
+    put(stack, first, 0)
+    del first
+    for i in range(1, cfg.n_layers):
+        put(stack, block_init(gen, cfg, kind), i)
+    return stack
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,

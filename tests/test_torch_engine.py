@@ -191,3 +191,26 @@ def test_serve_cpu_runs_reduced():
                       "--prompt-len", "5", "--gen", "4", "--n-slots", "1"])
     assert out["requests_finished"] == 3
     assert all(len(t) == 4 for t in out["tokens"].values())
+
+
+def test_profile_summary_counts_as_the_event_tree():
+    """``serve.profile_summary`` reads the profiler's raw events: on a CPU
+    trace of a reduced continuous run it counts the casts
+    (``aten::_to_copy``) that ``key_averages`` counts, and no device
+    work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import split as TSP
+    args = serve.parser().parse_args(
+        ["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu", "--engine",
+         "continuous", "--requests", "2", "--prompt-len", "5", "--gen", "3",
+         "--n-slots", "1"])
+    cfg = t_reduced("qwen2.5-3b")
+    params = TSP.init_split_params(torch.Generator().manual_seed(0), cfg)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        serve.run_continuous(args, cfg, params)
+    got = serve.profile_summary(prof, 2.0)
+    casts = [e for e in prof.key_averages() if e.key == "aten::_to_copy"]
+    assert got["to_copy"]["calls"] == sum(e.count for e in casts) > 0
+    assert got["kernel_launches"] == 0 and got["device_busy_s"] == 0.0
+    assert got["device_idle_share"] == 1.0 and got["top_kernels"] == []
