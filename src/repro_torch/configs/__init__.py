@@ -2,13 +2,17 @@
 
 Only the archs the port can run are listed; every other arch of the
 reference registry raises ``NotImplementedError`` until its slice lands.
+``lumos5g-lstm`` is the paper's own proof of concept (an ``LSTMConfig``,
+trained by ``repro_torch.examples.throughput_prediction``); like the
+reference it stays out of ``ARCH_IDS``, the archs the serving entry point
+offers.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig, SplitConfig
+from repro_torch.configs.base import LSTMConfig, ModelConfig, SplitConfig
 
 _MODULES: Dict[str, str] = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
@@ -17,15 +21,16 @@ _MODULES: Dict[str, str] = {
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "granite-8b": "repro_torch.configs.granite_8b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "lumos5g-lstm": "repro_torch.configs.lumos5g_lstm",
 }
 
 #: archs of the reference registry the port does not run yet
 _NOT_PORTED = (
     "musicgen-large", "llava-next-34b", "phi3.5-moe-42b-a6.6b",
-    "mixtral-8x7b", "lumos5g-lstm",
+    "mixtral-8x7b",
 )
 
-ARCH_IDS: List[str] = list(_MODULES)
+ARCH_IDS: List[str] = [k for k in _MODULES if k != "lumos5g-lstm"]
 
 
 def _module(arch: str):
@@ -46,5 +51,5 @@ def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "SplitConfig", "get_config",
+__all__ = ["ARCH_IDS", "LSTMConfig", "ModelConfig", "SplitConfig", "get_config",
            "get_reduced"]

@@ -11,6 +11,15 @@ ones such as recurrentgemma-2b and xlstm-125m, whose sLSTM keeps bare
 ``[H, hd, hd]`` recurrent leaves ``r_*``; the mode bank as a tuple of
 heads; float32 leaves such as the RG-LRU's ``lam`` stay float32), so
 conversion is a re-nesting plus a dtype-exact copy.
+
+The paper's LSTM (``repro_torch.models.lstm``) crosses the same way: its
+``enc`` and ``dec`` sequences are lists in the JAX tree and arrive as
+tuples (``"enc/0/wx/w"``), which the port accepts as it accepts its own
+lists. So does the AdamW state of ``repro.training.optimizer``: its moments
+``m`` and ``v`` are trees shaped like the parameters, flattened the same
+way, and ``adam_state_from_flat`` rebuilds the port's ``AdamState`` from
+them and the step. ``flat_from_params`` is the way back: a port tree as
+the flat numpy form, keyed as the JAX package keys it.
 """
 from __future__ import annotations
 
@@ -68,3 +77,35 @@ def load_npz(path: str, *, device="cuda") -> Dict[str, Any]:
         meta = json.loads(bytes(z["__meta__"]).decode())
         flat = {k: z[k] for k in z.files if k != "__meta__"}
     return params_from_flat(flat, device=device, dtypes=meta["dtypes"])
+
+
+def flat_from_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The port's tree as ``{"a/b/c": array}`` (sequence items keyed by
+    their index), each leaf copied to the host bit for bit (bf16 leaves as
+    float32, which holds them exactly). None leaves are left out."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    elif tree is None:
+        return {}
+    else:
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return {prefix: t.numpy()}
+    out: Dict[str, np.ndarray] = {}
+    for k, v in items:
+        out.update(flat_from_params(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def adam_state_from_flat(step: int, m: Mapping[str, np.ndarray],
+                         v: Mapping[str, np.ndarray], *, device="cuda"):
+    """The port's ``AdamState`` from the JAX optimizer's step and its
+    flattened moments (float32 trees shaped like the parameters)."""
+    from repro_torch.training.optimizer import AdamState
+    return AdamState(
+        step=torch.tensor(int(step), dtype=torch.int32, device=device),
+        m=params_from_flat(m, device=device),
+        v=params_from_flat(v, device=device))

@@ -42,10 +42,15 @@ def bank_init(gen, cfg: ModelConfig, *, dtype=torch.bfloat16):
                  for w, _ in mode_widths(cfg.split))
 
 
-def encode(head, x, bits: int):
+def encode(head, x, bits: int, *, train: bool = False):
     """Encoder-side transmit op (layer A + wire quantization).
-    x: [..., d_model] -> (codes, scales), the payload that crosses the link."""
+    x: [..., d_model] -> (codes, scales), the payload that crosses the link.
+    ``train=True`` returns the straight-through fake-quantized code and no
+    scales (a float payload with the same forward values), so gradients
+    reach layer A in cascade phase 2; serving keeps the int8 wire format."""
     z = dense_apply(head["down"], norm_apply(head["norm"], x, "rmsnorm"))
+    if train and bits:
+        return quant.ste_quantize(z, bits), None
     return quant.quantize(z, bits)
 
 

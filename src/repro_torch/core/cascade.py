@@ -1,0 +1,131 @@
+"""Algorithm 1 — cascaded training producing multiple complexity-relevance
+modes from ONE encoder/decoder pair (mirrors ``repro.core.cascade``).
+
+Phase 1 trains the base network (mode 0: raw boundary code z).
+Phase m+1 freezes everything trained so far, trains only bottleneck head m
+(layer A: down-proj; layer B: up-proj adapter), the paper's lines 2-6.
+The "Ensure I(Y; Dec1) <= I(Y; Dec2)" line is checked empirically after the
+last phase via validation loss ordering (``verify_mode_ordering``).
+
+The trainer needs only a loss function per mode and a phase mask, so it
+serves the paper's LSTM (``repro_torch.models.lstm``) and a split
+transformer's parameter tree alike. A step is eager: autograd through plain
+tensor ops, then the masked AdamW; metrics stay on the device and are read
+to the host only on a logged step.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.models.transformer import tree_map
+from repro_torch.training import optimizer as opt
+
+# ---------------------------------------------------------------------------
+# phase masks
+# ---------------------------------------------------------------------------
+
+
+def transformer_phase_mask(params, phase: int):
+    """phase 1: everything except the bottleneck bank; phase m >= 2: only
+    head (m-2) of the bank."""
+    mask = {}
+    for k, v in params.items():
+        if k == "bneck_modes":
+            mask[k] = tuple(tree_map(lambda _, t=(phase - 2) == i: t, head)
+                            for i, head in enumerate(v))
+        else:
+            mask[k] = tree_map(lambda _: phase == 1, v)
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# generic cascaded trainer
+# ---------------------------------------------------------------------------
+
+def value_and_grad(loss_fn: Callable, params, batch, mode: int):
+    """((loss, metrics), grads) of ``loss_fn(params, batch, mode)``, as
+    ``jax.value_and_grad(..., has_aux=True)`` gives them: a gradient for
+    every leaf, frozen or not (the global norm takes them all). A leaf
+    outside the loss's graph gets None, which the optimizer counts as
+    zeros."""
+    ps = opt.leaves(params)
+    with torch.enable_grad():
+        req = [p.detach().requires_grad_(True) for p in ps]
+        loss, metrics = loss_fn(opt.unflatten(params, req), batch, mode)
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), opt.unflatten(params, list(grads))
+
+
+def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
+    """loss_fn(params, batch, mode) -> (loss, metrics). The step returns
+    (params, opt_state, metrics), its metrics 0-d device tensors."""
+    def step(params, opt_state, batch, mask, *, mode: int):
+        (loss, metrics), grads = value_and_grad(loss_fn, params, batch, mode)
+        params, opt_state, info = opt.apply_updates(
+            params, grads, opt_state, tcfg, mask)
+        metrics = dict(metrics, loss=loss, **info)
+        return params, opt_state, metrics
+    return step
+
+
+def train_cascade(params,
+                  loss_fn: Callable,
+                  data_iter: Callable[[int], Any],
+                  tcfg: TrainConfig,
+                  *,
+                  n_modes: int,
+                  steps_per_phase: int,
+                  phase_mask_fn: Callable = transformer_phase_mask,
+                  eval_fn: Optional[Callable] = None,
+                  log_every: int = 50,
+                  verbose: bool = True) -> Tuple[Any, Dict]:
+    """Run Algorithm 1 over ``n_modes`` modes (phases 1..n_modes).
+
+    ``data_iter(step)`` yields a batch; ``loss_fn(params, batch, mode)``.
+    ``eval_fn(params, mode)`` -> dict with 'loss'/'acc' for the Ensure check.
+    Returns (params, history).
+    """
+    step_fn = make_train_step(loss_fn, tcfg)
+    opt_state = opt.init(params)
+    history: Dict[str, Any] = {"phases": []}
+    global_step = 0
+    for phase in range(1, n_modes + 1):
+        mode = phase - 1
+        mask = phase_mask_fn(params, phase)
+        phase_log: List[Dict] = []
+        for s in range(steps_per_phase):
+            batch = data_iter(global_step)
+            params, opt_state, m = step_fn(params, opt_state, batch, mask,
+                                           mode=mode)
+            global_step += 1
+            if s % log_every == 0 or s == steps_per_phase - 1:
+                rec = {k: float(v) for k, v in m.items()}
+                rec["step"] = s
+                phase_log.append(rec)
+                if verbose:
+                    print(f"[cascade] phase {phase} step {s:4d} "
+                          f"loss {rec['loss']:.4f} acc {rec.get('acc', 0):.3f}")
+        entry = {"phase": phase, "mode": mode, "log": phase_log}
+        if eval_fn is not None:
+            entry["eval"] = {k: float(v)
+                             for k, v in eval_fn(params, mode).items()}
+        history["phases"].append(entry)
+    if eval_fn is not None:
+        history["ensure"] = verify_mode_ordering(params, eval_fn, n_modes)
+    return params, history
+
+
+def verify_mode_ordering(params, eval_fn: Callable, n_modes: int) -> Dict:
+    """The paper's Ensure line: each extra bottleneck mode must perform at
+    most as well as the previous (relevance ordering by DPI)."""
+    evals = [eval_fn(params, m) for m in range(n_modes)]
+    losses = [float(e["loss"]) for e in evals]
+    ordered = all(losses[i] <= losses[i + 1] + 1e-3
+                  for i in range(len(losses) - 1))
+    return {"losses": losses,
+            "accs": [float(e.get("acc", 0.0)) for e in evals],
+            "ordered": ordered}

@@ -39,6 +39,28 @@ def dequantize(q, scale, bits: int = 8):
     return q.float() * scale
 
 
+class _STEQuantize(torch.autograd.Function):
+    """Forward: the int-roundtripped values in ``x``'s dtype; backward: the
+    gradient passed through unchanged (the straight-through estimator)."""
+
+    @staticmethod
+    def forward(ctx, x, bits: int):
+        q, s = quantize(x, bits)
+        return dequantize(q, s, bits).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ste_quantize(x, bits: int):
+    """Fake-quantize with a straight-through estimator: the forward sees
+    ``dequantize(quantize(x, bits))``, the backward passes gradients
+    through unchanged, so a bottleneck trained before the wire quantizer
+    still receives gradients."""
+    return _STEQuantize.apply(x, bits)
+
+
 def payload_bytes(shape, bits: int, dtype_bytes: int = 2) -> int:
     """Wire bytes for a latent of ``shape`` ([..., d]): packed codes +
     one fp16 scale per row (bits==0 -> raw bf16 payload). Codes pack per
@@ -49,3 +71,9 @@ def payload_bytes(shape, bits: int, dtype_bytes: int = 2) -> int:
     eff_bits = max(bits, 2)
     rows = n // shape[-1]
     return rows * math.ceil(shape[-1] * eff_bits / 8) + rows * 2
+
+
+def quant_error(x, bits: int = 8) -> torch.Tensor:
+    """Mean |x - dequant(quant(x))| (a 0-d float32 tensor)."""
+    q, s = quantize(x, bits)
+    return torch.mean(torch.abs(x.float() - dequantize(q, s, bits)))

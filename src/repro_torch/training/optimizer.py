@@ -1,0 +1,136 @@
+"""AdamW with freeze-mask support (mirrors ``repro.training.optimizer``: the
+reference's own update math, not ``torch.optim``).
+
+The freeze mask is how Algorithm 1's "Freeze(Encoder1, Decoder1)" is
+implemented: masked leaves keep their value and their optimizer state is
+never touched, so cascade phases share one optimizer and one step counter.
+
+Parameter, gradient, moment and mask trees are nested dicts, lists and
+tuples; their leaves are visited in the JAX package's order (dict keys
+sorted), so the global norm sums the leaves in the reference's order. A
+gradient leaf may be None (a leaf outside the loss's graph, as the phase-2
+bottleneck is in mode 0): it counts as zeros. The schedule, the bias
+corrections and the update are float32 tensor arithmetic on the
+parameters' device, and nothing is read to the host.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Iterator, List, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor          # 0-d int32, shared by every phase
+    m: Any
+    v: Any
+
+
+def leaves(tree) -> List[Any]:
+    """The leaves of a nested dict / list / tuple in ``jax.tree.leaves``
+    order (dict keys sorted); None and Python bools are leaves."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def unflatten(like, new: List[Any]):
+    """``new`` (in ``leaves(like)`` order) nested as ``like`` is."""
+    it = iter(new)
+    out = _rebuild(like, it)
+    if next(it, it) is not it:
+        raise ValueError("unflatten: more leaves than the tree holds")
+    return out
+
+
+def _rebuild(like, it: Iterator):
+    if isinstance(like, dict):
+        built = {k: _rebuild(like[k], it) for k in sorted(like)}
+        return {k: built[k] for k in like}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(v, it) for v in like)
+    return next(it)
+
+
+def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d float32 tensor on ``like``'s device (a division by it is a
+    true division on every device, where CUDA turns a division by a Python
+    scalar into a multiply by its reciprocal)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def init(params) -> AdamState:
+    ps = leaves(params)
+    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in ps]
+    return AdamState(
+        step=torch.zeros((), dtype=torch.int32, device=ps[0].device),
+        m=unflatten(params, zeros),
+        v=unflatten(params, [torch.zeros_like(z) for z in zeros]))
+
+
+def lr_schedule(cfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up then cosine decay to 10% of the peak, at ``step`` (a
+    0-d integer tensor); a 0-d float32 tensor."""
+    s = step.to(torch.float32)
+    warm = torch.clamp(s / _f32(max(cfg.warmup_steps, 1), s), max=1.0)
+    prog = torch.clamp(
+        (s - _f32(cfg.warmup_steps, s))
+        / _f32(max(cfg.total_steps - cfg.warmup_steps, 1), s), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm
+    before). None leaves stay None and add nothing to the norm."""
+    gs = leaves(grads)
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in gs if g is not None]
+    gn = torch.sqrt(sum(sq[1:], sq[0]))
+    scale = torch.clamp(_f32(max_norm, gn) / torch.clamp(gn, min=1e-9),
+                        max=1.0)
+    return unflatten(grads, [None if g is None else g * scale.to(g.dtype)
+                             for g in gs]), gn
+
+
+def apply_updates(params, grads, state: AdamState, cfg: TrainConfig,
+                  mask=None):
+    """One AdamW step. ``mask``: the parameter tree with a bool at each
+    leaf, True = trainable (None: all). The global norm takes every
+    gradient, frozen leaves' too; a frozen leaf, its m and its v are
+    returned as they were (the same tensors)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step = state.step + 1
+    lr = lr_schedule(cfg, step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    stepf = step.to(torch.float32)
+    bc1 = 1 - b1 ** stepf
+    bc2 = 1 - b2 ** stepf
+
+    def upd(p, g, m, v, trainable):
+        if not trainable:
+            return p, m, v
+        gf = torch.zeros_like(m) if g is None else g.to(torch.float32)
+        m_new = b1 * m + (1 - b1) * gf
+        v_new = b2 * v + (1 - b2) * gf * gf
+        delta = lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+        pf = p.to(torch.float32)
+        delta = delta + lr * cfg.weight_decay * pf
+        return (pf - delta).to(p.dtype), m_new, v_new
+
+    ps = leaves(params)
+    ts = leaves(mask) if mask is not None else [True] * len(ps)
+    triples = [upd(*a) for a in zip(ps, leaves(grads), leaves(state.m),
+                                     leaves(state.v), ts)]
+    p_new = unflatten(params, [t[0] for t in triples])
+    m_new = unflatten(state.m, [t[1] for t in triples])
+    v_new = unflatten(state.v, [t[2] for t in triples])
+    return p_new, AdamState(step, m_new, v_new), {"lr": lr,
+                                                  "grad_norm": gnorm}
+
