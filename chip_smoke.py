@@ -75,7 +75,21 @@ Phases, each printing one JSON line; any failure exits nonzero:
     phase with the launch counters at 0 just before and read just after
     (mode 0 must learn below chance; every logged loss, information-plane
     point and ladder value finite; ms a step printed), then a profile of
-    10 steps of each phase (device kernels, busy ms, idle share).
+    10 steps of each phase (device kernels, busy ms, idle share);
+12. train: the transformer's training path and full-sequence forward. The
+    first step of ``training.loop.make_train_step`` on the card against
+    the CPU (reduced f32: qwen2.5-3b in modes None, 0 and 1,
+    recurrentgemma-2b and xlstm-125m in mode None; loss, every gradient,
+    every updated leaf); ``repro_torch.launch.train.main`` with
+    ``--cascade`` at full width on qwen2.5-3b (36 layers, nothing cut),
+    counters at 0 (no kernel of the six on the path), finite losses, phase
+    1 learning, its checkpoint restored bit for bit and served through
+    ``launch.serve --ckpt`` (the tokens of the weights in memory), ms a
+    step, peak memory, a profile of each phase; the full-width eval
+    forwards of recurrentgemma-2b ([1, 2048]: 18 scan launches, the train
+    forward's logits bit for bit) and xlstm-125m ([4, 256]: 6 launches,
+    within ``TOL["xlstm_forward"]``); ``repro_torch.examples.train_100m``
+    at 5 steps of [2, 128].
 
 Kernel times come from ``torch.profiler`` traces; a trace with no device
 work in it is taken again, and if CUPTI still delivers nothing the time
@@ -158,8 +172,27 @@ TOL = {
     # lr * sign(g), and a rounding-level difference in g may flip that
     # sign there, moving the element by up to 2 lr. Frozen leaves, their m
     # and v: bit for bit
+    # The transformer's first train step (phase 12) adds three rules: the
+    # loss also within 1e-6 of its value (recurrentgemma-2b's random tied
+    # head gives losses near 127, where 1e-5 is two f32 ulp), and each
+    # leaf's gradient scale at least 1e-3 of the largest |g| of any leaf
+    # (a leaf whose gradient cancels to rounding level, as the mLSTM's
+    # input gate at the first step, where the stabiliser makes i_g = 1
+    # whatever i_pre, is held to the rounding of the terms that cancel);
+    # and each updated element's limit also takes the gradient's own
+    # tolerance carried through Adam's first update lr g / (|g| + eps):
+    # lr eps grad_limit / (|g| + eps)^2, which matters where |g| is a few
+    # tens of eps (a zero-initialised bias's gradient at 5e-7 moves its
+    # update by 2% of the gradient's relative error)
     "cascade": {"loss_abs": 1e-5, "grad_rel": 1e-4, "step_rel": 1e-5,
-                "small_g": 1e-3},
+                "small_g": 1e-3, "loss_rel": 1e-6, "grad_floor": 1e-3},
+    # xlstm-125m's eval forward (the decomposed mLSTM: normalizer on the
+    # scan, C in the time loop) against its train forward (the fused
+    # cell), bf16 at full width: the logits within 2^-7 of the largest
+    # |logit|, a bf16 rounding of a block output that lands on the other
+    # side of an edge carried through the later blocks (the two are bit
+    # for bit on the CPU)
+    "xlstm_forward": 2.0 ** -7,
 }
 # device kernels a decode step of one RG-LRU layer issues fewer with its
 # float32 forms made once: the casts of w_a's and w_x's weights and biases
@@ -2309,6 +2342,65 @@ def _on(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
 
 
+def hold_step(label: str, p0, g_cpu, g_dev, p_cpu, p_dev, lr: float,
+              floor: float = 0.0, adam_eps: float = 0.0) -> list:
+    """One composed train step (the gradients and the AdamW update), card
+    against CPU from the same parameters ``p0``, by ``TOL["cascade"]``'s
+    rules: each leaf's gradient within ``grad_rel`` of its scale, each
+    updated element within ``step_rel`` of |p| + |delta| except where |g|
+    is below ``small_g`` of the scale (there 2 lr). The scale is the
+    leaf's largest |g|, but at least ``floor`` times the largest |g| of
+    any leaf. ``adam_eps``: the update's limit also takes the gradient's
+    own tolerance carried through Adam's first update, lr g / (|g| + eps),
+    whose slope in g is lr eps / (|g| + eps)^2. A leaf without a gradient
+    (None on both sides: outside the loss's graph) is held as one of
+    zeros. Returns one row a leaf, with its worst error and limit."""
+    import numpy as np
+
+    from repro_torch.convert import flat_from_params
+    tol = TOL["cascade"]
+    fc, fg = flat_from_params(g_cpu), flat_from_params(g_dev)
+    check(sorted(fc) == sorted(fg),
+          f"{label}: gradient leaves {sorted(fg)} on the card, "
+          f"{sorted(fc)} on the CPU")
+    p0 = flat_from_params(p0)
+    pc, pg = flat_from_params(p_cpu), flat_from_params(p_dev)
+    top = max([float(np.abs(g).max()) for g in fc.values()] + [0.0])
+    leaves = []
+    for k in sorted(pc):
+        rec = {"leaf": k}
+        g = fc.get(k)
+        if g is not None:
+            big = max(float(np.abs(g).max()), floor * top)
+            rec["grad_err"] = float(np.abs(fg[k] - g).max())
+            rec["grad_limit"] = tol["grad_rel"] * big
+            check(rec["grad_err"] <= rec["grad_limit"],
+                  f"{label} {k}: gradient off by {rec['grad_err']}, limit "
+                  f"{rec['grad_limit']}")
+            small = np.abs(g) < tol["small_g"] * big
+            carried = lr * adam_eps * rec["grad_limit"] / (
+                np.abs(g) + adam_eps) ** 2 if adam_eps else 0.0
+        else:
+            small = np.zeros(pc[k].shape, bool)
+            carried = 0.0
+        # relative to the operands of p - delta: an element that
+        # nearly cancels keeps the error of delta, not of its value
+        scale = np.abs(p0[k]) + np.abs(p0[k] - pc[k])
+        limit = np.where(small, 2 * lr, tol["step_rel"] * scale + carried)
+        err = np.abs(pg[k] - pc[k])
+        ratio = err / np.maximum(limit, 1e-45)
+        i = np.unravel_index(np.argmax(ratio), ratio.shape)
+        rec["param_err"] = float(err.max())
+        rec["param_err_over_limit"] = float(ratio[i])
+        check(np.all(err <= limit),
+              f"{label} {k}: updated leaf off by up to {rec['param_err']}; "
+              f"worst against its limit at {i}: {float(ratio[i])} of it (p "
+              f"{p0[k][i]}, CPU {pc[k][i]}, card {pg[k][i]}, g "
+              f"{None if g is None else g[i]})")
+        leaves.append(rec)
+    return leaves
+
+
 def cascade_first_steps(seed: int, dev) -> list:
     """The first step of phase 1 (mode 0), then of phase 2 (mode 1) from
     the CPU's phase-1 parameters and state, on the CPU and on the card from
@@ -2317,10 +2409,8 @@ def cascade_first_steps(seed: int, dev) -> list:
     every leaf phase 2 freezes, its m and its v bit-identical before and
     after the step, and every ``bneck`` leaf moved. Returns one row per
     phase with each leaf's worst error and its limit."""
-    import numpy as np
     import torch
 
-    from repro_torch.convert import flat_from_params
     from repro_torch.core import cascade as C
     from repro_torch.models import lstm as LSTM
     from repro_torch.training import optimizer as opt
@@ -2350,42 +2440,8 @@ def cascade_first_steps(seed: int, dev) -> list:
               f"{float(lc)} on the CPU")
         check(int(gstate2.step) == int(state2.step) == phase,
               f"cascade phase {phase}: step {int(gstate2.step)}")
-        fc, fg = flat_from_params(g_cpu), flat_from_params(g_dev)
-        check(sorted(fc) == sorted(fg),
-              f"cascade phase {phase}: gradient leaves {sorted(fg)} on the "
-              f"card, {sorted(fc)} on the CPU")
-        p0 = flat_from_params(cpu)
-        pc, pg = flat_from_params(cpu2), flat_from_params(gpu2)
-        leaves = []
-        for k in sorted(pc):
-            rec = {"leaf": k}
-            g = fc.get(k)
-            if g is not None:
-                big = float(np.abs(g).max())
-                rec["grad_err"] = float(np.abs(fg[k] - g).max())
-                rec["grad_limit"] = tol["grad_rel"] * big
-                check(rec["grad_err"] <= rec["grad_limit"],
-                      f"cascade phase {phase} {k}: gradient off by "
-                      f"{rec['grad_err']}, limit {rec['grad_limit']}")
-                small = np.abs(g) < tol["small_g"] * big
-            else:
-                small = np.zeros(pc[k].shape, bool)
-            # relative to the operands of p - delta: an element that
-            # nearly cancels keeps the error of delta, not of its value
-            scale = np.abs(p0[k]) + np.abs(p0[k] - pc[k])
-            limit = np.where(small, 2 * lr, tol["step_rel"] * scale)
-            err = np.abs(pg[k] - pc[k])
-            ratio = err / np.maximum(limit, 1e-45)
-            i = np.unravel_index(np.argmax(ratio), ratio.shape)
-            rec["param_err"] = float(err.max())
-            rec["param_err_over_limit"] = float(ratio[i])
-            check(np.all(err <= limit),
-                  f"cascade phase {phase} {k}: updated leaf off by up to "
-                  f"{rec['param_err']}; worst against its limit at {i}: "
-                  f"{float(ratio[i])} of it (p {p0[k][i]}, CPU "
-                  f"{pc[k][i]}, card {pg[k][i]}, g "
-                  f"{None if g is None else g[i]})")
-            leaves.append(rec)
+        leaves = hold_step(f"cascade phase {phase}", cpu, g_cpu, g_dev,
+                           cpu2, gpu2, lr)
         if phase == 2:
             trip = zip(opt.leaves(gmask), opt.leaves(gpu), opt.leaves(gpu2),
                        opt.leaves(gstate.m), opt.leaves(gstate2.m),
@@ -2422,8 +2478,8 @@ def timed_steps(times: dict):
     from repro_torch.core import cascade as C
     orig = C.make_train_step
 
-    def make(loss_fn, tcfg):
-        step = orig(loss_fn, tcfg)
+    def make(loss_fn, tcfg, **kw):
+        step = orig(loss_fn, tcfg, **kw)
 
         def timed(*args, mode: int, **kw):
             torch.cuda.synchronize()
@@ -2549,6 +2605,367 @@ def phase_cascade(seed: int, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# transformer training and the full-sequence forward
+# ---------------------------------------------------------------------------
+
+# the launcher's own path at full width: Algorithm 1 on qwen2.5-3b (36
+# layers, d_model 2048, vocab 151936, nothing cut), 10 steps a phase
+TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--cascade", "--steps", "10",
+              "--batch", "4", "--seq", "128"]
+# the first step of loop.make_train_step, card against CPU, reduced f32
+TRAIN_REF_CASES = (("qwen2.5-3b", None), ("qwen2.5-3b", 0),
+                   ("qwen2.5-3b", 1), ("recurrentgemma-2b", None),
+                   ("xlstm-125m", None))
+TRAIN_PROFILE_STEPS = 2
+# the serving run that must decode the same tokens from the checkpoint as
+# from the launcher's weights in memory
+CKPT_SERVE = ["--arch", "qwen2.5-3b", "--engine", "sync", "--policy",
+              "orchestrator", "--requests", "8", "--prompt-len", "16",
+              "--gen", "16"]
+
+
+def train_first_steps(dev) -> list:
+    """The first step of ``loop.make_train_step`` for each of
+    ``TRAIN_REF_CASES`` (reduced configs in f32, a [2, 32] Markov batch),
+    on the CPU and on the card from the same weights (drawn on the CPU):
+    the loss, every leaf's gradient and every updated leaf by
+    ``TOL["cascade"]``'s rules, the gradient scale floored at
+    ``grad_floor`` of the largest and the gradient's tolerance carried
+    through Adam's first update (``hold_step``); none of the six kernels
+    launched on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import cascade as C
+    from repro_torch.core import split as SP
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.training import loop as L
+    from repro_torch.training import optimizer as opt
+    tol = TOL["cascade"]
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=100)
+    rows = []
+    for arch, mode in TRAIN_REF_CASES:
+        label = f"train first step {arch} mode {mode}"
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        cpu = SP.init_split_params(torch.Generator().manual_seed(0), cfg)
+        batch = {k: torch.from_numpy(v) for k, v in MarkovTokenSource(
+            cfg, seed=0).batch(2, 32, 0).items()}
+        gpu, gbatch = _on(cpu, dev), _on(batch, dev)
+        loss = L.make_loss_fn(cfg, mode=mode)
+
+        def vg(p, b):
+            return C.value_and_grad(lambda q, bb, _: loss(q, bb), p, b, mode)
+
+        fns = zero_counts()
+        (lg, _), g_dev = vg(gpu, gbatch)
+        step = L.make_train_step(cfg, tcfg, mode=mode, donate=False)
+        gpu2, _, _ = step(gpu, opt.init(gpu), gbatch)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in fns.items()}
+        check(not any(launches.values()),
+              f"{label}: the training path launched {launches}")
+        (lc, _), g_cpu = vg(cpu, batch)
+        cpu2, _, mc = step(cpu, opt.init(cpu), batch)
+        loss_err = abs(float(lg) - float(lc))
+        check(loss_err <= tol["loss_abs"] + tol["loss_rel"] * abs(float(lc)),
+              f"{label}: loss {float(lg)} on the card, {float(lc)} on the "
+              f"CPU")
+        leaves = hold_step(label, cpu, g_cpu, g_dev, cpu2, gpu2,
+                           float(mc["lr"]), floor=tol["grad_floor"],
+                           adam_eps=tcfg.eps)
+        worst = max(leaves, key=lambda r: r["param_err_over_limit"])
+        rows.append({"arch": arch, "mode": mode, "loss_cpu": float(lc),
+                     "loss_err": loss_err, "leaves": len(leaves),
+                     "worst_grad_err_over_limit": max(
+                         r.get("grad_err", 0) / max(r.get("grad_limit", 1),
+                                                    1e-45) for r in leaves),
+                     "worst_update": worst})
+    return rows
+
+
+@contextlib.contextmanager
+def capturing_saves(saved: dict):
+    """Keep the tree and the seconds of each ``checkpoint.save`` call."""
+    from repro_torch.training import checkpoint
+    orig = checkpoint.save
+
+    def save(path, tree, metadata=None):
+        t0 = time.perf_counter()
+        orig(path, tree, metadata)
+        saved.update(path=path, tree=tree, seconds=time.perf_counter() - t0)
+
+    checkpoint.save = save
+    try:
+        yield saved
+    finally:
+        checkpoint.save = orig
+
+
+def train_profile(params, cfg, dev) -> dict:
+    """``TRAIN_PROFILE_STEPS`` donated cascade steps of each phase on the
+    full-width ``params`` (updated in place), after one untraced step:
+    device kernels a step, busy ms a step and the idle share, as
+    ``serve.profile_summary`` reads them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import cascade as C
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.launch import serve
+    from repro_torch.training import loop as L
+    from repro_torch.training import optimizer as opt
+    n = TRAIN_PROFILE_STEPS
+    src = MarkovTokenSource(cfg, seed=0)
+    batches = [L.device_batch(src.batch(4, 128, s), dev)
+               for s in range(n + 1)]
+    state = opt.init(params)
+    out = {}
+    for phase in (1, 2):
+        loss = L.make_loss_fn(cfg, mode=phase - 1)
+        step = C.make_train_step(lambda p, b, _: loss(p, b), TrainConfig(),
+                                 donate=True)
+        mask = C.transformer_phase_mask(params, phase)
+
+        def steps(bs):
+            nonlocal params, state
+            for b in bs:
+                params, state, _ = step(params, state, b, mask,
+                                        mode=phase - 1)
+            torch.cuda.synchronize()
+
+        steps(batches[:1])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps(batches[1:])
+            secs = time.perf_counter() - t0
+        summ = serve.profile_summary(prof, secs)
+        out[f"phase{phase}"] = {
+            "steps": n, "device_traced": summ["kernel_launches"] > 0,
+            "device_kernels_per_step": summ["kernel_launches"] / n,
+            "device_busy_ms_per_step": summ["device_busy_s"] * 1e3 / n,
+            "device_idle_share": summ["device_idle_share"],
+            "profiled_wall_ms_per_step": secs * 1e3 / n,
+            "top_kernels": summ["top_kernels"][:8]}
+    return out
+
+
+def phase_train_launcher(dev, smi: str):
+    """``repro_torch.launch.train.main(TRAIN_ARGV)`` at full width with
+    every kernel counter at 0 just before and read just after (none of
+    the six kernels is on the training path, as in the reference). Gates:
+    every logged loss finite, phase 1's last below its first (the Markov
+    stream is learnable), 0 launches; then ``checkpoint.restore`` of the
+    launcher's file must give its final parameters bit for bit, and
+    ``serve.main(... --ckpt)`` must decode the tokens those weights give
+    in memory. Ensure is reported, never held (the reference fails it
+    too). Prints ms a step of each phase, peak device memory, the
+    checkpoint's bytes and its save and restore seconds, and a profile of
+    each phase. The checkpoint's directory is deleted at the end. Returns
+    the launches of the training path and of the ``--ckpt`` serving
+    run."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_launch
+    from repro_torch.training import checkpoint
+    cfg = get_config("qwen2.5-3b")
+    serve_argv = CKPT_SERVE + ["--device", dev.type]
+    ckpt_dir = ROOT / "build" / "train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        saved: dict = {}
+        fns = zero_counts()
+        t0 = time.perf_counter()
+        with capturing_saves(saved):
+            hist = train_launch.main(TRAIN_ARGV + [
+                "--ckpt-dir", str(ckpt_dir), "--device", dev.type])
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in fns.items()}
+        check(not any(launches.values()),
+              f"train launcher: the training path launched {launches}")
+        logs = [[r["loss"] for r in p["log"]] for p in hist["phases"]]
+        check(all(math.isfinite(v) for log in logs for v in log),
+              f"train launcher: a logged loss is not finite: {logs}")
+        check(logs[0][-1] < logs[0][0],
+              f"train launcher: phase 1 did not learn: {logs[0]}")
+        path = saved["path"]
+        nbytes = Path(path).stat().st_size
+        final = saved.pop("tree")
+        t1 = time.perf_counter()
+        restored = checkpoint.restore(path, final)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        from repro_torch.convert import flat_tensors
+        fa, fb = flat_tensors(final), flat_tensors(restored)
+        check(sorted(fa) == sorted(fb) and all(
+            fa[k].dtype == fb[k].dtype and same_bits(fa[k], fb[k])
+            for k in fa), "train launcher: the restored checkpoint is not "
+                          "the launcher's final parameters bit for bit")
+        del final, fa, fb
+        free_cuda()
+        fns = zero_counts()
+        from_ckpt = serve.main(serve_argv + ["--ckpt", path])
+        serve_launches = {k: f.launches for k, f in fns.items()}
+        free_cuda()
+        in_memory = serve.run_sync(serve.parser().parse_args(serve_argv),
+                                   cfg, restored)
+        check(from_ckpt["generated"] == in_memory["generated"],
+              "serve --ckpt: other tokens than the launcher's weights in "
+              "memory give")
+        check(serve_launches["decode_tail_grouped"] == 16,
+              f"serve --ckpt: launches {serve_launches}")
+        free_cuda()
+        prof = train_profile(restored, cfg, dev)
+        del restored
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        free_cuda()
+    emit({"phase": "train", "path": "launch.train", "argv": TRAIN_ARGV,
+          "params": cfg.param_count(), "wall_s": wall,
+          "ms_per_step": hist["ms_per_step"],
+          "peak_memory_bytes": hist.get("peak_memory_bytes"),
+          "logged_losses": logs, "ensure": hist["cascade"],
+          "evals": [p.get("eval") for p in hist["phases"]],
+          "checkpoint_bytes": nbytes, "save_s": saved["seconds"],
+          "restore_s": restore_s, "launches": launches,
+          "serve_ckpt": {"tokens": from_ckpt["tokens"],
+                         "decode_tok_per_s": from_ckpt["decode_tok_per_s"],
+                         "launches": serve_launches},
+          "profile": prof, "card": smi})
+    return launches, serve_launches
+
+
+def eval_forward(cfg, tokens, seed: int, dev) -> dict:
+    """``T.forward`` of ``cfg`` at full width on ``tokens`` in eval (the
+    scan op: the CUDA scan) and in train (the cell scans) form, without
+    autograd, on the same random bf16 weights: the logits of each, the
+    kernel launches of each and its seconds."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    params = T.init_params(torch.Generator(device=dev).manual_seed(seed),
+                           cfg)
+    tok = torch.from_numpy(tokens).to(dev)
+    out = {}
+    with torch.no_grad():
+        for train in (False, True):
+            fns = zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = T.forward(params, tok, cfg, train=train)
+            torch.cuda.synchronize()
+            out[train] = (logits, {k: f.launches for k, f in fns.items()},
+                          time.perf_counter() - t0)
+    return out
+
+
+def phase_eval_forwards(seed: int, dev, smi: str) -> dict:
+    """The full-width eval forwards on the CUDA scan: recurrentgemma-2b at
+    [1, 2048] (its 8 local-attention layers on the blocked route) must
+    launch ``rglru_scan`` once a RG-LRU layer (18) and give the logits of
+    the train forward (the cell scan, no launch) bit for bit: both round
+    a * h and the sum separately, in the same order. xlstm-125m at
+    [4, 256] once an mLSTM layer (6), its logits within
+    ``TOL["xlstm_forward"]`` of the train forward's (the fused cell);
+    nothing else of the six launched."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import MarkovTokenSource
+    res, by_path = {}, {}
+    for arch, (B, S) in (("recurrentgemma-2b", (1, 2048)),
+                         ("xlstm-125m", (4, 256))):
+        cfg = get_config(arch)
+        tok = MarkovTokenSource(cfg, seed=seed).batch(B, S, 0)["tokens"]
+        out = eval_forward(cfg, tok, seed, dev)
+        (ev, le, se), (tr, lt, st) = out[False], out[True]
+        layers = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+        want = {k: 0 for k in le}
+        want["rglru_scan"] = scan_layers(layers)
+        check(le == want, f"{arch} eval forward: launches {le}, expected "
+                          f"{want}")
+        check(not any(lt.values()), f"{arch} train forward: launches {lt}")
+        check(bool(torch.isfinite(ev).all()) and ev.shape
+              == (B, S, cfg.vocab_size), f"{arch} eval forward: logits")
+        err = float((ev - tr).abs().max())
+        big = float(tr.abs().max())
+        bits = same_bits(ev, tr)
+        if arch == "recurrentgemma-2b":
+            check(bits, f"{arch}: eval and train forward differ by {err}")
+        else:
+            check(err <= TOL["xlstm_forward"] * big,
+                  f"{arch}: eval and train forward differ by {err} (max "
+                  f"|logit| {big})")
+        res[arch] = {"shape": [B, S], "launches_eval": le,
+                     "bit_identical": bits, "max_abs_err": err,
+                     "max_abs_logit": big, "eval_s": se, "train_s": st}
+        by_path[f"{arch} forward"] = le
+        del out, ev, tr
+        free_cuda()
+    emit({"phase": "train", "path": "eval_forward", "tolerance":
+          TOL["xlstm_forward"], **res, "card": smi})
+    return by_path
+
+
+# train_100m's batch: the example's, at half its default sequence (its
+# eager time loops with both recomputes take ~25 s a step at 256 on the
+# card, the one part of the script that grows with the sequence)
+TRAIN_100M_ARGV = ["--steps", "5", "--batch", "2", "--seq", "128"]
+
+
+def phase_train_100m(dev, smi: str) -> dict:
+    """``repro_torch.examples.train_100m.main(TRAIN_100M_ARGV)`` at full
+    width (xlstm-125m), counters at 0 just before and read just after:
+    finite losses, no kernel of the six launched, ms a step printed."""
+    import shutil
+
+    from repro_torch.examples import train_100m
+    out_dir = ROOT / "build" / "train_100m"
+    fns = zero_counts()
+    try:
+        res = train_100m.main(TRAIN_100M_ARGV + [
+            "--device", dev.type, "--save", str(out_dir / "xlstm125m.npz")])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launches = {k: f.launches for k, f in fns.items()}
+    losses = [r["loss"] for r in res["history"]]
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"train_100m: losses {losses}")
+    check(not any(launches.values()), f"train_100m: launches {launches}")
+    emit({"phase": "train", "path": "train_100m", "argv": TRAIN_100M_ARGV,
+          "losses": losses, "ms_per_step": res["ms_per_step"],
+          "wall_s": res["wall_s"], "launches": launches, "card": smi})
+    free_cuda()
+    return launches
+
+
+def phase_train(seed: int, dev, smi: str) -> dict:
+    """Phase 12: the first train steps against the CPU, the launcher at
+    full width, the eval forwards on the CUDA scan, the xlstm-125m
+    example. Returns the kernel launches of each path."""
+    t0 = time.perf_counter()
+    first = train_first_steps(dev)
+    emit({"phase": "train", "path": "first_steps", "cases": first,
+          "tolerance": TOL["cascade"], "seconds": time.perf_counter() - t0,
+          "card": smi})
+    free_cuda()
+    train_l, serve_l = phase_train_launcher(dev, smi)
+    by_path = {"qwen2.5-3b train": train_l,
+               "qwen2.5-3b serve --ckpt": serve_l}
+    by_path.update(phase_eval_forwards(seed, dev, smi))
+    by_path["xlstm-125m train_100m"] = phase_train_100m(dev, smi)
+    return by_path
+
+
 SOURCES = {
     "boundary_mixed_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
     "decode_tail_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
@@ -2655,6 +3072,8 @@ def main(argv=None) -> int:
         free_cuda()
     by_path["bench"] = phase_bench()
     by_path["lumos5g-lstm cascade"] = phase_cascade(args.seed, smi)
+    free_cuda()
+    by_path.update(phase_train(args.seed, dev, smi))
 
     emit({"phase": "untraced", "measurements": UNTRACED})
     print(smi, flush=True)

@@ -30,10 +30,11 @@ import numpy as np
 import torch
 
 
-def _tensor(arr: np.ndarray, bf16: bool, device) -> torch.Tensor:
+def leaf_tensor(arr: np.ndarray, bf16: bool, device) -> torch.Tensor:
     """One leaf, bit-exact. ``bf16``: the array holds bfloat16 values, as
-    ``ml_dtypes`` bfloat16 or as their uint16 view."""
-    arr = np.ascontiguousarray(arr)
+    ``ml_dtypes`` bfloat16 or as their uint16 view. A 0-d array stays
+    0-d."""
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if bf16 or arr.dtype.name == "bfloat16":
         bits = torch.from_numpy(arr.view(np.int16).copy())
         return bits.view(torch.bfloat16).to(device)
@@ -66,8 +67,8 @@ def params_from_flat(flat: Mapping[str, np.ndarray], *, device="cuda",
         node = root
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = _tensor(np.asarray(arr),
-                                  dtypes.get(key) == "bfloat16", device)
+        node[parts[-1]] = leaf_tensor(np.asarray(arr),
+                                      dtypes.get(key) == "bfloat16", device)
     return _tuples(root)
 
 
@@ -79,10 +80,10 @@ def load_npz(path: str, *, device="cuda") -> Dict[str, Any]:
     return params_from_flat(flat, device=device, dtypes=meta["dtypes"])
 
 
-def flat_from_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """The port's tree as ``{"a/b/c": array}`` (sequence items keyed by
-    their index), each leaf copied to the host bit for bit (bf16 leaves as
-    float32, which holds them exactly). None leaves are left out."""
+def flat_tensors(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The port's tree as ``{"a/b/c": tensor}`` (sequence items keyed by
+    their index, as the JAX package keys them), the tensors themselves.
+    None leaves are left out."""
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -90,13 +91,20 @@ def flat_from_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     elif tree is None:
         return {}
     else:
-        t = tree.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return {prefix: t.numpy()}
-    out: Dict[str, np.ndarray] = {}
+        return {prefix: tree}
+    out: Dict[str, torch.Tensor] = {}
     for k, v in items:
-        out.update(flat_from_params(v, f"{prefix}/{k}" if prefix else str(k)))
+        out.update(flat_tensors(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def flat_from_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """``flat_tensors`` with each leaf copied to the host bit for bit (bf16
+    leaves as float32, which holds them exactly)."""
+    out = {}
+    for k, t in flat_tensors(tree, prefix).items():
+        t = t.detach().cpu()
+        out[k] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return out
 
 

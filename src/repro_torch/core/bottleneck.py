@@ -102,3 +102,9 @@ def mode_payload_bytes(cfg: ModelConfig, batch: int, seq: int,
         return quant.payload_bytes((batch, seq, cfg.d_model), 0)
     w, bits = mode_widths(cfg.split)[mode - 1]
     return quant.payload_bytes((batch, seq, w), bits)
+
+
+def compression_ratio(cfg: ModelConfig, mode: int) -> float:
+    """Wire bytes of ``mode`` over mode 0's, for one token."""
+    full = mode_payload_bytes(cfg, 1, 1, 0)
+    return mode_payload_bytes(cfg, 1, 1, mode) / full

@@ -15,6 +15,7 @@ to the host only on a logged step.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -60,16 +61,40 @@ def value_and_grad(loss_fn: Callable, params, batch, mode: int):
     return (loss.detach(), metrics), opt.unflatten(params, list(grads))
 
 
-def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
+def make_train_step(loss_fn: Callable, tcfg: TrainConfig, *,
+                    donate: bool = False):
     """loss_fn(params, batch, mode) -> (loss, metrics). The step returns
-    (params, opt_state, metrics), its metrics 0-d device tensors."""
+    (params, opt_state, metrics), its metrics 0-d device tensors; with
+    ``donate`` it updates the parameters and the optimizer state passed
+    in (``opt.apply_updates(donate=True)``)."""
     def step(params, opt_state, batch, mask, *, mode: int):
         (loss, metrics), grads = value_and_grad(loss_fn, params, batch, mode)
         params, opt_state, info = opt.apply_updates(
-            params, grads, opt_state, tcfg, mask)
+            params, grads, opt_state, tcfg, mask, donate=donate)
         metrics = dict(metrics, loss=loss, **info)
         return params, opt_state, metrics
     return step
+
+
+def timed(step: Callable, step_times: Optional[Dict], key, device):
+    """``step`` itself when ``step_times`` is None; else ``step`` with the
+    device synchronized before and after each call, its seconds appended
+    to ``step_times[key]``."""
+    if step_times is None:
+        return step
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def run(*args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = step(*args, **kw)
+        sync()
+        step_times.setdefault(key, []).append(time.perf_counter() - t0)
+        return out
+    return run
 
 
 def train_cascade(params,
@@ -82,25 +107,31 @@ def train_cascade(params,
                   phase_mask_fn: Callable = transformer_phase_mask,
                   eval_fn: Optional[Callable] = None,
                   log_every: int = 50,
-                  verbose: bool = True) -> Tuple[Any, Dict]:
+                  verbose: bool = True,
+                  donate: bool = False,
+                  step_times: Optional[Dict] = None) -> Tuple[Any, Dict]:
     """Run Algorithm 1 over ``n_modes`` modes (phases 1..n_modes).
 
     ``data_iter(step)`` yields a batch; ``loss_fn(params, batch, mode)``.
     ``eval_fn(params, mode)`` -> dict with 'loss'/'acc' for the Ensure check.
-    Returns (params, history).
+    ``donate``: every step updates the parameters in place (those passed
+    in too). ``step_times``: a dict that gets each step's seconds, the
+    device synchronized, under its mode. Returns (params, history).
     """
-    step_fn = make_train_step(loss_fn, tcfg)
+    step_fn = make_train_step(loss_fn, tcfg, donate=donate)
+    dev = opt.leaves(params)[0].device
     opt_state = opt.init(params)
     history: Dict[str, Any] = {"phases": []}
     global_step = 0
     for phase in range(1, n_modes + 1):
         mode = phase - 1
         mask = phase_mask_fn(params, phase)
+        run = timed(step_fn, step_times, mode, dev)
         phase_log: List[Dict] = []
         for s in range(steps_per_phase):
             batch = data_iter(global_step)
-            params, opt_state, m = step_fn(params, opt_state, batch, mask,
-                                           mode=mode)
+            params, opt_state, m = run(params, opt_state, batch, mask,
+                                       mode=mode)
             global_step += 1
             if s % log_every == 0 or s == steps_per_phase - 1:
                 rec = {k: float(v) for k, v in m.items()}

@@ -1,8 +1,13 @@
 """Split-model wrapper: cut the model at ``cfg.split.split_at`` into a
 UE-side encoder and an edge-side decoder, with the paper's selectable
-bottleneck modes at the boundary (mirrors the serving parts of
-``repro.core.split``: the per-mode decode step and prefill, and the
-mixed-mode ones).
+bottleneck modes at the boundary (mirrors ``repro.core.split``: the
+full-sequence split forward that training runs, the per-mode decode step
+and prefill, and the mixed-mode ones).
+
+``split_forward`` equals the full model's forward in mode 0 (the boundary
+crosses raw); mode m >= 1 routes the boundary through bottleneck head m
+(down-projection, quantization, the wire, dequantization, the up-projection
+adapter), the phase-2 network of Algorithm 1.
 
 Decode state (the paged arena, stacked dense caches, or a tuple of
 per-layer states) is split along its layer axis into views, so both halves
@@ -49,6 +54,69 @@ def _split_states(states, cfg: ModelConfig, s: int):
                 T.tree_map(lambda a: a[s:], states))
     return states[:s], states[s:]
 
+
+# ---------------------------------------------------------------------------
+# full-sequence split forward (training)
+# ---------------------------------------------------------------------------
+
+def encoder_apply(params, tokens, cfg: ModelConfig, mode: int, *,
+                  train: bool = False):
+    """UE side. Returns (payload, aux, info); the payload crosses the link:
+    mode 0 the raw boundary activation and None; mode m the int codes and
+    f32 scales of head m (under ``train``, its straight-through
+    fake-quantized code and None). ``info``: the positions and the wire
+    bytes."""
+    s = cfg.split.split_at
+    x = T.embed_tokens(params, tokens, cfg)
+    B, S = x.shape[:2]
+    positions = T.seq_positions(x)
+    enc, _ = slice_layers(params["layers"], cfg, s)
+    x, aux = T.run_layers(enc, x, positions, cfg, train=train,
+                          kinds=_kinds(cfg)[:s])
+    if mode == 0:
+        payload = (x, None)
+    else:
+        _, bits = bottleneck.mode_widths(cfg.split)[mode - 1]
+        payload = bottleneck.encode(params["bneck_modes"][mode - 1], x, bits,
+                                    train=train)
+    info = {"positions": positions,
+            "payload_bytes": bottleneck.mode_payload_bytes(cfg, B, S, mode)}
+    return payload, aux, info
+
+
+def decoder_apply(params, payload, positions, cfg: ModelConfig, mode: int, *,
+                  train: bool = False):
+    """Edge side: the adapter (mode >= 1), the remaining layers and the
+    head. Returns (logits float32, aux)."""
+    s = cfg.split.split_at
+    codes, scales = payload
+    if mode == 0:
+        x = codes
+    else:
+        _, bits = bottleneck.mode_widths(cfg.split)[mode - 1]
+        x = bottleneck.decode(params["bneck_modes"][mode - 1], codes, scales,
+                              bits, dtype=T.model_dtype(cfg))
+    _, dec = slice_layers(params["layers"], cfg, s)
+    x, aux = T.run_layers(dec, x, positions, cfg, train=train,
+                          kinds=_kinds(cfg)[s:])
+    x = T.norm_apply_final(params, x, cfg)
+    return T.lm_logits(params, x, cfg), aux
+
+
+def split_forward(params, tokens, cfg: ModelConfig, mode: int = 0, *,
+                  train: bool = False):
+    """End-to-end split forward (the wire is identity on the payload's
+    values; its bytes are in ``info``). Returns (logits, aux, info)."""
+    payload, aux1, info = encoder_apply(params, tokens, cfg, mode,
+                                        train=train)
+    logits, aux2 = decoder_apply(params, payload, info["positions"], cfg,
+                                 mode, train=train)
+    return logits, aux1 + aux2, info
+
+
+# ---------------------------------------------------------------------------
+# decode-time split (one token across the link per step)
+# ---------------------------------------------------------------------------
 
 def _wire(params, x, cfg: ModelConfig, mode: int):
     """The per-mode wire crossing: mode 0 sends the raw boundary
@@ -124,9 +192,7 @@ def _prefill_through(params, tokens, cfg: ModelConfig, states, boundary,
     Returns (logits at each row's last real position [B, 1, V], states)."""
     s = cfg.split.split_at
     x = T.embed_tokens(params, tokens, cfg)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    positions = T.seq_positions(x)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=x.device)

@@ -16,6 +16,9 @@ the orchestrator picking the transmit mode from simulated mmWave channels
     # the plain PyTorch path on the CPU, reduced shapes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --reduced --device cpu [--engine continuous]
+    # trained weights (repro_torch.launch.train's checkpoint)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --ckpt results/ckpt/qwen2_5-3b.npz
 
 Policies (sync engine):
   orchestrator  the paper's dynamic policy (channel feedback, hysteresis)
@@ -55,6 +58,7 @@ from repro_torch.data.tokens import MarkovTokenSource
 from repro_torch.models import transformer as T
 from repro_torch.serving import (ContinuousBatchingEngine, ControllerConfig,
                                  ModeController, Request, ServingEngine)
+from repro_torch.training import checkpoint
 
 
 def build_orchestrator(cfg, batch: int, latency_budget_s: float,
@@ -310,6 +314,10 @@ def parser() -> argparse.ArgumentParser:
                     help="trace the measured run with torch.profiler: a "
                          "Chrome trace lands here and the device busy "
                          "time in the summary")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the weights of this checkpoint (the "
+                         "reference's .npz layout, written by either "
+                         "package's launch.train) instead of random ones")
     ap.add_argument("--json-out", default=None)
     return ap
 
@@ -325,6 +333,9 @@ def main(argv=None):
           f"gen={args.gen} ==", flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = SP.init_split_params(gen, cfg)
+    if args.ckpt:
+        params = checkpoint.restore(args.ckpt, params)
+        print(f"loaded weights from {args.ckpt}", flush=True)
     runner = {"sync": run_sync, "continuous": run_continuous}[args.engine]
     summary = {"arch": args.arch, **runner(args, cfg, params)}
     # the generated tokens are returned, not printed

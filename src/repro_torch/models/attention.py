@@ -1,7 +1,7 @@
-"""GQA attention for serving (mirrors the serving parts of
-``repro.models.attention``): QKV projection with bias, plain-op causal and
-sliding-window attention for prefill, full and blocked (no SDPA, so the
-numerics stay the reference's), the paged arena's prefill scatter and
+"""GQA attention (mirrors ``repro.models.attention``): QKV projection with
+bias, plain-op causal and sliding-window attention for the full-sequence
+forward and prefill, dense and blocked (no SDPA, so the numerics stay the
+reference's), the paged arena's prefill scatter and
 one-token decode through a block table, and the dense per-slot rolling
 cache's prefill and decode (the window of local-attention archs).
 
@@ -15,6 +15,7 @@ import math
 import torch
 
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.scan_utils import recording, remat
 
 NEG_INF = -1e30
 
@@ -81,7 +82,9 @@ def _blocked_attention(q, k, v, positions, hd, window: int = 0,
                        block_q: int = _BLOCK_Q, block_k: int = _BLOCK_K):
     """Online-softmax causal (optionally sliding-window) attention over
     [block_q x block_k] tiles; peak memory O(S * block_k) instead of
-    O(S^2)."""
+    O(S^2). Under autograd each kv step is recomputed in the backward
+    (the reference's ``nothing_saveable`` policy), which keeps only the
+    running (m, l, acc) of each step."""
     B, S, n_q_heads, _ = q.shape
     n_kv = k.shape[2]
     g = n_q_heads // n_kv
@@ -92,6 +95,22 @@ def _blocked_attention(q, k, v, positions, hd, window: int = 0,
     pos_q = positions.reshape(B, nq, block_q)
     pos_k = positions.reshape(B, nk, block_k)
     scale = 1.0 / math.sqrt(hd)
+
+    def kv_step(m, l, acc, qf, pq, k_j, v_j, pk):
+        s = torch.einsum("bqkgh,btkh->bkgqt", qf, k_j.float()) * scale
+        i_ = pq[:, None, None, :, None]
+        j_ = pk[:, None, None, None, :]
+        s = torch.where(_mask(i_, j_, window), s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqt,btkh->bkgqh", p, v_j.float())
+        return m_new, l, acc
+
+    step = ((lambda *a: remat(kv_step, *a)) if recording(q, k, v)
+            else kv_step)
     outs = []
     for qi in range(nq):
         qf = qb[:, qi].float()
@@ -101,22 +120,34 @@ def _blocked_attention(q, k, v, positions, hd, window: int = 0,
         acc = torch.zeros((B, n_kv, g, block_q, hd), dtype=torch.float32,
                           device=q.device)
         for kj in range(nk):
-            s = torch.einsum("bqkgh,btkh->bkgqt", qf,
-                             kb[:, kj].float()) * scale
-            i_ = pos_q[:, qi][:, None, None, :, None]
-            j_ = pos_k[:, kj][:, None, None, None, :]
-            s = torch.where(_mask(i_, j_, window), s, NEG_INF)
-            m_new = torch.maximum(m, torch.amax(s, dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + torch.sum(p, dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqt,btkh->bkgqh", p, vb[:, kj].float())
-            m = m_new
+            m, l, acc = step(m, l, acc, qf, pos_q[:, qi], kb[:, kj],
+                             vb[:, kj], pos_k[:, kj])
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, block_q,
                                                        n_kv * g * hd))
     return torch.cat(outs, dim=1)
+
+
+def _attend(q, k, v, positions, hd, window: int = 0):
+    """The blocked route for S >= ``BLOCKED_ATTN_THRESHOLD`` in whole
+    blocks, else the dense one."""
+    S = q.shape[1]
+    if S >= BLOCKED_ATTN_THRESHOLD and S % _BLOCK_Q == 0 \
+            and S % _BLOCK_K == 0:
+        return _blocked_attention(q, k, v, positions, hd, window)
+    return _dense_attention(q, k, v, positions, hd, window)
+
+
+def full_attention(p, x, positions, *, n_q: int, n_kv: int, hd: int,
+                   rope_theta: float, window: int = 0):
+    """Train / full-sequence path: causal (optionally sliding-window)
+    attention over the whole sequence, no cache. x: [B, S, d]; positions:
+    [B, S] absolute token positions. Returns [B, S, d]."""
+    q, k, v = _project_qkv(p, x, n_q, n_kv, hd)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    out = _attend(q, k, v, positions, hd, window)
+    return out.to(x.dtype) @ p["wo"]["w"]
 
 
 def paged_prefill_attention(p, x, positions, arena, block_table, *,
@@ -136,11 +167,7 @@ def paged_prefill_attention(p, x, positions, arena, block_table, *,
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
 
-    if S >= BLOCKED_ATTN_THRESHOLD and S % _BLOCK_Q == 0 \
-            and S % _BLOCK_K == 0:
-        out = _blocked_attention(q, k, v, positions, hd)
-    else:
-        out = _dense_attention(q, k, v, positions, hd)
+    out = _attend(q, k, v, positions, hd)
 
     valid = torch.arange(S, device=x.device)[None, :] < lengths[:, None]
     pg_ix = torch.clamp(positions // plen, 0, nb - 1).long()
@@ -230,11 +257,7 @@ def prefill_attention(p, x, positions, cache, *, n_q: int, n_kv: int,
     # decode only ever sees the last ``clen`` positions, so the prefill
     # window is capped at the cache
     w_eff = min(window, clen) if window else window
-    if S >= BLOCKED_ATTN_THRESHOLD and S % _BLOCK_Q == 0 \
-            and S % _BLOCK_K == 0:
-        out = _blocked_attention(q, k, v, positions, hd, w_eff)
-    else:
-        out = _dense_attention(q, k, v, positions, hd, w_eff)
+    out = _attend(q, k, v, positions, hd, w_eff)
 
     keep = min(S, clen)
     idx = lengths[:, None] - keep + torch.arange(keep, device=x.device)

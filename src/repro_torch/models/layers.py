@@ -47,6 +47,11 @@ def embed_apply(p, ids):
     return p["table"][ids]
 
 
+def embed_logits(p, x):
+    """Tied read-out: x @ table^T in float32 (the softmax's precision)."""
+    return torch.einsum("...d,vd->...v", x.float(), p["table"].float())
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------

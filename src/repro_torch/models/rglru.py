@@ -9,8 +9,8 @@ CPU); their cell routes (``rglru_full(train=True)``,
 ``rglru_prefill(use_scan_op=False)``) step ``chunked_scan`` instead and
 give the same bits. Decode is one recurrence step with the carried state.
 The state ``{"h", "conv"}`` is updated in place (the reference returns a
-new one). The reference's log-depth ``use_assoc_scan`` waits for the
-training slice.
+new one). ``rglru_full(use_assoc_scan=True)`` is the reference's
+log-depth scan in plain ops.
 
 The reference promotes the model-dtype gate and conv weights to float32
 against the f32 recurrence input on every call. ``rglru_prepare`` makes
@@ -104,11 +104,26 @@ def _cell_scan(a, b, h0):
     return h.swapaxes(0, 1)
 
 
-def rglru_full(p, x, *, train: bool = False):
+def _assoc_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along axis 1 in log2(S)
+    doubling steps of the reference's ``combine`` (a_l a_r, a_r b_l + b_r):
+    another summation tree than the step-by-step scan, so not its bits."""
+    S, off = a.shape[1], 1
+    while off < S:
+        a_l, b_l = a[:, :-off], b[:, :-off]
+        a_r, b_r = a[:, off:], b[:, off:]
+        b = torch.cat([b[:, :off], a_r * b_l + b_r], dim=1)
+        a = torch.cat([a[:, :off], a_l * a_r], dim=1)
+        off *= 2
+    return b
+
+
+def rglru_full(p, x, *, use_assoc_scan: bool = False, train: bool = False):
     """Full-sequence Griffin recurrent block from a zero state.
     x: [B, S, d] -> [B, S, d]. Default (eval) path: ``ops.rglru_scan_op``;
     ``train=True`` keeps the cell scan, as the reference does (the kernel
-    has no backward)."""
+    has no backward); ``use_assoc_scan``: the log-depth scan of plain ops
+    (``_assoc_scan``), eval or train."""
     from repro_torch.kernels import ops
 
     B, S, _ = x.shape
@@ -118,8 +133,12 @@ def rglru_full(p, x, *, train: bool = False):
     pad = torch.cat([u.new_zeros((B, _CONV_W - 1, u.shape[2])), u], dim=1)
     u = sum(pad[:, i:i + S, :] * f["conv"][i] for i in range(_CONV_W))
     a, b = _gates(f, u)
-    h = (_cell_scan(a, b, a.new_zeros((B, a.shape[2]))) if train
-         else ops.rglru_scan_op(a, b))
+    if use_assoc_scan:
+        h = _assoc_scan(a, b)
+    elif train:
+        h = _cell_scan(a, b, a.new_zeros((B, a.shape[2])))
+    else:
+        h = ops.rglru_scan_op(a, b)
     return (h.to(x.dtype) * gate) @ p["out"]["w"]
 
 

@@ -1,12 +1,19 @@
-"""Decoder-only transformer for the ported families (mirrors the serving
-parts of ``repro.models.transformer``): homogeneous attention stacks
-(dense GQA) and heterogeneous block patterns (RecurrentGemma's RG-LRU and
-local-attention blocks, xLSTM's alternating mLSTM and sLSTM blocks).
+"""Decoder-only transformer for the ported families (mirrors
+``repro.models.transformer`` without MoE and the multimodal frontends):
+homogeneous attention stacks (dense GQA) and heterogeneous block patterns
+(RecurrentGemma's RG-LRU and local-attention blocks, xLSTM's alternating
+mLSTM and sLSTM blocks).
 
 Homogeneous archs keep stacked ``[L, ...]`` layer leaves, and the layer
 runners loop over per-layer slices (views, no copies) where the reference
 scans; heterogeneous archs keep a tuple of per-layer trees, as the
-reference does. Decode state is updated in place: the paged arena
+reference does. The full-sequence runner (``run_layers``, which
+``forward`` and the split forward train through) takes the per-layer
+views of each stacked leaf from one ``torch.unbind``, whose backward is
+one ``stack``: indexing a leaf once a layer would give each layer's
+backward a zero tensor the size of the whole stack. Under ``train`` it
+recomputes each layer in the backward, as the reference's
+``jax.checkpoint`` does. Decode state is updated in place: the paged arena
 ``{"k", "v"}`` of ``[L, n_pages, page_len, n_kv, hd]`` leaves, stacked
 dense rolling caches ``[L, B, cache_len, n_kv, hd]``, or a tuple of
 per-layer states (rolling caches, RG-LRU and xLSTM carries).
@@ -19,18 +26,20 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (attn_init, decode_attention,
-                                          init_cache, paged_decode_attention,
+                                          full_attention, init_cache,
+                                          paged_decode_attention,
                                           paged_prefill_attention,
                                           prefill_attention)
-from repro_torch.models.layers import (embed_apply, embed_init, dense_init,
-                                       mlp_apply, mlp_init, norm_apply,
-                                       norm_init)
-from repro_torch.models.rglru import (rglru_init, rglru_prefill,
+from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
+                                       embed_logits, mlp_apply, mlp_init,
+                                       norm_apply, norm_init)
+from repro_torch.models.rglru import (rglru_full, rglru_init, rglru_prefill,
                                       rglru_prepare, rglru_state_init,
                                       rglru_step)
-from repro_torch.models.xlstm import (mlstm_init, mlstm_prefill,
+from repro_torch.models.scan_utils import remat
+from repro_torch.models.xlstm import (mlstm_full, mlstm_init, mlstm_prefill,
                                       mlstm_state_init, mlstm_step,
-                                      slstm_init, slstm_prefill,
+                                      slstm_full, slstm_init, slstm_prefill,
                                       slstm_prepare, slstm_state_init,
                                       slstm_step)
 
@@ -63,6 +72,17 @@ def tree_leaves(tree):
 def layer_slice(layers, i: int):
     """Layer ``i`` of stacked ``[L, ...]`` leaves (views)."""
     return tree_map(lambda a: a[i], layers)
+
+
+def unstack_layers(layers) -> list:
+    """The per-layer trees of stacked ``[L, ...]`` leaves (nested dicts):
+    views from one ``torch.unbind`` a leaf, so the backward of all of
+    them is one ``stack`` a leaf."""
+    if isinstance(layers, dict):
+        parts = {k: unstack_layers(v) for k, v in layers.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(layers, 0))
 
 
 def _kinds(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -151,6 +171,29 @@ def _mlp_residual(p, x, cfg: ModelConfig):
 def _attn_dims(cfg: ModelConfig):
     return dict(n_q=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.head_dim,
                 rope_theta=cfg.rope_theta)
+
+
+def block_apply_full(p, x, positions, cfg: ModelConfig, kind: str = "attn",
+                     train: bool = False):
+    """Full-sequence block, no decode state. Returns (x, aux_loss), the
+    aux loss a 0-d float32 zero (it is MoE's load-balance loss). ``train``
+    keeps the recurrent families on their cell scans (the CUDA scan has no
+    backward); eval routes RG-LRU and the mLSTM normalizer through
+    ``ops.rglru_scan_op``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = norm_apply(p["norm1"], x, cfg.norm)
+    if kind == "attn":
+        mix = full_attention(p["mix"], h, positions, window=_attn_window(cfg),
+                             **_attn_dims(cfg))
+    elif kind == "rglru":
+        mix = rglru_full(p["mix"], h, train=train)
+    elif kind == "mlstm":
+        mix = mlstm_full(p["mix"], h, cfg.n_heads, train=train)
+    elif kind == "slstm":
+        mix = slstm_full(p["mix"], h, cfg.n_heads)
+    else:
+        raise ValueError(kind)
+    return _mlp_residual(p, x + mix, cfg), aux
 
 
 def block_apply_decode(p, x, state, cur_pos, cfg: ModelConfig,
@@ -313,9 +356,10 @@ def norm_apply_final(params, x, cfg: ModelConfig):
 
 
 def lm_logits(params, x, cfg: ModelConfig):
+    """Logits in float32: the tied read-out (``embed_logits``) or the LM
+    head."""
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x.float(),
-                            params["embed"]["table"].float())
+        return embed_logits(params["embed"], x)
     return x.float() @ params["lm_head"]["w"].float()
 
 
@@ -338,6 +382,33 @@ def decode_tail_tokens(params, x, cfg: ModelConfig):
 # top-level forwards
 # ---------------------------------------------------------------------------
 
+def seq_positions(x):
+    """Positions 0..S-1 of every row of x [B, S, ...]: [B, S] int32."""
+    B, S = x.shape[:2]
+    return torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, train: bool = False):
+    """Full-sequence forward. tokens: [B, S] int. Returns (logits [B, S, V]
+    float32, aux_loss). The multimodal frontends' ``embeddings`` are not
+    ported (``init_params`` refuses those archs)."""
+    x = embed_tokens(params, tokens, cfg)
+    x, aux = run_layers(params["layers"], x, seq_positions(x), cfg,
+                        train=train)
+    x = norm_apply_final(params, x, cfg)
+    return lm_logits(params, x, cfg), aux
+
+
+def lm_loss(logits, labels, mask=None):
+    """Cross-entropy over the vocab axis; labels int [B, S]. A 0-d float32
+    tensor: the mean, or the ``mask``-weighted mean."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
 def prefill(params, tokens, cfg: ModelConfig, states, lengths=None):
     """Batched full-sequence prefill: the whole prompt in one forward pass,
     filling ``states`` in place (KV rows at their rolling slots, recurrent
@@ -345,14 +416,11 @@ def prefill(params, tokens, cfg: ModelConfig, states, lengths=None):
     right-padded; ``lengths``: optional [B] true prompt lengths. Returns
     (logits at each row's last real position [B, 1, V], states)."""
     x = embed_tokens(params, tokens, cfg)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=x.device)
-    x = run_layers_prefill(params["layers"], x, positions, states, cfg,
-                           lengths=lengths)
+    x = run_layers_prefill(params["layers"], x, seq_positions(x), states,
+                           cfg, lengths=lengths)
     return last_logits(params, x, lengths, cfg), states
 
 
@@ -383,8 +451,30 @@ def decode_step(params, token, states, cur_pos, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# layer runners (shared by the split encoder and decoder)
+# layer runners (shared by the full model and the split encoder / decoder)
 # ---------------------------------------------------------------------------
+
+def run_layers(layers, x, positions, cfg: ModelConfig, *, train: bool,
+               kinds: Optional[Tuple[str, ...]] = None):
+    """Full-sequence pass through a group of layers: ``layers`` stacked
+    ``[L, ...]`` (homogeneous) or a tuple of per-layer trees. Under
+    ``train`` each layer is recomputed in the backward. Returns (x,
+    aux_loss_sum), the sum a 0-d float32 tensor on x's device."""
+    if cfg.homogeneous:
+        per_layer = unstack_layers(layers)
+        kinds = ("attn",) * len(per_layer)
+    else:
+        per_layer = layers
+        kinds = kinds or _kinds(cfg)[:len(layers)]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, kind in zip(per_layer, kinds):
+        if train:
+            x, a = remat(block_apply_full, lp, x, positions, cfg, kind, True)
+        else:
+            x, a = block_apply_full(lp, x, positions, cfg, kind)
+        aux = aux + a
+    return x, aux
+
 
 def _per_layer(layers, states, cfg: ModelConfig,
                kinds: Optional[Tuple[str, ...]]):

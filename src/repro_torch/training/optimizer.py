@@ -86,26 +86,60 @@ def lr_schedule(cfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
+def _global_norm(gs, max_norm: float):
+    """(the global norm of the gradient leaves ``gs``, the clip's scale
+    factor). None leaves add nothing."""
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in gs if g is not None]
+    gn = torch.sqrt(sum(sq[1:], sq[0]))
+    return gn, torch.clamp(_f32(max_norm, gn) / torch.clamp(gn, min=1e-9),
+                           max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
     before). None leaves stay None and add nothing to the norm."""
     gs = leaves(grads)
-    sq = [torch.sum(torch.square(g.to(torch.float32)))
-          for g in gs if g is not None]
-    gn = torch.sqrt(sum(sq[1:], sq[0]))
-    scale = torch.clamp(_f32(max_norm, gn) / torch.clamp(gn, min=1e-9),
-                        max=1.0)
+    gn, scale = _global_norm(gs, max_norm)
     return unflatten(grads, [None if g is None else g * scale.to(g.dtype)
                              for g in gs]), gn
 
 
+# elements of a leaf the donated update takes at a time: its float32
+# temporaries stay near 256 MB each, whatever the leaf's size
+_DONATE_BLOCK = 1 << 26
+
+
+def _row_blocks(p: torch.Tensor):
+    """Index slices of ``p`` along its first dim, each of at most
+    ``_DONATE_BLOCK`` elements where a row allows (the whole of a 0-d
+    leaf)."""
+    if p.dim() == 0:
+        return [...]
+    per = max(1, _DONATE_BLOCK // max(1, p[0].numel()))
+    return [slice(i, i + per) for i in range(0, p.shape[0], per)]
+
+
 def apply_updates(params, grads, state: AdamState, cfg: TrainConfig,
-                  mask=None):
+                  mask=None, *, donate: bool = False):
     """One AdamW step. ``mask``: the parameter tree with a bool at each
     leaf, True = trainable (None: all). The global norm takes every
     gradient, frozen leaves' too; a frozen leaf, its m and its v are
-    returned as they were (the same tensors)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    returned as they were (the same tensors).
+
+    ``donate=True`` (the reference launcher's ``donate_argnums``): each
+    trainable leaf's new p, m and v are written into the tensors passed
+    in, a block of rows at a time (``_row_blocks``), its clipped gradient
+    made beside it, so the step holds one block's temporaries instead of a
+    second set of parameters, moments and gradients. The trees passed in
+    come back updated. Every op is elementwise and the arithmetic is that
+    of ``donate=False``, so are the bits."""
+    gs = leaves(grads)
+    if donate:
+        gnorm, scale = _global_norm(gs, cfg.grad_clip)
+    else:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        gs = leaves(grads)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -113,9 +147,7 @@ def apply_updates(params, grads, state: AdamState, cfg: TrainConfig,
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
 
-    def upd(p, g, m, v, trainable):
-        if not trainable:
-            return p, m, v
+    def upd(p, g, m, v):
         gf = torch.zeros_like(m) if g is None else g.to(torch.float32)
         m_new = b1 * m + (1 - b1) * gf
         v_new = b2 * v + (1 - b2) * gf * gf
@@ -124,13 +156,22 @@ def apply_updates(params, grads, state: AdamState, cfg: TrainConfig,
         delta = delta + lr * cfg.weight_decay * pf
         return (pf - delta).to(p.dtype), m_new, v_new
 
-    ps = leaves(params)
+    ps, ms, vs = leaves(params), leaves(state.m), leaves(state.v)
     ts = leaves(mask) if mask is not None else [True] * len(ps)
-    triples = [upd(*a) for a in zip(ps, leaves(grads), leaves(state.m),
-                                     leaves(state.v), ts)]
+    info = {"lr": lr, "grad_norm": gnorm}
+    if donate:
+        for p, g, m, v, trainable in zip(ps, gs, ms, vs, ts):
+            if not trainable:
+                continue
+            for rows in _row_blocks(p):
+                gr = None if g is None else g[rows] * scale.to(g.dtype)
+                for old, new in zip((p[rows], m[rows], v[rows]),
+                                    upd(p[rows], gr, m[rows], v[rows])):
+                    old.copy_(new)
+        return params, AdamState(step, state.m, state.v), info
+    triples = [upd(p, g, m, v) if t else (p, m, v)
+               for p, g, m, v, t in zip(ps, gs, ms, vs, ts)]
     p_new = unflatten(params, [t[0] for t in triples])
     m_new = unflatten(state.m, [t[1] for t in triples])
     v_new = unflatten(state.v, [t[2] for t in triples])
-    return p_new, AdamState(step, m_new, v_new), {"lr": lr,
-                                                  "grad_norm": gnorm}
-
+    return p_new, AdamState(step, m_new, v_new), info
