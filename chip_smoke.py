@@ -89,7 +89,21 @@ Phases, each printing one JSON line; any failure exits nonzero:
     forwards of recurrentgemma-2b ([1, 2048]: 18 scan launches, the train
     forward's logits bit for bit) and xlstm-125m ([4, 256]: 6 launches,
     within ``TOL["xlstm_forward"]``); ``repro_torch.examples.train_100m``
-    at 5 steps of [2, 128].
+    at 3 steps of [2, 128];
+13. scale-out serving at full width (qwen2.5-3b): the edge cluster (2
+    replicas of 4 slots; 8 requests of 16 + 16 on mobility channels that
+    cross cells mid-generation) under live migration with raw and 8-bit
+    snapshots, stay and drop, telemetry on: every request finishes, the
+    raw-migrated tokens equal one 4-slot engine's request by request,
+    migrations equal the handovers acted on and their bytes the
+    snapshots', 8-bit snapshots at most ``QUANT_SNAPSHOT_RATIO`` of the
+    raw bytes, the folded telemetry blocks equal host wire accounting, the
+    trace has the cluster and replica lanes with the migration events, and
+    each tick launches what the continuous path does; ``launch.serve
+    --engine fleet`` (64 UEs on Lumos5G trace lanes, SLO admission, the
+    autoscaler) conserves requests; the three serving benches
+    (``bench_serving``, ``bench_cluster``, ``bench_fleet``) run with their
+    launches counted.
 
 Kernel times come from ``torch.profiler`` traces; a trace with no device
 work in it is taken again, and if CUPTI still delivers nothing the time
@@ -2088,6 +2102,13 @@ def phase_main_path(cfg, smi: str):
     return launches
 
 
+#: requests of the dense archs' continuous profiles (their main paths
+#: serve 8): half the traced run, to fit the script's time (PERF.md
+#: section 4); the recurrent archs keep 8, their launches a step are
+#: held against a ceiling
+PROFILE_REQUESTS = ["--requests", "4"]
+
+
 def phase_profile(cfg, engine: str):
     """The arch's main path on ``engine`` once more, traced with
     ``torch.profiler`` (its rate is not the one reported above): device
@@ -2096,6 +2117,8 @@ def phase_profile(cfg, engine: str):
     A sync run's launches per step include its one prefill's."""
     from repro_torch.launch import serve
     argv = (SERVE if engine == "continuous" else SYNC)[cfg.name]
+    if engine == "continuous" and cfg.homogeneous:
+        argv = argv + PROFILE_REQUESTS
     summary = serve.main(argv + [
         "--device", "cuda", "--profile-dir",
         str(ROOT / "build" / "profile" / engine / cfg.name)])
@@ -2919,7 +2942,7 @@ def phase_eval_forwards(seed: int, dev, smi: str) -> dict:
 # train_100m's batch: the example's, at half its default sequence (its
 # eager time loops with both recomputes take ~25 s a step at 256 on the
 # card, the one part of the script that grows with the sequence)
-TRAIN_100M_ARGV = ["--steps", "5", "--batch", "2", "--seq", "128"]
+TRAIN_100M_ARGV = ["--steps", "3", "--batch", "2", "--seq", "128"]
 
 
 def phase_train_100m(dev, smi: str) -> dict:
@@ -2963,6 +2986,332 @@ def phase_train(seed: int, dev, smi: str) -> dict:
                "qwen2.5-3b serve --ckpt": serve_l}
     by_path.update(phase_eval_forwards(seed, dev, smi))
     by_path["xlstm-125m train_100m"] = phase_train_100m(dev, smi)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# scale-out serving: the edge cluster, the fleet and the serving benches
+# ---------------------------------------------------------------------------
+
+CLUSTER_REQUESTS, CLUSTER_PROMPT, CLUSTER_GEN = 8, 16, 16
+#: each request's cell capacity (both cells equal, bytes/s): 40 Mbps fits
+#: the raw boundary, 4 Mbps only the bottleneck, so the pool mixes modes
+CLUSTER_CAPS = (40e6 / 8, 4e6 / 8)
+#: the most an 8-bit snapshot may ship against the raw one
+QUANT_SNAPSHOT_RATIO = 0.53
+FLEET_ARGV = ["--arch", "qwen2.5-3b", "--engine", "fleet", "--requests",
+              "64", "--prompt-len", "16", "--gen", "16", "--slo-ticks", "96",
+              "--arrival", "poisson", "--autoscale", "--max-replicas", "4",
+              "--telemetry"]
+# the benches at full width with small arguments, cut to fit the phase's
+# time (PERF.md section 4): the TTFT comparison at a 16-token prompt,
+# 8 tokens a request, the loop and telemetry A/Bs at 4 slots and 6 tokens,
+# the fade A/B at 8, the handover A/B at 6, the fleet at 16 UEs and the
+# autoscaler A/B at 256 on 4-slot replicas generating 4 tokens each (at
+# 256 UEs the autoscaled arm scales up; at 64 it would compare two equal
+# fixed fleets)
+BENCH_SERVING_ARGV = ["--loads", "8,2", "--requests", "8", "--channel-trace",
+                      "fade", "--overhead-repeats", "2",
+                      "--prefill-prompt-len", "16", "--gen", "8",
+                      "--compare-slots", "4", "--compare-gen", "6",
+                      "--trace-gen", "8"]
+BENCH_CLUSTER_ARGV = ["--gen", "6"]
+BENCH_FLEET_ARGV = ["--ues", "16", "--ab-ues", "256", "--n-slots", "4",
+                    "--gen", "4"]
+
+
+def cluster_requests(cfg, seed: int = 0):
+    """Mobility sessions as ``launch.serve --engine cluster`` makes them:
+    each starts in its home cell (i % 2) and crosses into the other partway
+    through its generation; ``detach_factor`` 1.0, so a session's capacity
+    (and mode) at every tick does not depend on where it is served."""
+    import numpy as np
+
+    from repro_torch.core.channel import MobilityChannel
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    batch = MarkovTokenSource(cfg, seed=7).batch(
+        CLUSTER_REQUESTS, CLUSTER_PROMPT)["tokens"]
+    reqs = []
+    for i in range(CLUSTER_REQUESTS):
+        home = i % 2
+        cross = int(rng.integers(2, CLUSTER_GEN - 2))
+        cells = [home] * cross + [1 - home] * (CLUSTER_GEN + 8)
+        cap = CLUSTER_CAPS[(i // 2) % 2]
+        reqs.append(Request(rid=i, prompt=np.asarray(batch[i]),
+                            max_new_tokens=CLUSTER_GEN, arrival_tick=2 * i,
+                            channel=MobilityChannel(cells, [cap, cap],
+                                                    detach_factor=1.0)))
+    return reqs
+
+
+@contextlib.contextmanager
+def counted_path(calls: dict):
+    """Launch counters at 0, and the split prefill and decode-step calls
+    counted, while the block runs; ``calls`` gets the launches."""
+    from repro_torch.core import split as SP
+    fns = zero_counts()
+    with counting(SP, "split_prefill_mixed", calls), \
+            counting(SP, "split_decode_step_mixed", calls):
+        yield calls
+    calls["launches"] = {k: f.launches for k, f in fns.items()}
+
+
+def check_path_launches(calls: dict, cfg, label: str,
+                        exact: bool = True) -> None:
+    """Per decode tick of any replica one boundary, one tail and one paged
+    attention a layer; per prefill dispatch one boundary: the continuous
+    path's launches. ``exact=False`` (the serving bench, whose host-loop
+    ticks read logits without the tail and whose dense control engine has
+    no page arena): one boundary a tick and a prefill, at most one tail a
+    tick and one paged attention a layer and tick, each launched."""
+    ticks = calls.get("split_decode_step_mixed", 0)
+    prefills = calls.get("split_prefill_mixed", 0)
+    got = calls["launches"]
+    expect = {"boundary_mixed_grouped": ticks + prefills,
+              "decode_tail_grouped": ticks,
+              "paged_attention": cfg.n_layers * ticks, "rglru_scan": 0,
+              "bottleneck_quant": 0, "dequant_matmul": 0}
+    if exact:
+        ok = ticks > 0 and got == expect
+    else:
+        ok = (got["boundary_mixed_grouped"] == expect["boundary_mixed_grouped"]
+              and all(0 < got[k] <= expect[k] for k in (
+                  "decode_tail_grouped", "paged_attention"))
+              and not any(got[k] for k in (
+                  "rglru_scan", "bottleneck_quant", "dequant_matmul")))
+    check(ok, f"{label}: launches {got} for {prefills} prefill dispatches "
+              f"and {ticks} decode ticks, expected "
+              f"{'' if exact else 'at most '}{expect}")
+
+
+def first_difference(got: dict, want: dict):
+    """(rid, token index) of the first request whose tokens differ."""
+    for rid in sorted(want):
+        a, b = got.get(rid, []), want[rid]
+        if a != b:
+            i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            return rid, i
+    return None
+
+
+def run_cluster_policy(params, cfg, handover: str, bits: int, dev):
+    """The 2-replica cluster (4 slots each, page 8) over the mobility
+    requests, telemetry on, with its launches counted. Not warmed: the
+    earlier phases ran these paths on the card, and a run here serves
+    only the requests."""
+    from repro_torch.serving import EdgeCluster, Telemetry
+    tel = Telemetry()
+    calls: dict = {}
+    cluster = EdgeCluster(params, cfg, n_replicas=2, n_slots=4,
+                          cache_len=128, page_len=8,
+                          placement="best-channel", handover=handover,
+                          snapshot_bits=bits, telemetry=tel)
+    reqs = cluster_requests(cfg)
+    with counted_path(calls):
+        t0 = time.perf_counter()
+        done = cluster.run(reqs)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+    st = cluster.stats()
+    dev_wire = sum(e.device_tel["wire_bytes"] for e in cluster.replicas)
+    dev_ticks = sum(e.device_tel["slot_ticks"] for e in cluster.replicas)
+    cluster.close()
+    return {"done": {s.request.rid: s for s in done}, "stats": st,
+            "tel": tel, "calls": calls, "seconds": seconds,
+            "device_tel": {"wire_bytes": dev_wire, "slot_ticks": dev_ticks}}
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_cluster(cfg, dev, smi: str) -> dict:
+    """The edge cluster at full width: raw-migrated tokens equal one
+    engine's (no handover) request by request; every request finishes under
+    migrate (raw and 8-bit snapshots), stay and drop; migrations equal the
+    handovers acted on and their bytes the snapshots'; 8-bit snapshots at
+    most ``QUANT_SNAPSHOT_RATIO`` of the raw bytes; the folded telemetry
+    blocks equal host wire accounting; the trace has the cluster and
+    replica lanes with the migration events; launches a tick as on the
+    continuous path. Returns the launches of each policy's run."""
+    import torch
+
+    from repro_torch.core import split as SP
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     default_orchestrator)
+    params = SP.init_split_params(torch.Generator(device=dev).manual_seed(0),
+                                  cfg)
+    t0 = time.perf_counter()
+    base_eng = ContinuousBatchingEngine(
+        params, cfg, n_slots=4, cache_len=128, page_len=8,
+        orchestrator=default_orchestrator(cfg))
+    base = {s.request.rid: s for s in base_eng.run(cluster_requests(cfg))}
+    base_eng.close()
+    base_s = time.perf_counter() - t0
+    check(len(base) == CLUSTER_REQUESTS,
+          f"cluster: the single engine finished {len(base)} requests")
+    runs, by_path = {}, {}
+    for label, handover, bits in (("migrate", "migrate", 0),
+                                  ("migrate_q8", "migrate", 8),
+                                  ("stay", "stay", 0), ("drop", "drop", 0)):
+        r = runs[label] = run_cluster_policy(params, cfg, handover, bits,
+                                             dev)
+        st, done = r["stats"], r["done"]
+        check(st["requests_finished"] == CLUSTER_REQUESTS
+              and all(len(s.tokens) == CLUSTER_GEN for s in done.values()),
+              f"cluster {label}: {st['requests_finished']} of "
+              f"{CLUSTER_REQUESTS} requests finished")
+        check(st["handovers"] > 0, f"cluster {label}: no handover acted on")
+        check_path_launches(r["calls"], cfg, f"cluster {label}")
+        host_wire = sum(s.wire_bytes - s.prefill_wire_bytes
+                        for s in done.values())
+        check(r["device_tel"] == {"wire_bytes": host_wire,
+                                  "slot_ticks": st["decode_tokens"]}
+              and r["tel"].registry.get("engine.decode_wire_bytes").value
+              == host_wire,
+              f"cluster {label}: device_tel {r['device_tel']} against host "
+              f"wire {host_wire} and {st['decode_tokens']} decode tokens")
+        by_path[f"qwen2.5-3b cluster {label}"] = r["calls"]["launches"]
+    mig, q8 = runs["migrate"]["stats"], runs["migrate_q8"]["stats"]
+    got = {rid: s.tokens for rid, s in runs["migrate"]["done"].items()}
+    want = {rid: s.tokens for rid, s in base.items()}
+    diff = first_difference(got, want)
+    check(diff is None,
+          f"cluster: raw-migrated tokens differ from one engine's at "
+          f"(request, token index) {diff}; modes "
+          f"{runs['migrate']['done'][diff[0]].mode_trace if diff else ''} / "
+          f"{base[diff[0]].mode_trace if diff else ''}")
+    for label in ("migrate", "migrate_q8"):
+        st, done = runs[label]["stats"], runs[label]["done"]
+        snaps = [m["bytes"] for s in done.values() for m in s.migrations
+                 if m["kind"] == "migrate"]
+        check(st["migrations"] == st["handovers"] == len(snaps) > 0
+              and st["migration_bytes"] == sum(snaps),
+              f"cluster {label}: {st['migrations']} migrations of "
+              f"{st['migration_bytes']} B for {st['handovers']} handovers "
+              f"and snapshots {snaps}")
+    ratio = q8["migration_bytes"] / max(mig["migration_bytes"], 1)
+    check(q8["migrations"] == mig["migrations"]
+          and ratio <= QUANT_SNAPSHOT_RATIO,
+          f"cluster: 8-bit snapshots ship {ratio:.4f} of the raw bytes "
+          f"(limit {QUANT_SNAPSHOT_RATIO})")
+    trace = runs["migrate"]["tel"].trace.chrome_trace()["traceEvents"]
+    lanes = {e["args"]["name"]: e["pid"] for e in trace if e["ph"] == "M"}
+    names = {(e["name"], e["pid"]) for e in trace if e["ph"] != "M"}
+    check({"cluster", "replica0", "replica1"} <= set(lanes)
+          and ("migrate_send", lanes["cluster"]) in names
+          and ("migrate_inject", lanes["cluster"]) in names
+          and any(n == "window_dispatch" and p == lanes["replica1"]
+                  for n, p in names),
+          f"cluster: trace lanes {lanes}, events {sorted(names)[:20]}")
+    out = {"phase": "cluster", "arch": cfg.name, "dtype": cfg.dtype,
+           "replicas": 2, "n_slots": 4, "requests": CLUSTER_REQUESTS,
+           "single_engine_s": base_s, "tokens_equal_single_engine": True,
+           "snapshot_ratio_q8": ratio, "card": smi}
+    for label, r in runs.items():
+        st = r["stats"]
+        dec = st["decode_tokens"]
+        lat = r["tel"].registry.latency_summary(
+            "engine.ttft_s", "engine.intertoken_s",
+            "cluster.migration_backhaul_s")
+        out[label] = {
+            "seconds": r["seconds"], "decode_tok_per_s": dec / r["seconds"],
+            "decode_ticks": r["calls"].get("split_decode_step_mixed", 0),
+            "prefill_dispatches": r["calls"].get("split_prefill_mixed", 0),
+            "launches": r["calls"]["launches"], "latency_ms": lat,
+            **{k: st[k] for k in (
+                "handovers", "migrations", "migration_bytes",
+                "migration_transfer_s", "replays", "replayed_tokens",
+                "deadline_miss_rate", "decode_wire_bytes_per_token",
+                "mean_handover_latency_ticks")},
+            "device_tel": r["device_tel"],
+            "bytes_per_migration": st["migration_bytes"]
+            / max(st["migrations"], 1)}
+    emit(out)
+    del runs, base, base_eng, params
+    free_cuda()
+    return by_path
+
+
+def phase_fleet(cfg, dev, smi: str) -> dict:
+    """``launch.serve --engine fleet`` at full width: 64 UEs on one
+    FleetChannel of Lumos5G traces, Poisson arrivals, SLO admission and
+    the autoscaler; every submitted request is finished or rejected."""
+    from repro_torch.launch import serve
+    calls: dict = {}
+    with counted_path(calls):
+        summary = serve.main(FLEET_ARGV + ["--device", str(dev)])
+    cons = summary["conservation"]
+    terminal = (cons["finished"] + cons["queue_rejected_router"]
+                + cons["queue_rejected_engine"] + cons["over_capacity"]
+                + cons["slo_rejected"])
+    check(cons["submitted"] == 64 and cons["in_flight"] == 0
+          and terminal == cons["submitted"]
+          and summary["requests_finished"] + summary["slo_rejected"]
+          + summary["requests_rejected"] == 64,
+          f"fleet: requests not conserved {cons}")
+    check_path_launches(calls, cfg, "fleet")
+    emit({"phase": "fleet", "arch": cfg.name, "argv": FLEET_ARGV,
+          "seconds": summary["seconds"],
+          "decode_tok_per_s": summary["decode_tok_per_s"],
+          "requests_finished": summary["requests_finished"],
+          "slo_rejected": summary["slo_rejected"],
+          "admission": summary["admission"],
+          "scale_events": summary["scale_events"],
+          "n_replicas": summary["n_replicas"],
+          "session_slo_miss_rate": summary["session_slo_miss_rate"],
+          "conservation": cons, "latency_ms": summary.get("latency"),
+          "decode_ticks": calls.get("split_decode_step_mixed", 0),
+          "launches": calls["launches"], "card": smi})
+    free_cuda()
+    return calls["launches"]
+
+
+def phase_serving_benches(cfg, dev, smi: str) -> dict:
+    """The three serving benches at full width with small arguments, each
+    with its launches counted; prints each one's JSON sections."""
+    from repro_torch.benchmarks import bench_cluster, bench_fleet, \
+        bench_serving
+    trace = ROOT / "build" / "bench_serving_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    by_path = {}
+    for name, main, argv in (
+            ("bench_serving", bench_serving.main,
+             BENCH_SERVING_ARGV + ["--trace-out", str(trace)]),
+            ("bench_cluster", bench_cluster.main, BENCH_CLUSTER_ARGV),
+            ("bench_fleet", bench_fleet.main, BENCH_FLEET_ARGV)):
+        calls: dict = {}
+        t0 = time.perf_counter()
+        with counted_path(calls):
+            out = main(argv + ["--device", str(dev)])
+        check_path_launches(calls, cfg, name, exact=name != "bench_serving")
+        if name == "bench_fleet":
+            assert out["autoscale_ab"]["autoscaled"]["scale_ups"] >= 1, \
+                "the autoscaler A/B never scaled up"
+        by_path[name] = calls["launches"]
+        emit({"phase": "serving_bench", "bench": name, "argv": argv,
+              "seconds": time.perf_counter() - t0,
+              "decode_ticks": calls.get("split_decode_step_mixed", 0),
+              "launches": calls["launches"], **out, "card": smi})
+        free_cuda()
+    return by_path
+
+
+def phase_scale_out(dev, smi: str) -> dict:
+    """Phase 13: scale-out serving at full width (qwen2.5-3b): the cluster,
+    the fleet, the serving benches. Returns the launches of each path."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2.5-3b")
+    t0 = time.perf_counter()
+    by_path = phase_cluster(cfg, dev, smi)
+    by_path["qwen2.5-3b fleet"] = phase_fleet(cfg, dev, smi)
+    by_path.update(phase_serving_benches(cfg, dev, smi))
+    emit({"phase": "scale_out", "seconds": time.perf_counter() - t0})
     return by_path
 
 
@@ -3074,6 +3423,8 @@ def main(argv=None) -> int:
     by_path["lumos5g-lstm cascade"] = phase_cascade(args.seed, smi)
     free_cuda()
     by_path.update(phase_train(args.seed, dev, smi))
+    free_cuda()
+    by_path.update(phase_scale_out(dev, smi))
 
     emit({"phase": "untraced", "measurements": UNTRACED})
     print(smi, flush=True)

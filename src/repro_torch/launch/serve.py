@@ -1,6 +1,7 @@
 """Serving launcher of the port: requests through the split engine, with
 the orchestrator picking the transmit mode from simulated mmWave channels
-(mirrors ``repro.launch.serve --engine sync|continuous``).
+(mirrors ``repro.launch.serve``: engines sync, continuous, cluster and
+fleet).
 
     # synchronous static batch (the default engine), on the card at full
     # width, random weights from --seed
@@ -13,6 +14,15 @@ the orchestrator picking the transmit mode from simulated mmWave channels
     # continuous batching: per-request channels, per-slot bottleneck modes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --engine continuous --requests 8 --prompt-len 16 --gen 16
+    # edge cluster: N replicas, mobility traces, live migration on handover
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --engine cluster --replicas 2 --placement best-channel \
+        --handover migrate --requests 8 --n-slots 4 --telemetry
+    # city fleet: Lumos5G trace lanes, Poisson arrivals, SLO admission,
+    # autoscaling, a Chrome trace of the run
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --engine fleet --requests 64 --slo-ticks 96 --autoscale \
+        --max-replicas 4 --trace-out fleet_trace.json
     # the plain PyTorch path on the CPU, reduced shapes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --reduced --device cpu [--engine continuous]
@@ -33,6 +43,12 @@ dense slot pool, whose rolling caches hold ``min(--cache-len,
 local_window)`` rows (the recurrent carries do not depend on it); the
 sync engine keeps one dense state of ``--requests`` rows.
 
+The cluster and fleet engines run their replicas on the one device, over
+one set of weights. ``--telemetry`` (or ``--trace-out``) attaches the
+metrics registry and trace recorder: the summary then carries TTFT and
+inter-token latency percentiles (``latency``, ms). ``--dp`` / ``--mp``
+(the serving mesh) are not ported yet and raise.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
 raises rather than falling back to the CPU.
 """
@@ -51,13 +67,20 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core import bottleneck
 from repro_torch.core import split as SP
-from repro_torch.core.channel import Channel, ChannelConfig, channel_fleet
+from repro_torch.core.channel import (Channel, ChannelConfig, FleetChannel,
+                                      MobilityChannel, channel_fleet)
 from repro_torch.core.orchestrator import (AppRequirement, ModeProfile,
                                            Orchestrator)
+from repro_torch.data.lumos5g import capacity_traces_bps
 from repro_torch.data.tokens import MarkovTokenSource
 from repro_torch.models import transformer as T
-from repro_torch.serving import (ContinuousBatchingEngine, ControllerConfig,
-                                 ModeController, Request, ServingEngine)
+from repro_torch.serving import (HANDOVER_POLICIES, PLACEMENTS, Autoscaler,
+                                 AutoscalerConfig, ContinuousBatchingEngine,
+                                 ControllerConfig, EdgeCluster,
+                                 FleetLoadConfig, ModeController, Request,
+                                 ServingEngine, SLOAdmission,
+                                 SLOAdmissionConfig, Telemetry,
+                                 fleet_requests)
 from repro_torch.training import checkpoint
 
 
@@ -155,7 +178,29 @@ def profile_extra(args, prof, seconds: float) -> dict:
     return {"profile": profile_summary(prof, seconds)}
 
 
-def run_continuous(args, cfg, params):
+def _latency_section(tel) -> dict:
+    """Millisecond percentile summary of the run's latency histograms
+    (empty without --telemetry)."""
+    if tel is None:
+        return {}
+    return {"latency": tel.registry.latency_summary(
+        "engine.ttft_s", "engine.intertoken_s",
+        "engine.admit_to_first_token_s", "cluster.migration_backhaul_s")}
+
+
+def _timed_run(args, dev, run):
+    """``run()`` between two device synchronizes, under the profiler when
+    ``--profile-dir`` is given: (result, seconds, profiler or None)."""
+    prof = make_profiler(args, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with prof if prof is not None else contextlib.nullcontext():
+        out = run()
+        _sync(dev)
+    return out, time.perf_counter() - t0, prof
+
+
+def run_continuous(args, cfg, params, tel=None):
     dev = params["embed"]["table"].device
     orch = build_orchestrator(cfg, 1, args.latency_budget_ms / 1e3,
                               hysteresis=1.0)
@@ -179,17 +224,12 @@ def run_continuous(args, cfg, params):
         kw["orchestrator"] = orch
         kw["freeze_modes"] = args.mode_policy == "frozen"
     eng = ContinuousBatchingEngine(params, cfg, n_slots=args.n_slots,
-                                   cache_len=args.cache_len, **kw)
+                                   cache_len=args.cache_len, telemetry=tel,
+                                   **kw)
     # run every prefill batch bucket and window length once, so the
     # decode rate measures steady-state serving
     eng.warm(np.asarray(batch[0]))
-    prof = make_profiler(args, dev)
-    _sync(dev)
-    t0 = time.perf_counter()
-    with prof if prof is not None else contextlib.nullcontext():
-        done = eng.run(reqs)
-        _sync(dev)
-    seconds = time.perf_counter() - t0
+    done, seconds, prof = _timed_run(args, dev, lambda: eng.run(reqs))
     st = eng.stats()
     return {
         "engine": "continuous",
@@ -199,12 +239,113 @@ def run_continuous(args, cfg, params):
         "decode_tok_per_s": st["decode_tokens"] / max(seconds, 1e-9),
         "per_request": [s.result() for s in done[:4]],
         "tokens": {s.request.rid: list(s.tokens) for s in done},
+        **_latency_section(tel),
         **profile_extra(args, prof, seconds),
         **st,
     }
 
 
-def run_sync(args, cfg, params):
+def run_cluster(args, cfg, params, tel=None):
+    """Multi-replica edge cluster on scripted mobility: each UE starts in
+    its home cell and crosses into the next cell partway through its
+    generation, so every session exercises the configured handover policy
+    (migrate / stay / drop) under the chosen placement."""
+    dev = params["embed"]["table"].device
+    n_rep = args.replicas
+    cap_bps = args.mean_mbps * 1e6 / 8.0
+    rng = np.random.default_rng(args.channel_seed)
+    src = MarkovTokenSource(cfg, seed=7)
+    batch = src.batch(args.requests, args.prompt_len)["tokens"]
+    reqs = []
+    for i in range(args.requests):
+        home = i % n_rep
+        cross = int(rng.integers(2, max(args.gen - 2, 3)))
+        cells = [home] * cross + [(home + 1) % n_rep] * (args.gen + 8)
+        ch = MobilityChannel(cells, [cap_bps] * n_rep,
+                             detach_factor=args.detach_factor)
+        reqs.append(Request(rid=i, prompt=np.asarray(batch[i]),
+                            max_new_tokens=args.gen, channel=ch,
+                            arrival_tick=i * args.arrival_every))
+    cluster = EdgeCluster(
+        params, cfg, n_replicas=n_rep, n_slots=args.n_slots,
+        cache_len=args.cache_len, placement=args.placement,
+        handover=args.handover, snapshot_bits=args.snapshot_bits,
+        backhaul_bps=args.backhaul_mbps * 1e6 / 8.0,
+        latency_budget_s=args.latency_budget_ms / 1e3,
+        telemetry=tel)
+    # warm every replica's paths so decode_tok_per_s measures steady-state
+    # serving, as on the continuous engine
+    cluster.warm(np.asarray(batch[0]))
+    done, seconds, prof = _timed_run(args, dev, lambda: cluster.run(reqs))
+    st = cluster.stats()
+    cluster.close()
+    return {
+        "engine": "cluster",
+        "device": str(dev),
+        "seconds": seconds,
+        "decode_tok_per_s": st["decode_tokens"] / max(seconds, 1e-9),
+        "per_request": [s.result() for s in done[:4]],
+        "tokens": {s.request.rid: list(s.tokens) for s in done},
+        **_latency_section(tel),
+        **profile_extra(args, prof, seconds),
+        **st,
+    }
+
+
+def run_fleet(args, cfg, params, tel=None):
+    """City-fleet serving: every UE rides one lane of a single vectorized
+    ``FleetChannel`` replaying Lumos5G-resampled capacity traces, arrivals
+    come from a Poisson or heavy-tail renewal process, and the elastic
+    ``EdgeCluster`` applies SLO-driven admission plus replica
+    autoscaling."""
+    dev = params["embed"]["table"].device
+    n = args.requests
+    traces = capacity_traces_bps(n, 512, seed=args.channel_seed)
+    fleet = FleetChannel(n, traces_bps=traces, cycle=True)
+    load = FleetLoadConfig(arrival=args.arrival,
+                           mean_interarrival_ticks=args.arrival_every,
+                           prompt_len=args.prompt_len,
+                           max_new_tokens=args.gen,
+                           vocab=cfg.vocab_size,
+                           slo_ticks=args.slo_ticks,
+                           seed=args.channel_seed)
+    reqs = fleet_requests(fleet, load)
+    min_payload = min(bottleneck.mode_payload_bytes(cfg, 1, 1, m)
+                      for m in range(cfg.split.n_modes))
+    autoscaler = (Autoscaler(AutoscalerConfig(
+        max_replicas=args.max_replicas)) if args.autoscale else None)
+    cluster = EdgeCluster(
+        params, cfg, n_replicas=args.replicas, n_slots=args.n_slots,
+        cache_len=args.cache_len, placement="least-loaded",
+        latency_budget_s=args.latency_budget_ms / 1e3,
+        admission=SLOAdmission(min_payload, SLOAdmissionConfig(
+            latency_budget_s=args.latency_budget_ms / 1e3)),
+        autoscaler=autoscaler,
+        telemetry=tel,
+        max_pending=max(n, 64))
+    cluster.warm(reqs[0].prompt)
+    done, seconds, prof = _timed_run(args, dev,
+                                     lambda: cluster.run_paced(reqs))
+    st = cluster.stats()
+    cluster.close()
+    return {
+        "engine": "fleet",
+        "device": str(dev),
+        "n_ues": n,
+        "arrival": args.arrival,
+        "autoscale": bool(args.autoscale),
+        "seconds": seconds,
+        "decode_tok_per_s": st["decode_tokens"] / max(seconds, 1e-9),
+        "admission": cluster.admission.stats(),
+        "per_request": [s.result() for s in done[:2]],
+        "tokens": {s.request.rid: list(s.tokens) for s in done},
+        **_latency_section(tel),
+        **profile_extra(args, prof, seconds),
+        **st,
+    }
+
+
+def run_sync(args, cfg, params, tel=None):
     """One static batch of ``--requests`` Markov prompts: a batched prefill,
     the first token from its logits, then ``--gen`` decode steps, each on
     the policy's mode (the orchestrator's from one shared channel, or a
@@ -215,7 +356,8 @@ def run_sync(args, cfg, params):
         orch = build_orchestrator(cfg, args.requests,
                                   args.latency_budget_ms / 1e3)
     eng = ServingEngine(params, cfg, cache_len=args.cache_len,
-                        batch=args.requests, orchestrator=orch)
+                        batch=args.requests, orchestrator=orch,
+                        telemetry=tel)
     src = MarkovTokenSource(cfg, seed=7)
     prompt = torch.from_numpy(
         src.batch(args.requests, args.prompt_len)["tokens"]).to(dev)
@@ -261,6 +403,9 @@ def run_sync(args, cfg, params):
         "decode_tok_per_s": toks / max(t_total - t_prefill, 1e-9),
         "wire_bytes_per_token": stats["wire_bytes"] / max(toks, 1),
         "generated": gen.tolist(),
+        **({"latency": tel.registry.latency_summary(
+            "engine_sync.prefill_s", "engine_sync.intertoken_s")}
+           if tel is not None else {}),
         **profile_extra(args, prof, t_total),
         **stats,
     }
@@ -276,10 +421,13 @@ def parser() -> argparse.ArgumentParser:
                          "xlstm-125m)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--engine", default="sync",
-                    choices=["sync", "continuous"],
+                    choices=["sync", "continuous", "cluster", "fleet"],
                     help="sync: one static batch (the default); continuous: "
-                         "continuous batching with per-slot modes (the "
-                         "cluster and fleet engines are not ported yet)")
+                         "continuous batching with per-slot modes; cluster: "
+                         "N replicas with handover on scripted mobility; "
+                         "fleet: Lumos5G trace lanes with SLO admission "
+                         "and autoscaling (the serving mesh, --dp/--mp, "
+                         "still raises)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch path)")
@@ -309,7 +457,50 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--dwell-ticks", type=int, default=2,
                     help="adaptive policy: min ticks between mode switches")
     ap.add_argument("--mean-mbps", type=float, default=40.0,
-                    help="continuous engine: fleet mean uplink")
+                    help="continuous engine: fleet mean uplink; cluster "
+                         "engine: every cell's capacity")
+    ap.add_argument("--replicas", type=int, default=2,
+                    help="cluster / fleet engine: decoder replicas (one "
+                         "per cell)")
+    ap.add_argument("--placement", default="least-loaded",
+                    choices=list(PLACEMENTS),
+                    help="cluster engine: new-request routing policy")
+    ap.add_argument("--handover", default="migrate",
+                    choices=list(HANDOVER_POLICIES),
+                    help="cluster engine: what to do when a UE crosses "
+                         "cells mid-generation")
+    ap.add_argument("--snapshot-bits", type=int, default=0,
+                    help="cluster engine: quantize migration snapshots at "
+                         "this bit width (0 = raw, bit-exact)")
+    ap.add_argument("--backhaul-mbps", type=float, default=10000.0,
+                    help="cluster engine: inter-replica backhaul for "
+                         "migration snapshots")
+    ap.add_argument("--detach-factor", type=float, default=0.05,
+                    help="cluster engine: capacity multiplier while a UE "
+                         "is served from the wrong cell")
+    ap.add_argument("--arrival", default="poisson",
+                    choices=["poisson", "heavy-tail", "burst"],
+                    help="fleet engine: arrival process of the load "
+                         "generator")
+    ap.add_argument("--slo-ticks", type=int, default=96,
+                    help="fleet engine: session SLO in engine ticks "
+                         "(arrival -> finish, queue wait included)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="fleet engine: attach the replica autoscaler")
+    ap.add_argument("--max-replicas", type=int, default=8,
+                    help="fleet engine: autoscaler ceiling")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="serving mesh data-parallel axis (not ported yet: "
+                         "raises)")
+    ap.add_argument("--mp", type=int, default=None,
+                    help="serving mesh tensor-parallel axis (not ported "
+                         "yet: raises)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="attach the metrics registry + trace recorder "
+                         "(latency percentiles land in the summary)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Perfetto-loadable Chrome trace JSON here "
+                         "(implies --telemetry)")
     ap.add_argument("--profile-dir", default=None,
                     help="trace the measured run with torch.profiler: a "
                          "Chrome trace lands here and the device busy "
@@ -324,6 +515,10 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if args.dp or args.mp:
+        raise NotImplementedError(
+            "--dp / --mp: the serving mesh is not ported yet (ROADMAP Queue "
+            "1 item 7)")
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     print(f"== repro_torch.launch.serve {args.arch} "
@@ -336,8 +531,14 @@ def main(argv=None):
     if args.ckpt:
         params = checkpoint.restore(args.ckpt, params)
         print(f"loaded weights from {args.ckpt}", flush=True)
-    runner = {"sync": run_sync, "continuous": run_continuous}[args.engine]
-    summary = {"arch": args.arch, **runner(args, cfg, params)}
+    tel = Telemetry() if (args.telemetry or args.trace_out) else None
+    runner = {"sync": run_sync, "continuous": run_continuous,
+              "cluster": run_cluster, "fleet": run_fleet}[args.engine]
+    summary = {"arch": args.arch, **runner(args, cfg, params, tel)}
+    if args.trace_out and tel is not None:
+        tel.trace.export(args.trace_out)
+        summary["trace_out"] = args.trace_out
+        summary["trace_events"] = len(tel.trace.events())
     # the generated tokens are returned, not printed
     printed = {k: v for k, v in summary.items() if k != "generated"
                and not (k == "tokens" and isinstance(v, dict))}

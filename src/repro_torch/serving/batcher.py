@@ -27,13 +27,22 @@ Every engine tick it:
 
 ``host_loop=True`` keeps the synchronous per-tick loop (logits + argmax
 read back every tick) as the equivalence oracle; both loops decode
-identical token streams. The bank-free mono steps, mesh sharding,
-telemetry and migration are not ported yet and raise.
+identical token streams.
+
+``telemetry=`` (a :class:`~repro_torch.serving.telemetry.Telemetry`)
+records the reference's host events and histograms (admission verdicts,
+prefill spans, mode switches and escalations, decode-window spans, TTFT and
+inter-token latency) and folds the per-tick int32 telemetry block
+``[wire_bytes, live_slots, mode_hist...]`` into ``device_tel`` one window
+late; it changes no token. Live migration between engines
+(``serving/migration.py``) reads and writes the pools through
+``read_rows`` / ``write_rows`` (dense) and ``read_pages`` / ``write_pages``
+(paged). The bank-free mono steps and mesh sharding (``mesh=``) are not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import heapq
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,8 +56,7 @@ from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.models import transformer as T
 from repro_torch.serving.controller import ModeController
 from repro_torch.serving.session import Request, RequestQueue, Session
-
-_now = time.perf_counter
+from repro_torch.serving.telemetry import Telemetry, now as _now
 
 
 def _bucket_len(n: int, lo: int = 8) -> int:
@@ -85,6 +93,19 @@ def gather_rows(pool_states, idx, axis: int):
     """The gather inverse of :func:`scatter_rows`: rows ``idx`` of the pool
     as a batched state tree with batch ``len(idx)`` on ``axis``."""
     return T.tree_map(lambda p: p.index_select(axis, idx), pool_states)
+
+
+def _admit_meta(positions, cur_tokens, slots, pos_vals, first_tokens):
+    """Device-loop admission of the slots' positions and first tokens,
+    written in place (``index_copy_``: the counterpart of the reference's
+    donated scatter). The state rows go in first: the paged prefill writes
+    the arena through the group's block tables, a dense pool takes them
+    through ``SlotPool.write_rows``."""
+    n = slots.shape[0]
+    positions.index_copy_(0, slots, pos_vals.to(positions.dtype))
+    cur_tokens.index_copy_(0, slots, first_tokens[:n].reshape(
+        (n,) + tuple(cur_tokens.shape[1:])).to(cur_tokens.dtype))
+    return positions, cur_tokens
 
 
 class SlotPool:
@@ -153,6 +174,8 @@ class PagedPool:
     admission and ``pages_available`` subtracts every resident session's
     undrawn reservation, so on-demand ``alloc_pages`` growth can always be
     satisfied."""
+
+    paged = True
 
     def __init__(self, cfg: ModelConfig, n_slots: int, cache_len: int, *,
                  page_len: int = 8, n_pages: Optional[int] = None,
@@ -258,6 +281,77 @@ class PagedPool:
         return torch.from_numpy(
             self.block_np[:, :self.table_width()].copy()).to(self.device)
 
+    def _table(self, rows) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(
+            self.device)
+
+    # -- row/page I/O ---------------------------------------------------------
+    def write_rows(self, batch_states, slots, positions):
+        """Block-table-aware scatter: install dense logical-row blocks
+        ``[L, n, R, ...]`` into each slot's pages, allocating on demand for
+        the given positions — ``write_rows(read_rows(s), s, pos)`` is
+        bit-exact over every allocated page."""
+        R = T.tree_leaves(batch_states)[0].shape[2]
+        nb = R // self.page_len
+        for s, p in zip(slots, positions):
+            if -(-max(int(p), 1) // self.page_len) > nb:
+                raise ValueError(
+                    f"{R} rows cannot cover position {p} at page_len "
+                    f"{self.page_len}")
+            self.alloc_pages(s, max(int(p), 1))
+            self.positions[s] = int(p)
+        # (row, chunk) pairs inside each slot's allocation, in order; the
+        # rest would point at the scratch page and are dropped
+        rows, chunks, pages = [], [], []
+        for i, s in enumerate(slots):
+            for j in range(min(int(self.pages_used[s]), nb)):
+                rows.append(i)
+                chunks.append(j)
+                pages.append(int(self.block_np[s, j]))
+        if not pages:
+            return
+        ri, ci, pg = (self._table(v) for v in (rows, chunks, pages))
+        for a, r in zip(T.tree_leaves(self.states),
+                        T.tree_leaves(batch_states)):
+            rc = r.reshape(r.shape[:2] + (nb, self.page_len) + r.shape[3:])
+            a.index_copy_(1, pg, rc[:, ri, ci].to(a.dtype))
+
+    def read_rows(self, slots):
+        """The gather inverse of :meth:`write_rows`: each slot's logical
+        rows in order, ``[L, n, table_width() * page_len, ...]`` per leaf,
+        with unallocated chunks zeroed."""
+        sl = np.asarray(slots, np.int64)
+        nb = self.table_width()
+        bt = self._table(self.block_np[sl][:, :nb])
+        keep = (np.arange(nb)[None, :] < self.pages_used[sl][:, None])
+        keep = torch.from_numpy(keep).to(self.device)
+
+        def take(a):
+            g = a[:, bt]                              # [L, n, nb, plen, *]
+            m = keep.reshape((1,) + keep.shape + (1,) * (g.ndim - 3))
+            g = torch.where(m, g, torch.zeros((), dtype=g.dtype,
+                                              device=g.device))
+            return g.reshape(g.shape[:2] + (nb * g.shape[3],) + g.shape[4:])
+
+        return T.tree_map(take, self.states)
+
+    def read_pages(self, slot: int):
+        """A slot's ALLOCATED pages in block-table order — ``[L, nbu, plen,
+        ...]`` per leaf, the migration payload (pages only, no dense
+        expansion, no scratch rows)."""
+        nbu = max(int(self.pages_used[slot]), 1)
+        return gather_rows(self.states, self._table(self.block_np[slot, :nbu]),
+                           1)
+
+    def write_pages(self, slot: int, blocks, position: int):
+        """Install a migrated-in session's page block (the exact
+        :meth:`read_pages` layout) into freshly allocated local pages."""
+        nbu = T.tree_leaves(blocks)[0].shape[1]
+        self.alloc_pages(slot, nbu * self.page_len)
+        scatter_rows(self.states, blocks,
+                     self._table(self.block_np[slot, :nbu]), 1)
+        self.positions[slot] = int(position)
+
 
 class ContinuousBatchingEngine:
     """Split-inference engine with per-request dynamic bottleneck modes on
@@ -265,7 +359,9 @@ class ContinuousBatchingEngine:
     calibration is global) but tracks one link per request id;
     ``default_channel`` serves requests that arrive without their own
     ``Channel``. The pool lives on the device of ``params``; the engine
-    runs a prepared view of them (``T.prepare_params``)."""
+    runs a prepared view of them (``T.prepare_params``), which shares
+    every weight tensor with ``params`` — N engines over one model cost N
+    pools, not N models."""
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 8,
                  cache_len: int = 128,
@@ -280,11 +376,11 @@ class ContinuousBatchingEngine:
                  page_len: int = 8,
                  n_pages: Optional[int] = None,
                  mesh=None,
-                 telemetry=None):
-        if mesh is not None or telemetry is not None:
+                 telemetry: Optional[Telemetry] = None):
+        if mesh is not None:
             raise NotImplementedError(
-                "repro_torch serves on one device without telemetry; mesh "
-                "sharding and telemetry are not ported yet")
+                "repro_torch serves on one device: the serving mesh "
+                "(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
         if controller is not None:
             if freeze_modes:
                 raise ValueError("controller and freeze_modes are mutually "
@@ -351,13 +447,35 @@ class ContinuousBatchingEngine:
                                           device=self.device)
         self._positions = torch.zeros(n_slots, dtype=torch.int32,
                                       device=self.device)
-        #: (snapshot of (slot, session) pairs, [K, B, 1] device tokens, K)
-        #: of the most recently dispatched window, read one window later
+        #: (snapshot of (slot, session) pairs, [K, B, 1] device tokens, K,
+        #: dispatch time, telemetry block or None) of the most recently
+        #: dispatched window, read one window later
         self._inflight: Optional[tuple] = None
         self._mode_pb: Dict[int, int] = {}   # per-mode wire bytes memo
         #: not-yet-arrived requests as a min-heap on (arrival_tick, seq)
         self._pending: List[Tuple[int, int, Request]] = []
         self._pending_seq = 0
+        # telemetry is optional and additive: None runs the plain engine; a
+        # Telemetry object turns on the host-side observations below
+        self._tel = telemetry
+        #: host-side fold of the window telemetry blocks (wire bytes,
+        #: decoded slot-ticks, per-mode tick histogram) — the oracle the
+        #: telemetry tests cross-check against host wire accounting
+        self.device_tel = {"wire_bytes": 0, "slot_ticks": 0,
+                           "mode_ticks": np.zeros(0, np.int64)}
+        self._pb_table = None
+        if self._tel is not None:
+            n_modes = cfg.split.n_modes
+            self.device_tel["mode_ticks"] = np.zeros(n_modes, np.int64)
+            self._pb_table = np.asarray(
+                [self._payload_bytes(m) for m in range(n_modes)], np.int64)
+            if self.controller is not None:
+                tel = self._tel
+                self.controller.on_escalate = (
+                    lambda rid, tick, frm, to: (
+                        tel.inc("engine.mode_escalations"),
+                        tel.instant("mode_escalate", rid=rid, tick=tick,
+                                    cat="mode", frm=frm, to=to)))
 
     # -- submission -----------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -398,6 +516,10 @@ class ContinuousBatchingEngine:
                 if req.prompt_len > self.max_context:
                     self.queue.pop()  # the prompt alone cannot fit: reject
                     self.requests_over_capacity += 1
+                    if self._tel is not None:
+                        self._tel.instant("reject_over_capacity",
+                                          cat="admission", rid=req.rid,
+                                          prompt_len=req.prompt_len)
                     continue
                 # the first generated token is the prefill argmax (no cache
                 # write), so b <= max_context - prompt_len + 1 never wraps
@@ -411,6 +533,11 @@ class ContinuousBatchingEngine:
                     if req.rid not in self._parked_rids:
                         self._parked_rids.add(req.rid)
                         self.requests_parked += 1
+                        if self._tel is not None:
+                            self._tel.instant(
+                                "park_arena", cat="admission", rid=req.rid,
+                                pages_needed=worst,
+                                pages_available=self.pool.pages_available)
                     break
             self.queue.pop()
             req.t_admit = _now()
@@ -446,6 +573,7 @@ class ContinuousBatchingEngine:
         the bucket prefills a fresh state, whose rows are then written into
         the slots in one scatter."""
         n = len(group)
+        t_pre = _now() if self._tel is not None else 0.0
         bp = _bucket_len(n, lo=1)          # pow2 batch
         toks = np.zeros((bp, blen), np.int32)
         lens = np.ones(bp, np.int32)       # pad rows: harmless length-1 rows
@@ -476,19 +604,24 @@ class ContinuousBatchingEngine:
         self.prefill_padded_tokens += bp * blen
         first = first_dev.cpu().numpy()    # once per admitted bucket
         now = _now()
+        if self._tel is not None:
+            self._tel.complete("prefill", t_pre, now - t_pre, cat="window",
+                               rows=n, bucket=blen)
+            self._tel.observe("engine.prefill_s", now - t_pre)
         slots = [a[1] for a in group]
         plens = [a[0].prompt_len for a in group]
         if self.paged:
+            # the prefill already wrote the arena through the block tables
             for s, p in zip(slots, plens):
                 self.pool.positions[s] = p
         else:
             # ONE scatter moves every admitted row into its pool slot
             self.pool.write_rows(new_states, slots, plens)
         if not self.host_loop:
-            sl = torch.tensor(slots, dtype=torch.long, device=dev)
-            self._positions[sl] = torch.tensor(plens, dtype=torch.int32,
-                                               device=dev)
-            self.cur_tokens[sl] = first_dev[:n].reshape(n, 1)
+            self._positions, self.cur_tokens = _admit_meta(
+                self._positions, self.cur_tokens,
+                torch.tensor(slots, dtype=torch.long, device=dev),
+                torch.tensor(plens, dtype=torch.int32, device=dev), first_dev)
         for i, (req, slot, mode, budget, cap) in enumerate(group):
             tok = first[i]
             if self.host_loop:
@@ -500,6 +633,14 @@ class ContinuousBatchingEngine:
             # the prefill's argmax IS the first generated token
             sess.tokens.append(int(tok.reshape(-1)[0]))
             sess.ttft_s = now - req.t_submit if req.t_submit else 0.0
+            if self._tel is not None:
+                if req.t_submit:
+                    self._tel.observe("engine.ttft_s", sess.ttft_s)
+                if req.t_admit:
+                    self._tel.observe("engine.admit_to_first_token_s",
+                                      now - req.t_admit)
+                self._tel.instant("admit", cat="admission", rid=req.rid,
+                                  slot=slot, mode=mode, t=now)
             # the prompt's boundary activations cross the uplink once, in
             # the admission-chosen mode
             pb = bottleneck.mode_payload_bytes(self.cfg, 1, req.prompt_len,
@@ -580,6 +721,11 @@ class ContinuousBatchingEngine:
             else:
                 sess.account(0, self._payload_bytes(0), 0.0)
             if sess.mode_trace and sess.mode_trace[-1][1] != mode:
+                if self._tel is not None:
+                    self._tel.inc("engine.mode_switches")
+                    self._tel.instant("mode_switch", cat="mode",
+                                      rid=sess.request.rid, tick=tick,
+                                      frm=sess.mode_trace[-1][1], to=mode)
                 sess.mode_trace.append((tick, mode))
             modes[slot] = mode
         return modes
@@ -599,6 +745,7 @@ class ContinuousBatchingEngine:
                 self.tick = self._pending[0][0]
                 return True
             return False
+        t0 = _now() if self._tel is not None else 0.0
         modes = self._choose_modes()
         bt = None
         if self.paged:
@@ -613,6 +760,22 @@ class ContinuousBatchingEngine:
             self.pool.states, torch.from_numpy(self.pool.positions.copy()).to(dev),
             self.cfg, torch.from_numpy(modes).to(dev), bt)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+        if self._tel is not None:
+            # one synchronous host tick == one token per live slot
+            self._tel.observe("engine.intertoken_s", _now() - t0,
+                              len(self.active))
+            self._tel.set("engine.queue_depth", len(self.queue))
+            self._tel.set("engine.slot_occupancy",
+                          len(self.active) / self.pool.n_slots)
+            self._tel.inc("engine.decode_wire_bytes",
+                          sum(self._payload_bytes(int(modes[s]))
+                              for s in self.active))
+            self._tel.inc("engine.decode_tokens", len(self.active))
+            if self.paged:
+                self._tel.set("engine.page_occupancy",
+                              self.pool.pages_in_use
+                              / max(self.pool.n_pages, 1))
 
         self.decode_ticks += 1
         self.decoded_slot_ticks += len(self.active)
@@ -660,6 +823,7 @@ class ContinuousBatchingEngine:
                 return True
             return False
 
+        t0 = _now() if self._tel is not None else 0.0
         k = self._window_len()
         bt = None
         if self.paged:
@@ -674,7 +838,31 @@ class ContinuousBatchingEngine:
                             for i in range(k)])
         prev = self._inflight
         toks_k = self._run_window(modes_k, bt)
-        self._inflight = (snapshot, toks_k, k)
+        tel_blk = None
+        if self._tel is not None:
+            # the live set is frozen per window: its mask and the window's
+            # mode matrix give the telemetry block, which is folded in with
+            # the window's tokens, one window late
+            active = np.zeros(self.pool.n_slots, np.int64)
+            for slot, _ in snapshot:
+                active[slot] = 1
+            tel_blk = self._tel_block(modes_k, active)
+        # snapshot BEFORE retirement: these sessions each emit one token
+        # per window tick, whose values land at the next materialization
+        self._inflight = (snapshot, toks_k, k,
+                          _now() if self._tel is not None else 0.0, tel_blk)
+        if self._tel is not None:
+            self._tel.complete("window_dispatch", t0, _now() - t0,
+                               cat="window", k=k, live=len(snapshot),
+                               tick=self.tick)
+            self._tel.observe("engine.window_dispatch_s", _now() - t0)
+            self._tel.set("engine.queue_depth", len(self.queue))
+            self._tel.set("engine.slot_occupancy",
+                          len(snapshot) / self.pool.n_slots)
+            if self.paged:
+                self._tel.set("engine.page_occupancy",
+                              self.pool.pages_in_use
+                              / max(self.pool.n_pages, 1))
 
         self.decode_ticks += k
         self.decoded_slot_ticks += k * len(snapshot)
@@ -718,18 +906,66 @@ class ContinuousBatchingEngine:
         self.cur_tokens, self._positions = tok, positions
         return torch.stack(outs)
 
+    def _tel_block(self, modes_k: np.ndarray, active: np.ndarray
+                   ) -> np.ndarray:
+        """The window's per-tick telemetry rows ``[K, 2 + M]``: ``[wire
+        bytes, live slots, ticks per mode...]`` over the live mask — the
+        reference's scan rows (``_window_scan_body``), with the same
+        integer arithmetic on the same inputs, computed on the host."""
+        n_modes = self._pb_table.shape[0]
+        hist = np.zeros((modes_k.shape[0], n_modes), np.int64)
+        for i, modes in enumerate(modes_k):
+            np.add.at(hist[i], modes, active)
+        wire = (active[None, :] * self._pb_table[modes_k]).sum(axis=1)
+        live = np.full(modes_k.shape[0], int(active.sum()), np.int64)
+        return np.concatenate([wire[:, None], live[:, None], hist], axis=1)
+
+    def close(self):
+        """Land any in-flight window (its tokens are read to the host).
+        Idempotent; the engine stays usable."""
+        self._materialize_inflight()
+
+    def __enter__(self) -> "ContinuousBatchingEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     def _materialize(self, inflight):
         """Copy one window's token block to the host and append it to the
         snapshot's sessions; sessions whose budget completed move to
-        ``finished`` (their slots were freed at dispatch)."""
-        snapshot, toks_k, k = inflight
+        ``finished`` (their slots were freed at dispatch). With telemetry
+        the window's block folds into ``device_tel`` and the registry
+        here, one window late, like the tokens."""
+        snapshot, toks_k, k, t_disp, tel_blk = inflight
+        t_mat = _now() if self._tel is not None else 0.0
         arr = toks_k.cpu().numpy()                    # [K, B, 1]
+        if tel_blk is not None:
+            wire = int(tel_blk[:, 0].sum())
+            slot_ticks = int(tel_blk[:, 1].sum())
+            self.device_tel["wire_bytes"] += wire
+            self.device_tel["slot_ticks"] += slot_ticks
+            self.device_tel["mode_ticks"] += tel_blk[:, 2:].sum(axis=0)
+            self._tel.inc("engine.decode_wire_bytes", wire)
+            self._tel.inc("engine.decode_tokens", slot_ticks)
+            # window wall clock (dispatch -> tokens on host) over k ticks
+            # is the device loop's inter-token latency, weighted by the
+            # tokens the window produced
+            wall = _now() - t_disp
+            if slot_ticks:
+                self._tel.observe("engine.intertoken_s", wall / k,
+                                  slot_ticks)
         for slot, sess in snapshot:
             for i in range(k):
                 sess.tokens.append(int(arr[i, slot].reshape(-1)[0]))
             budget = sess.gen_budget or sess.request.max_new_tokens
             if len(sess.tokens) >= budget:
                 self.finished.append(sess)
+        if self._tel is not None:
+            dur = _now() - t_mat
+            self._tel.complete("window_materialize", t_mat, dur,
+                               cat="window", k=k)
+            self._tel.observe("engine.window_materialize_s", dur)
 
     def _materialize_inflight(self):
         if self._inflight is not None:
@@ -741,14 +977,7 @@ class ContinuousBatchingEngine:
         batch bucket up to the slot pool and (device loop) each
         power-of-two window length up to ``max_window`` — then zero the
         counters. ``prompt`` should have the measured run's length."""
-        k = 1
-        while True:
-            n = min(k, self.pool.n_slots)
-            self.run([Request(rid=-1 - i, prompt=np.asarray(prompt),
-                              max_new_tokens=gen) for i in range(n)])
-            if k >= self.pool.n_slots:
-                break
-            k <<= 1
+        self._warm_buckets(prompt, gen)
         if not self.host_loop:
             w = 1
             while w <= self.max_window:
@@ -757,6 +986,18 @@ class ContinuousBatchingEngine:
                           for i in range(self.pool.n_slots)])
                 w <<= 1
         self.reset_counters()
+
+    def _warm_buckets(self, prompt: np.ndarray, gen: int):
+        """Each power-of-two prefill batch bucket up to the slot pool, each
+        followed by ``gen - 1`` decode ticks."""
+        k = 1
+        while True:
+            n = min(k, self.pool.n_slots)
+            self.run([Request(rid=-1 - i, prompt=np.asarray(prompt),
+                              max_new_tokens=gen) for i in range(n)])
+            if k >= self.pool.n_slots:
+                break
+            k <<= 1
 
     def reset_counters(self):
         """Zero every aggregate stat while keeping pool state and the
@@ -774,6 +1015,13 @@ class ContinuousBatchingEngine:
         if self.paged:
             self.pool.peak_pages_in_use = self.pool.pages_in_use
         self.queue.submitted = self.queue.rejected = 0
+        self.device_tel["wire_bytes"] = self.device_tel["slot_ticks"] = 0
+        self.device_tel["mode_ticks"] = np.zeros_like(
+            self.device_tel["mode_ticks"])
+        if self._tel is not None:
+            # shared across a cluster's replicas — a reset between warm-up
+            # and measurement clears everyone's warm data
+            self._tel.registry.reset()
 
     def run(self, requests: Optional[List[Request]] = None,
             max_ticks: int = 100_000) -> List[Session]:
@@ -784,6 +1032,7 @@ class ContinuousBatchingEngine:
         for _ in range(max_ticks):
             if not self.step():
                 break
+        # tick-budget exhaustion: don't drop the last window's tokens
         self._materialize_inflight()
         return self.finished
 
@@ -815,7 +1064,7 @@ class ContinuousBatchingEngine:
                                    / max(self.pool.n_pages, 1)),
                 "requests_parked": self.requests_parked,
             }
-        return {
+        out = {
             "mode_policy": policy,
             "paged": self.paged,
             **paged_stats,
@@ -843,3 +1092,8 @@ class ContinuousBatchingEngine:
             "mean_ttft_s": (float(np.mean([s.ttft_s for s in self.finished]))
                             if self.finished else 0.0),
         }
+        if self._tel is not None:
+            # mirror the totals into the registry so the JSON / Prometheus
+            # exports agree with this dict
+            self._tel.registry.ingest("engine.stats", out)
+        return out

@@ -1,5 +1,5 @@
-"""Per-slot, per-tick bottleneck mode controller for the continuous engine
-(a copy of ``repro.serving.controller.ModeController``).
+"""Per-slot, per-tick bottleneck mode controller for the continuous engine,
+and the replica autoscaler (a copy of ``repro.serving.controller``).
 
 The paper's central claim is *dynamic* encoding/decoding: the encoder's
 transmit mode must track the channel as it changes, not just at admission.
@@ -179,3 +179,95 @@ class ModeController:
     @property
     def n_attached(self) -> int:
         return len(self._ctl)
+
+
+# ---------------------------------------------------------------------------
+# replica autoscaling (fleet-scale elasticity)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class AutoscalerConfig:
+    """Thresholds for SLO-driven replica elasticity.
+
+    Pressure (any of): smoothed slot occupancy above ``high_occupancy``,
+    queue backlog above ``queue_per_slot_high`` waiting requests per
+    aggregate slot, or the recent session-SLO miss rate above
+    ``miss_rate_high``. Relaxation (all of): occupancy below
+    ``low_occupancy`` with an empty backlog and no recent misses. Either
+    condition must hold for ``sustain_ticks`` consecutive observations to
+    fire, and after any decision the scaler sleeps ``cooldown_ticks`` so
+    capacity changes settle before the signals are trusted again.
+    """
+    min_replicas: int = 1
+    max_replicas: int = 8
+    high_occupancy: float = 0.85
+    low_occupancy: float = 0.30
+    queue_per_slot_high: float = 1.0
+    miss_rate_high: float = 0.05
+    sustain_ticks: int = 3
+    cooldown_ticks: int = 8
+    ema: float = 0.5                 # occupancy smoothing weight (on history)
+
+
+class Autoscaler:
+    """Pure-signal replica-count controller.
+
+    ``observe`` consumes one cluster-step observation and returns the
+    decision for this tick: ``+1`` (add a replica), ``-1`` (retire one),
+    or ``0``. It never touches the cluster itself — ``EdgeCluster.step``
+    applies the decision — so decisions are a deterministic function of
+    the observation sequence and unit-testable without any engine.
+    """
+
+    def __init__(self, cfg: Optional[AutoscalerConfig] = None):
+        self.cfg = cfg if cfg is not None else AutoscalerConfig()
+        if self.cfg.min_replicas < 1:
+            raise ValueError("min_replicas must be >= 1")
+        if self.cfg.max_replicas < self.cfg.min_replicas:
+            raise ValueError("max_replicas must be >= min_replicas")
+        self.occ_ema = 0.0
+        self.ticks = 0
+        self._hi = 0                 # consecutive pressure observations
+        self._lo = 0                 # consecutive relaxation observations
+        self._cooldown = 0
+        #: (tick_index, decision, reason) per nonzero decision
+        self.events: List[Tuple[int, int, str]] = []
+
+    def observe(self, *, n_replicas: int, occupancy: float,
+                queue_per_slot: float = 0.0,
+                miss_rate: float = 0.0) -> int:
+        """One observation -> -1/0/+1. ``occupancy`` is the live-replica
+        mean busy-slot fraction for the step, ``queue_per_slot`` the
+        waiting requests per aggregate slot, ``miss_rate`` the recent
+        session-SLO miss fraction."""
+        w = self.cfg.ema
+        self.occ_ema = (occupancy if self.ticks == 0
+                        else w * self.occ_ema + (1 - w) * occupancy)
+        self.ticks += 1
+        pressure = (self.occ_ema > self.cfg.high_occupancy
+                    or queue_per_slot > self.cfg.queue_per_slot_high
+                    or miss_rate > self.cfg.miss_rate_high)
+        relaxed = (self.occ_ema < self.cfg.low_occupancy
+                   and queue_per_slot <= 0.0
+                   and miss_rate <= 0.0)
+        self._hi = self._hi + 1 if pressure else 0
+        self._lo = self._lo + 1 if relaxed else 0
+        if self._cooldown > 0:
+            self._cooldown -= 1
+            return 0
+        if self._hi >= self.cfg.sustain_ticks \
+                and n_replicas < self.cfg.max_replicas:
+            self._hi = self._lo = 0
+            self._cooldown = self.cfg.cooldown_ticks
+            reason = ("occupancy" if self.occ_ema > self.cfg.high_occupancy
+                      else "queue" if queue_per_slot
+                      > self.cfg.queue_per_slot_high else "miss_rate")
+            self.events.append((self.ticks - 1, +1, reason))
+            return +1
+        if self._lo >= self.cfg.sustain_ticks \
+                and n_replicas > self.cfg.min_replicas:
+            self._hi = self._lo = 0
+            self._cooldown = self.cfg.cooldown_ticks
+            self.events.append((self.ticks - 1, -1, "idle"))
+            return -1
+        return 0

@@ -27,6 +27,7 @@ from repro_torch.core import bottleneck
 from repro_torch.core import split as SP
 from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.models import transformer as T
+from repro_torch.serving.telemetry import Telemetry, block, now as _now
 
 
 def make_serve_step(cfg: ModelConfig, *, mode: Optional[int] = None,
@@ -60,17 +61,20 @@ class GenStats:
 
 class ServingEngine:
     """Static-batch split serving on one device, on a prepared view of
-    ``params`` (``T.prepare_params``). ``mesh=`` and ``telemetry=`` are not
-    ported yet and raise."""
+    ``params`` (``T.prepare_params``). ``telemetry=`` observes the
+    reference's ``engine_sync.*`` histograms and counters (each decode
+    step then waits for its token, so the inter-token time is the
+    device's); ``mesh=`` is not ported yet and raises."""
 
     def __init__(self, params, cfg: ModelConfig, *, cache_len: int = 512,
                  batch: int = 1,
                  orchestrator: Optional[Orchestrator] = None,
-                 mesh=None, telemetry=None):
-        if mesh is not None or telemetry is not None:
+                 mesh=None, telemetry: Optional[Telemetry] = None):
+        if mesh is not None:
             raise NotImplementedError(
-                "repro_torch serves on one device without telemetry; mesh "
-                "sharding and telemetry are not ported yet")
+                "repro_torch serves on one device: the serving mesh "
+                "(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
+        self._tel = telemetry
         self.params = T.prepare_params(params, cfg)
         self.cfg = cfg
         self.cache_len = cache_len
@@ -104,8 +108,12 @@ class ServingEngine:
         T.check_cache_capacity(self.cfg, self.pos, S, self.cache_len,
                                what="prompt")
         if self.pos == 0:
+            t0 = _now()
             logits, self.states = T.prefill(self.params, tokens, self.cfg,
                                             self.states)
+            if self._tel is not None:
+                block(logits)
+                self._tel.observe("engine_sync.prefill_s", _now() - t0)
             self.pos = S
             return logits
         step = self._step(None)
@@ -125,6 +133,7 @@ class ServingEngine:
                                what="decode")
         tok = torch.as_tensor(first_token, device=self.device)
         out = []
+        t0 = _now()
         for _ in range(n_steps):
             mode: Optional[int] = None
             if self.orch is not None:
@@ -145,4 +154,11 @@ class ServingEngine:
             key = mode if mode is not None else -1
             self.stats.mode_counts[key] = \
                 self.stats.mode_counts.get(key, 0) + 1
+            if self._tel is not None:
+                block(tok)
+                t1 = _now()
+                self._tel.observe("engine_sync.intertoken_s", t1 - t0)
+                self._tel.inc("engine_sync.decode_wire_bytes", int(pb))
+                self._tel.inc("engine_sync.decode_tokens", tok.numel())
+                t0 = t1
         return torch.cat(out, dim=-1).cpu().numpy()

@@ -30,7 +30,7 @@ class Request:
     requirement: Optional[AppRequirement] = None
     arrival_tick: int = 0              # engine tick at which the UE submits
     #: wall-clock stamps on the shared telemetry clock
-    #: (``time.perf_counter``), set by the engine: queue entry and
+    #: (``serving.telemetry.now``), set by the engine: queue entry and
     #: admission pop — TTFT measures from t_submit, the
     #: admission-to-first-token histogram from t_admit
     t_submit: float = 0.0
