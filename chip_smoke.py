@@ -56,7 +56,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
    kernel of the path must have launched, and the launches must match the
    path's prefill dispatches and decode ticks;
 8. profile: each main path once more under ``torch.profiler``, for the
-   device busy time and the kernels that take it;
+   device busy time and the kernels that take it (the dense archs' runs
+   cut in depth: ``PROFILE_CUT``);
 9. the same three for the synchronous engine (``--engine sync``, the
    orchestrator's policy): a reduced f32 reference under the orchestrator
    and on mode 1, the full-width path with its launches asserted (one
@@ -103,11 +104,36 @@ Phases, each printing one JSON line; any failure exits nonzero:
     --engine fleet`` (64 UEs on Lumos5G trace lanes, SLO admission, the
     autoscaler) conserves requests; the three serving benches
     (``bench_serving``, ``bench_cluster``, ``bench_fleet``) run with their
-    launches counted.
+    launches counted;
+14. frontends: musicgen-large (4 codebooks summed at the input, one LM
+    head a codebook) and llava-next-34b (a 576-token vision prefix; 69 GB
+    of weights), one model on the card at a time. The kernels at their
+    shapes against the plain versions: the boundary at llava's d 7168 / W
+    1792 (the plan's ``mt`` 1 at 4, 64 and 512 rows) and on musicgen's
+    two-head bank (W 512 and 128), every row bit-identical alone and in
+    its pool; the tail at llava's [7168, 64000] head; paged attention at
+    head_dim 128 / group 7 and 64 / 1 in both forms, bf16 bit for bit.
+    musicgen-large's int8 rolling cache at batch 8, ``cache_len`` 1024,
+    10 decode steps against bf16 (bytes under ``KV8_BYTES``, relative
+    logit error under ``KV8_LOGIT_REL``, greedy agreement at least
+    ``KV8_AGREE``). llava-next-34b's vision prefill on the paged arena
+    (592 positions) against ``T.forward(embeddings=)`` within
+    ``TOL["vision_prefill"]``, then 8 fused-tail decode steps through
+    paged attention's split form; its continuous engine bank-free (a tick
+    launches no boundary, one tail, one paged call a layer) and with
+    ``fused_tail=False`` (no tail), whose tokens must equal the fused
+    run's or part first at a near tie. The reduced f32 references (both
+    engines; bank-free and unfused too), the main paths on both engines
+    with their launches (musicgen-large launches no tail) and profiles.
 
-Kernel times come from ``torch.profiler`` traces; a trace with no device
-work in it is taken again, and if CUPTI still delivers nothing the time
-comes from CUDA events (the ``untraced`` line counts such measurements).
+Kernel times come from ``torch.profiler`` traces. A trace can lose
+events: a lost one counts as its kernel's mean traced event (a call
+launches the same kernels every time, so a whole trace holds a whole
+number of each a call), and a trace with no device work in it, or one
+that lost more than ``LOST_MAX`` of its events, is taken again; if CUPTI
+still delivers no usable trace the time comes from CUDA events (the
+``untraced`` line counts such measurements, the traces taken again and
+the events made up).
 The dispatchers' device kernels a call (boundary, tail, wire pair, the
 RG-LRU step) are counted exactly, as the nodes of a captured CUDA graph.
 
@@ -207,7 +233,21 @@ TOL = {
     # side of an edge carried through the later blocks (the two are bit
     # for bit on the CPU)
     "xlstm_forward": 2.0 ** -7,
+    # llava-next-34b's vision prefill (T.prefill on the paged arena) against
+    # T.forward(embeddings=) at the last position, bf16 at full width: the
+    # layers run the same ops on the same [2, 592] shapes, but the final
+    # norm reduces a [2, 1, d] and a [2, 592, d] tensor (reduction kernels
+    # may sum in other orders, so a normed element may round to the next
+    # bf16 value, at most 2^-7 of it) and the f32 head product has M 2
+    # against 1184 (another summation order over d). Each logit j is held
+    # to (2^-7 + 2 d 2^-24) sum_k |xn_k| |w_kj|, xn the forward's normed
+    # row; an argmax that differs must sit at a top-two gap under
+    # tail_rel_gap
+    "vision_prefill": "(2^-7 + 2 d 2^-24) sum_k |xn_k w_kj| a logit",
 }
+# the int8 KV cache against bf16 (tests/test_kv_quant.py's bounds, dense
+# archs): state bytes, greatest relative logit error, greedy agreement
+KV8_BYTES, KV8_LOGIT_REL, KV8_AGREE = 0.75, 0.05, 0.9
 # device kernels a decode step of one RG-LRU layer issues fewer with its
 # float32 forms made once: the casts of w_a's and w_x's weights and biases
 # and of the conv taps (5), and -softplus(-lam) (neg, softplus, neg)
@@ -261,17 +301,41 @@ def dtype_name(dt) -> str:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-# measurements the profiler traced no device work for, by helper: those
-# were taken without CUPTI (CUDA events, a captured graph's nodes); and the
-# kernel events that one-kernel timings found missing from their traces
-UNTRACED = {"time_ms": 0, "device_kernels": 0, "kernel_events_missed": 0}
+# measurements the profiler gave no usable trace for, by helper: those
+# were taken without CUPTI (CUDA events, a captured graph's nodes); the
+# traces taken again because they had lost too many events; and the lost
+# events of the traces kept, each made up from its kernel's traced ones
+UNTRACED = {"time_ms": 0, "device_kernels": 0, "retaken": 0,
+            "events_made_up": 0}
+# a trace may lose events (CUPTI drops some at random: an event or two of
+# a plain version's thousands, or a share of a short kernel trace late in
+# a run); a trace that lost more than this share is taken again
+LOST_MAX = 0.25
 
 
-def device_events(run, tries: int = 3) -> list:
+def trace_counts(events, calls: int) -> dict:
+    """{kernel name: (events traced, events a whole trace holds)} of a
+    trace of ``calls`` identical calls: a call launches the same kernels
+    every time, so a whole trace holds a multiple of ``calls`` of each;
+    the traced count rounded up to one."""
+    traced: dict = {}
+    for name, _ in events:
+        traced[name] = traced.get(name, 0) + 1
+    return {k: (n, -(-n // calls) * calls) for k, n in traced.items()}
+
+
+def device_events(run, calls: int, tries: int = 3) -> list:
     """The device events (kernels, copies, memsets) of ``run()`` in a
-    ``torch.profiler`` trace. A trace that holds none is taken again, up to
-    ``tries`` times; after that [] (CUPTI delivered nothing)."""
+    ``torch.profiler`` trace, as (name, microseconds) pairs read from the
+    profiler's raw events, as ``serve.profile_summary`` reads them (the
+    ``FunctionEvent`` tree of ``prof.events()`` holds the same events and
+    costs seconds of host time a trace to build; the ``profile_summary``
+    phase holds the two equal). ``run()`` makes ``calls`` identical calls;
+    a trace that holds none, or that lost more than ``LOST_MAX`` of its
+    events (``trace_counts``), is taken again, up to ``tries`` times;
+    after that [] (CUPTI delivered no usable trace)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
         torch.cuda.synchronize()
@@ -279,9 +343,15 @@ def device_events(run, tries: int = 3) -> list:
                                  ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        if events:
+        events = [(e.name(), e.duration_ns() / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        lost = sum(w - n for n, w in trace_counts(events, calls).values())
+        if events and lost <= LOST_MAX * (len(events) + lost):
+            UNTRACED["events_made_up"] += lost
             return events
+        if events:
+            UNTRACED["retaken"] += 1
     return []
 
 
@@ -303,8 +373,7 @@ def event_ms(fn, iters: int, flush=None) -> float:
     return total / iters
 
 
-def time_ms(fn, iters: int, flush=None, by_kernel=None,
-            one_kernel: bool = False) -> float:
+def time_ms(fn, iters: int, flush=None, by_kernel=None) -> float:
     """Mean device time of one call of ``fn``: the durations of the device
     work it launches, summed over ``iters`` calls from a ``torch.profiler``
     trace, over ``iters``. Host time between launches is not counted (a
@@ -312,11 +381,12 @@ def time_ms(fn, iters: int, flush=None, by_kernel=None,
     the Python wrapper). ``flush`` (traced but not counted) evicts the L2
     cache before each call where the caller would find the operands cold.
     ``by_kernel``: a dict that receives ms per call of each kernel name.
-    ``one_kernel``: a call is one device kernel, so the mean is over the
-    kernels traced (a trace can miss events: a missed kernel must not count
-    as a call of no time; ``UNTRACED["kernel_events_missed"]`` counts them).
-    Where the profiler traces no device work the time is ``event_ms``'s,
-    with no split by kernel, and ``UNTRACED`` counts it."""
+    A lost kernel event must not count as a call of no time: each kernel's
+    traced time is scaled to the events a whole trace holds (its mean
+    traced event stands in for a lost one), and a trace that lost too
+    many is taken again (``device_events``). Where the profiler gives no
+    usable trace the time is ``event_ms``'s, with no split by kernel, and
+    ``UNTRACED`` counts it."""
     for _ in range(2):
         fn()
 
@@ -326,22 +396,19 @@ def time_ms(fn, iters: int, flush=None, by_kernel=None,
                 flush()
             fn()
 
-    events = device_events(run)
+    events = device_events(run, iters)
     if not events:
         UNTRACED["time_ms"] += 1
         return event_ms(fn, iters, flush)
-    per, traced = {}, 0
-    for e in events:
-        if FLUSH_OP not in e.name:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
-            traced += 1
+    per, counts = {}, trace_counts(events, iters)
+    for name, us in events:
+        if FLUSH_OP not in name:
+            per[name] = per.get(name, 0.0) + us
+    per = {k: v * counts[k][1] / counts[k][0] for k, v in per.items()}
     us = sum(per.values())
     check(us > 0, "the profiler traced no device work of the timed call")
     if by_kernel is not None:
         by_kernel.update({k[:60]: v / iters / 1e3 for k, v in per.items()})
-    if one_kernel:
-        UNTRACED["kernel_events_missed"] += max(0, iters - traced)
-        return us / traced / 1e3
     return us / iters / 1e3
 
 
@@ -395,13 +462,13 @@ def device_kernels(fn, calls: int = 3) -> float:
         for _ in range(calls):
             fn()
 
-    events = device_events(run)
+    events = device_events(run, calls)
     if not events:
         UNTRACED["device_kernels"] += 1
         n = graph_nodes(fn)
         check(n > 0, "a captured call issued no device work")
         return float(n)
-    return len(events) / calls
+    return sum(w for _, w in trace_counts(events, calls).values()) / calls
 
 
 def same_bits(a, b) -> bool:
@@ -1622,8 +1689,7 @@ def time_wire(inp, dev, iters: int):
                        2 * M * K * N, dt)
     out["bottleneck_quant"] = {
         "timed_shape": [M, K, N], "dtype": dt,
-        "ms": time_ms(lambda: bottleneck_quant(x, wd), iters, flush,
-                      one_kernel=True),
+        "ms": time_ms(lambda: bottleneck_quant(x, wd), iters, flush),
         "plain_ms": time_ms(lambda: ref.bottleneck_quant_ref(x, wd),
                             iters, flush),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1636,7 +1702,7 @@ def time_wire(inp, dev, iters: int):
     out["dequant_matmul"] = {
         "timed_shape": [M, N, D], "dtype": dtype_name(wu.dtype),
         "ms": time_ms(lambda: dequant_matmul(codes, scales, wu), iters,
-                      flush, one_kernel=True),
+                      flush),
         "plain_ms": time_ms(lambda: ref.dequant_matmul_ref(codes, scales,
                                                            wu), iters, flush),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1752,6 +1818,9 @@ def phase_wire(cap, rcap, cfg, rcfg, dev, seed: int, iters: int):
 # ---------------------------------------------------------------------------
 
 DENSE = ("stablelm-3b", "granite-8b", "internlm2-20b")
+# the frontend archs of phase 14: multi-codebook audio and a vision prefix,
+# both homogeneous full-attention stacks on the paged pool
+FRONTENDS = ("musicgen-large", "llava-next-34b")
 # the reduced stablelm-3b at the full model's proportion (head_dim 80 =
 # d_model / n_heads); the reduced config keeps head_dim 80 too
 HD80 = {"d_model": 160, "n_heads": 2, "n_kv_heads": 2, "head_dim": 80}
@@ -1926,10 +1995,34 @@ SERVE = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SERVE_COMMON],
          "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SERVE_COMMON,
                                "--cache-len", "2048"],
          "xlstm-125m": ["--arch", "xlstm-125m", *SERVE_COMMON],
-         **{a: ["--arch", a, *SERVE_COMMON] for a in DENSE}}
+         **{a: ["--arch", a, *SERVE_COMMON] for a in DENSE + FRONTENDS}}
 
 
-def phase_reference(arch: str, device: str = "cuda", variant=None):
+@contextlib.contextmanager
+def serve_engine(cls=None, **kw):
+    """``launch.serve``'s continuous engine is ``cls`` (default the
+    engine's own class) built with ``kw`` (``fused_tail=False``) while the
+    block runs."""
+    import functools
+
+    from repro_torch.launch import serve
+    orig = serve.ContinuousBatchingEngine
+    serve.ContinuousBatchingEngine = functools.partial(cls or orig, **kw)
+    try:
+        yield
+    finally:
+        serve.ContinuousBatchingEngine = orig
+
+
+def bank_free(params) -> dict:
+    """A view of ``params`` without the bottleneck bank: a new top-level
+    dict sharing every tensor (the engines then run the bank-free
+    steps)."""
+    return {k: v for k, v in params.items() if k != "bneck_modes"}
+
+
+def phase_reference(arch: str, device: str = "cuda", variant=None,
+                    forms: bool = False):
     """The serving entry point at reduced shapes in f32 on the card and on
     the CPU, on the same weights (drawn on the CPU and copied, since the
     two devices' generators draw different numbers). With every request on
@@ -1939,7 +2032,9 @@ def phase_reference(arch: str, device: str = "cuda", variant=None):
     tokens may part where a code of the 8-bit wire sits on a rounding edge
     and the two sides' sums round it differently, so their agreement is
     reported, not required. ``variant``: config fields replaced in the
-    reduced config (``HD80``)."""
+    reduced config (``HD80``). ``forms``: also the bank-free engine and
+    the unfused tail (``fused_tail=False``), each on the fast uplink and
+    held like mode 0."""
     import dataclasses
 
     import torch
@@ -1954,21 +2049,27 @@ def phase_reference(arch: str, device: str = "cuda", variant=None):
     gpu = T.tree_map(lambda t: t.to(device), cpu)
     out = {"phase": "reference", "arch": arch, "head_dim": cfg.head_dim,
            "d_model": cfg.d_model}
-    for label, mbps in (("mode0", "1000"), ("mixed", "1")):
+    runs = [("mode0", "1000", {}, False), ("mixed", "1", {}, False)]
+    if forms:
+        runs += [("bank-free", "1000", {}, True),
+                 ("unfused", "1000", {"fused_tail": False}, False)]
+    for label, mbps, kw, no_bank in runs:
         args = SERVE[arch] + ["--reduced", "--mean-mbps", mbps, "--device"]
-        got = serve.run_continuous(serve.parser().parse_args(args + [device]),
-                                   cfg, gpu)
-        want = serve.run_continuous(serve.parser().parse_args(args + ["cpu"]),
-                                    cfg, cpu)
+        on = (bank_free(gpu), bank_free(cpu)) if no_bank else (gpu, cpu)
+        with serve_engine(**kw):
+            got = serve.run_continuous(
+                serve.parser().parse_args(args + [device]), cfg, on[0])
+            want = serve.run_continuous(
+                serve.parser().parse_args(args + ["cpu"]), cfg, on[1])
         for k in ("mode_counts", "wire_bytes", "decode_ticks"):
             check(got[k] == want[k], f"reduced f32 {label}: {k} differs")
         toks = [(got["tokens"][r], want["tokens"][r]) for r in want["tokens"]]
         same = sum(a == b for a, b in toks)
         first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                       None) for a, b in toks]
-        if label == "mode0":
+        if label != "mixed":
             check(set(got["mode_counts"]) == {0} and same == len(toks),
-                  f"reduced f32 mode 0: {len(toks) - same} requests decode "
+                  f"reduced f32 {label}: {len(toks) - same} requests decode "
                   f"other tokens on the card (first differing index "
                   f"{first})")
         out[label] = {"mode_counts": got["mode_counts"],
@@ -2044,12 +2145,20 @@ def counting_f32_forms(calls: dict):
         yield calls
 
 
+def tails_per_step(cfg) -> int:
+    """Decode tails a decode step launches: one, or none for the
+    multi-codebook audio heads, which keep the norm / logits / argmax
+    chain (as the reference does)."""
+    return 0 if cfg.frontend == "audio" and cfg.n_codebooks > 1 else 1
+
+
 def phase_main_path(cfg, smi: str):
     """The arch's serving entry point at full width with every launch
     counter at 0 just before and read just after, prefill dispatches and
     decode ticks counted beside them (warm-up included). Per decode tick
-    the device loop launches one boundary, one tail and one paged
-    attention per layer on the paged pool; per prefill dispatch one
+    the device loop launches one boundary, one tail (none for
+    musicgen-large's codebook heads) and one paged attention per layer on
+    the paged pool; per prefill dispatch one
     boundary and one scan per RG-LRU or mLSTM layer (none a tick: a
     decode step is one cell step). The RG-LRU and sLSTM layers' float32
     forms are made once, when the engine prepares its parameters, and
@@ -2072,10 +2181,11 @@ def phase_main_path(cfg, smi: str):
         check(len(t) == 16 and all(0 <= v < cfg.vocab_size for v in t),
               f"main path: request {rid} returned {len(t)} tokens")
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
-    check(summary["paged"] == (cfg.name in DENSE or cfg.name == "qwen2.5-3b"),
+    check(summary["paged"] == (cfg.name in DENSE + FRONTENDS
+                               or cfg.name == "qwen2.5-3b"),
           f"main path {cfg.name}: paged pool {summary['paged']}")
     expect = {"boundary_mixed_grouped": ticks + prefills,
-              "decode_tail_grouped": ticks,
+              "decode_tail_grouped": tails_per_step(cfg) * ticks,
               "paged_attention": (kinds.count("attn") * ticks
                                   if summary["paged"] else 0),
               "rglru_scan": scan_layers(kinds) * prefills,
@@ -2102,11 +2212,13 @@ def phase_main_path(cfg, smi: str):
     return launches
 
 
-#: requests of the dense archs' continuous profiles (their main paths
-#: serve 8): half the traced run, to fit the script's time (PERF.md
-#: section 4); the recurrent archs keep 8, their launches a step are
-#: held against a ceiling
-PROFILE_REQUESTS = ["--requests", "4"]
+#: the dense (homogeneous) archs' profiles, cut in depth to fit the
+#: script's time (PERF.md section 4): continuous at 4 of the main path's 8
+#: requests, both engines at 8 of its 16 generated tokens; the recurrent
+#: archs keep the main path's arguments, their launches a step are held
+#: against a ceiling
+PROFILE_CUT = {"continuous": ["--requests", "4", "--gen", "8"],
+               "sync": ["--gen", "8"]}
 
 
 def phase_profile(cfg, engine: str):
@@ -2117,14 +2229,14 @@ def phase_profile(cfg, engine: str):
     A sync run's launches per step include its one prefill's."""
     from repro_torch.launch import serve
     argv = (SERVE if engine == "continuous" else SYNC)[cfg.name]
-    if engine == "continuous" and cfg.homogeneous:
-        argv = argv + PROFILE_REQUESTS
+    if cfg.homogeneous:
+        argv = argv + PROFILE_CUT[engine]
     summary = serve.main(argv + [
         "--device", "cuda", "--profile-dir",
         str(ROOT / "build" / "profile" / engine / cfg.name)])
     prof = summary["profile"]
     steps = (summary["decode_ticks"] if engine == "continuous"
-             else len(summary["generated"][0]))
+             else len(sync_rows(summary["generated"])[0]))
     per_step = prof["kernel_launches"] / max(steps, 1)
     n_rglru = sum(cfg.block_kind(i) == "rglru" for i in range(cfg.n_layers))
     ceiling = None
@@ -2201,7 +2313,7 @@ SYNC = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SYNC_COMMON],
         "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SYNC_COMMON,
                               "--cache-len", "2048"],
         "xlstm-125m": ["--arch", "xlstm-125m", *SYNC_COMMON],
-        **{a: ["--arch", a, *SYNC_COMMON] for a in DENSE}}
+        **{a: ["--arch", a, *SYNC_COMMON] for a in DENSE + FRONTENDS}}
 
 
 def phase_sync_reference(arch: str, device: str = "cuda"):
@@ -2243,11 +2355,20 @@ def phase_sync_reference(arch: str, device: str = "cuda"):
     emit(out)
 
 
+def sync_rows(generated) -> list:
+    """The sync engine's generated tokens as rows of tokens: [B, n] as
+    given, [B, K, n] (audio) as B * K rows."""
+    import numpy as np
+    a = np.asarray(generated)
+    return a.reshape(-1, a.shape[-1]).tolist()
+
+
 def phase_sync_main_path(cfg, smi: str):
     """The sync engine through ``serve.main`` at full width, every launch
     counter at 0 just before and read just after, prefills and decode
     steps counted beside them. Per decode step (the orchestrator's, which
-    ends in the fused tail) one decode tail; per prefill one scan per
+    ends in the fused tail) one decode tail (none for musicgen-large's
+    codebook heads); per prefill one scan per
     RG-LRU or mLSTM layer; no boundary, paged attention or wire kernel."""
     from repro_torch.core import split as SP
     from repro_torch.launch import serve
@@ -2262,8 +2383,9 @@ def phase_sync_main_path(cfg, smi: str):
     launches = {k: f.launches for k, f in fns.items()}
     prefills = calls.get("prefill", 0)
     steps = calls.get("split_decode_step", 0) + calls.get("decode_step", 0)
-    gen = summary["generated"]
-    check(summary["tokens"] == 8 * 16 and len(gen) == 8
+    gen = sync_rows(summary["generated"])
+    check(summary["tokens"] == len(gen) * 16 and len(gen) == 8 * (
+              cfg.n_codebooks if tails_per_step(cfg) == 0 else 1)
           and all(len(r) == 16 and all(0 <= v < cfg.vocab_size for v in r)
                   for r in gen),
           f"sync main path {cfg.name}: {summary['tokens']} tokens")
@@ -2272,7 +2394,7 @@ def phase_sync_main_path(cfg, smi: str):
           f"sync main path {cfg.name}: {prefills} prefills, {steps} steps")
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
     expect = {k: 0 for k in fns}
-    expect["decode_tail_grouped"] = steps
+    expect["decode_tail_grouped"] = tails_per_step(cfg) * steps
     expect["rglru_scan"] = scan_layers(kinds) * prefills
     for k, n in expect.items():
         if n:
@@ -3315,6 +3437,330 @@ def phase_scale_out(dev, smi: str) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the frontend archs, the int8 KV cache, the bank-free engine
+# ---------------------------------------------------------------------------
+
+def frontend_kernels(cap, cfg, dev, seed: int, iters: int) -> dict:
+    """The kernels at a frontend arch's full-width shapes, on its capture:
+    the boundary at 4 rows, the 64-row prefill dispatch and 512 rows, each
+    row bit-identical alone and in its pool, with the plan's tile
+    (llava-next-34b's d 7168 / W 1792 takes ``mt`` 1 at every row count;
+    musicgen-large's bank has two heads, W 512 and 128, so modes 0, 1 and
+    2 mix in its prefill pool); the tail at llava-next-34b's [7168, 64000]
+    head (musicgen-large's codebook heads launch none); paged attention at
+    head_dim 128 / GQA group 7 and 64 / 1, in both forms. Emits one line
+    and returns it."""
+    from repro_torch.core import bottleneck
+    out = {"phase": "kernels_at_arch", "arch": cfg.name,
+           "head_dim": cfg.head_dim,
+           "gqa_group": cfg.n_heads // cfg.n_kv_heads,
+           "bank": [list(w) for w in bottleneck.mode_widths(cfg.split)],
+           "boundary_mixed_grouped": dense_boundary(cap, cfg, dev, seed,
+                                                    iters)}
+    if cfg.name == "llava-next-34b":
+        mts = [r["mt"] for r in out["boundary_mixed_grouped"]["cases"]]
+        check(mts == [1, 1, 1], f"boundary {cfg.name}: tiles {mts}, the "
+                                f"plan gives mt 1 at d 7168 / W 1792")
+    if tails_per_step(cfg):
+        out["decode_tail_grouped"] = dense_tail(cap, cfg, dev, seed, iters)
+    paged = phase_paged(cap, cfg, dev, seed, iters, f32_long=False)
+    check(paged["long"]["pages_per_split"] < paged["long"]["nb"],
+          f"paged {cfg.name}: the long shape ran one range")
+    out["paged_attention"] = {k: paged[k] for k in (
+        "timed_shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "long", "max_abs_err")}
+    emit(out)
+    return out
+
+
+def vision_prefill(params, cfg, dev, seed: int) -> dict:
+    """``T.prefill`` at full width on the paged arena with a [2, 576, d]
+    bf16 vision prefix (from the seed) and 16 Markov text tokens: 592
+    positions, 74 pages a row; its last-position logits against
+    ``T.forward(embeddings=)``'s within ``TOL["vision_prefill"]``; then 8
+    decode steps through the fused tail on the arena, whose paged
+    attention runs the split form, their launches counted."""
+    import torch
+
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.kernels.paged_attention import pages_per_split_for
+    from repro_torch.models import transformer as T
+    B, text, steps, plen = 2, 16, 8, 8
+    S = cfg.n_vision_tokens + text
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    emb = torch.randn((B, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    toks = torch.from_numpy(MarkovTokenSource(cfg, seed=7).batch(
+        B, text)["tokens"]).to(dev)
+    nb = -(-(S + steps) // plen)            # the prompt's pages + decode's
+    bt = torch.arange(1, B * nb + 1, dtype=torch.int32,
+                      device=dev).reshape(B, nb)
+    arena = T.init_decode_state(cfg, B * nb + 1, plen, device=dev)
+    fns = zero_counts()
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, _ = T.prefill(params, toks, cfg, arena, embeddings=emb,
+                              block_table=bt)
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = {k: f.launches for k, f in fns.items()}
+        seen: list = []
+        with recording(T, "lm_logits", seen):
+            full, _ = T.forward(params, toks, cfg, embeddings=emb)
+        want = full[:, -1].clone()
+        del full
+        got = logits[:, 0]
+        xn = seen[0][1][:, -1]              # the forward's normed last row
+        del seen
+        w = params["lm_head"]["w"]
+        d = cfg.d_model
+        env = (2.0 ** -7 + 2 * d * 2.0 ** -24) * (
+            xn.abs().float() @ w.abs().float())
+        err = (got - want).abs()
+        ratio = float((err / env).max())
+        top2 = torch.topk(want, 2, dim=-1).values
+        gap = ((top2[:, 0] - top2[:, 1])
+               / want.abs().amax(-1)).cpu().tolist()
+        same = (got.argmax(-1) == want.argmax(-1)).cpu().tolist()
+        check(ratio <= 1.0 and bool(torch.isfinite(got).all())
+              and all(s or g < TOL["tail_rel_gap"]
+                      for s, g in zip(same, gap)),
+              f"vision prefill: logits {float(err.max())} off the forward's "
+              f"(worst envelope ratio {ratio:.3f}), argmax equal {same} at "
+              f"top-two gaps {gap}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        pps = pages_per_split_for(B, cfg.n_kv_heads, nb, sms)
+        check(pps < nb, f"vision decode: {nb} pages ran one range")
+        tok = got.argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+        fns = zero_counts()
+        out_toks = []
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, _ = T.decode_step(params, tok, arena, pos, cfg,
+                                   return_tokens=True, block_table=bt)
+            out_toks.append(tok)
+            pos = pos + 1
+        sync(dev)
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {k: f.launches for k, f in fns.items()}
+    expect = {k: 0 for k in fns}
+    expect["decode_tail_grouped"] = steps
+    expect["paged_attention"] = cfg.n_layers * steps
+    check(launches == expect, f"vision decode: launches {launches}, "
+                              f"expected {expect}")
+    gen_toks = torch.cat(out_toks, dim=-1).cpu().tolist()
+    check(all(0 <= v < cfg.vocab_size for r in gen_toks for v in r),
+          "vision decode: tokens out of the vocabulary")
+    del arena, env, xn
+    out = {"phase": "vision_prefill", "arch": cfg.name,
+           "shape": {"B": B, "vision": cfg.n_vision_tokens, "text": text,
+                     "positions": S, "pages_a_row": -(-S // plen)},
+           "tolerance": TOL["vision_prefill"],
+           "logit_max_abs_err": float(err.max()),
+           "envelope_ratio": ratio, "argmax_equal": same,
+           "top_two_gap": gap, "prefill_s": prefill_s,
+           "prefill_launches": prefill_launches,
+           "decode_ms_a_step": step_ms, "decode_launches": launches,
+           "pages_per_split": pps, "table_width": nb, "tokens": gen_toks}
+    emit(out)
+    return out
+
+
+def gap_engine(gaps: dict, engines: list):
+    """The continuous engine recording each decode tick's top-two logit
+    gap, over the largest |logit|, by (tick, slot) into ``gaps`` (for the
+    logits + argmax window, ``fused_tail=False``); each engine built is
+    appended to ``engines``."""
+    import torch
+
+    from repro_torch.serving.batcher import ContinuousBatchingEngine
+
+    class GapEngine(ContinuousBatchingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+        def _run_window(self, modes_k, bt):
+            self._gap_tick = self.tick
+            return super()._run_window(modes_k, bt)
+
+        def _decode(self, tok, positions, modes, bt, return_tokens):
+            out = super()._decode(tok, positions, modes, bt, return_tokens)
+            lg = out.reshape(out.shape[0], -1).float()
+            top = torch.topk(lg, 2, dim=-1).values
+            g = (top[:, 0] - top[:, 1]) / lg.abs().amax(-1)
+            gaps[self._gap_tick] = g.cpu().tolist()
+            self._gap_tick += 1
+            return out
+    return GapEngine
+
+
+def bank_free_runs(params, cfg, smi: str) -> dict:
+    """The continuous engine at full width on a bank-free view of
+    ``params`` (no copy), through ``serve.run_continuous`` with the main
+    path's arguments: fused (a tick launches no boundary, one tail and one
+    paged attention a layer) and with ``fused_tail=False`` (no tail: the
+    logits + argmax chain), counters at 0 just before each. The unfused
+    run's tokens must equal the fused run's request by request, or part
+    first at a near tie (top-two gap under ``TOL["tail_rel_gap"]`` of the
+    largest |logit|). Returns each run's launches."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    view = bank_free(params)
+    args = serve.parser().parse_args(SERVE[cfg.name] + ["--device", "cuda"])
+    by_path, runs, gaps, engines = {}, {}, {}, []
+    for label, kw in (("fused", {}), ("unfused", {"fused_tail": False})):
+        fns = zero_counts()
+        calls: dict = {}
+        cls = gap_engine(gaps, engines) if kw else None
+        with serve_engine(cls, **kw), counting(T, "prefill", calls), \
+                counting(T, "decode_step", calls):
+            summary = serve.run_continuous(args, cfg, view)
+        launches = {k: f.launches for k, f in fns.items()}
+        ticks = calls.get("decode_step", 0)
+        check(summary["requests_finished"] == 8
+              and set(summary["mode_counts"]) == {0},
+              f"bank-free {label}: {summary['requests_finished']} of 8 "
+              f"finished, modes {summary['mode_counts']}")
+        expect = {k: 0 for k in fns}
+        expect["decode_tail_grouped"] = ticks if label == "fused" else 0
+        expect["paged_attention"] = cfg.n_layers * ticks
+        check(ticks > 0 and launches == expect,
+              f"bank-free {label}: launches {launches} for {ticks} ticks, "
+              f"expected {expect}")
+        runs[label] = summary
+        by_path[f"{cfg.name} bank-free {label}"] = launches
+        emit({"phase": "bank_free", "arch": cfg.name, "tail": label,
+              "requests_finished": summary["requests_finished"],
+              "decode_ticks": summary["decode_ticks"],
+              "decode_tok_per_s": summary["decode_tok_per_s"],
+              "seconds": summary["seconds"], "launches": launches,
+              "prefills": calls.get("prefill", 0), "decode_steps": ticks,
+              "card": smi})
+    eng = engines[-1]
+    slot_of = {s.request.rid: (s.admitted_tick, s.slot)
+               for s in eng.finished}
+    parted = {}
+    for rid, want in runs["fused"]["tokens"].items():
+        got = runs["unfused"]["tokens"][rid]
+        i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if i is None:
+            continue
+        t0, slot = slot_of[rid]
+        gap = gaps[t0 + i - 1][slot] if i else None
+        parted[rid] = {"index": i, "top_two_gap": gap}
+        check(gap is not None and gap < TOL["tail_rel_gap"],
+              f"bank-free: request {rid}'s unfused tokens part from the "
+              f"fused ones at index {i}, top-two gap {gap}")
+    emit({"phase": "unfused_oracle", "arch": cfg.name,
+          "requests": len(runs["fused"]["tokens"]),
+          "requests_equal": len(runs["fused"]["tokens"]) - len(parted),
+          "parted_at_near_ties": parted})
+    return by_path
+
+
+def int8_cache(params, cfg, dev, seed: int) -> dict:
+    """The int8 rolling cache at full width (musicgen-large: full MHA, the
+    larger state a token of the two frontend archs) against bf16: batch 8,
+    ``cache_len`` 1024, 10 decode steps from position 0 on the same tokens
+    (bf16's greedy ones), with ``tests/test_kv_quant.py``'s bounds: state
+    bytes under ``KV8_BYTES``, greatest relative logit error (the norm of
+    the difference over the norm) under ``KV8_LOGIT_REL``, greedy agreement
+    at least ``KV8_AGREE``; ms a step of each."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    B, clen, steps = 8, 1024, 10
+    st = {bits: T.init_decode_state(cfg, B, clen, device=dev, kv_bits=bits)
+          for bits in (0, 8)}
+    nbytes = {bits: sum(a.numel() * a.element_size()
+                        for a in T.tree_leaves(s)) for bits, s in st.items()}
+    ratio = nbytes[8] / nbytes[0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    shape = (B, cfg.n_codebooks, 1) if tails_per_step(cfg) == 0 else (B, 1)
+    tok = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev,
+                        dtype=torch.int32)
+    ms = {0: [], 8: []}
+    rel, agree, total = 0.0, 0, 0
+    with torch.no_grad():
+        for i in range(steps):
+            out = {}
+            for bits in (0, 8):
+                sync(dev)
+                t0 = time.perf_counter()
+                out[bits], _ = T.decode_step(params, tok, st[bits], i, cfg)
+                sync(dev)
+                ms[bits].append((time.perf_counter() - t0) * 1e3)
+            lf, lq = out[0].float(), out[8].float()
+            rel = max(rel, float(torch.linalg.vector_norm(lf - lq)
+                                 / torch.linalg.vector_norm(lf)))
+            agree += int((lf.argmax(-1) == lq.argmax(-1)).sum())
+            total += lf.argmax(-1).numel()
+            tok = lf.argmax(-1).to(torch.int32).reshape(tok.shape)
+    del st
+    check(ratio < KV8_BYTES and rel < KV8_LOGIT_REL
+          and agree >= KV8_AGREE * total,
+          f"int8 cache: bytes {ratio:.4f} of bf16, relative logit error "
+          f"{rel:.4g}, {agree} of {total} greedy tokens agree")
+    out = {"phase": "int8_cache", "arch": cfg.name, "batch": B,
+           "cache_len": clen, "steps": steps, "state_bytes": nbytes[0],
+           "state_bytes_int8": nbytes[8], "bytes_ratio": ratio,
+           "max_rel_logit_err": rel, "greedy_agree": agree,
+           "greedy_total": total,
+           "ms_a_step": statistics.median(ms[0][1:]),
+           "ms_a_step_int8": statistics.median(ms[8][1:])}
+    emit(out)
+    return out
+
+
+def phase_frontends(dev, seed: int, iters: int, smi: str) -> dict:
+    """Phase 14: musicgen-large and llava-next-34b at full width, one model
+    on the card at a time. Each: captured, its kernels at its shapes
+    (``frontend_kernels``); musicgen-large's int8 cache; llava-next-34b's
+    vision prefill and its bank-free engine, fused and unfused, on the
+    captured weights; then freed, and the reduced f32 references (both
+    engines; the bank-free and unfused continuous forms), the main paths
+    on both engines through ``launch.serve.main`` and their profiles.
+    Returns the launches of each path."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    by_path = {}
+    for name in FRONTENDS:
+        cfg = get_config(name)
+        t1 = time.perf_counter()
+        cap = capture(cfg, dev, seed)
+        emit({"phase": "capture", "arch": name,
+              "seconds": time.perf_counter() - t1,
+              "lengths": [int(n) for n in cap["lens"]]})
+        frontend_kernels(cap, cfg, dev, seed, iters)
+        params = cap["params"]
+        del cap
+        free_cuda()
+        if tails_per_step(cfg):
+            vision_prefill(params, cfg, dev, seed)
+            free_cuda()
+            by_path.update(bank_free_runs(params, cfg, smi))
+        else:
+            int8_cache(params, cfg, dev, seed)
+        del params
+        free_cuda()
+        phase_reference(name, forms=True)
+        phase_sync_reference(name)
+        for engine, main_path in (("continuous", phase_main_path),
+                                  ("sync", phase_sync_main_path)):
+            by_path[f"{name} {engine}"] = main_path(cfg, smi)
+            free_cuda()
+            phase_profile(cfg, engine)
+            free_cuda()
+    emit({"phase": "frontends", "seconds": time.perf_counter() - t0})
+    return by_path
+
+
 SOURCES = {
     "boundary_mixed_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
     "decode_tail_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
@@ -3425,6 +3871,8 @@ def main(argv=None) -> int:
     by_path.update(phase_train(args.seed, dev, smi))
     free_cuda()
     by_path.update(phase_scale_out(dev, smi))
+    free_cuda()
+    by_path.update(phase_frontends(dev, args.seed, args.iters, smi))
 
     emit({"phase": "untraced", "measurements": UNTRACED})
     print(smi, flush=True)

@@ -15,20 +15,19 @@ from typing import Dict, List
 from repro_torch.configs.base import LSTMConfig, ModelConfig, SplitConfig
 
 _MODULES: Dict[str, str] = {
-    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
-    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
-    "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
-    "granite-8b": "repro_torch.configs.granite_8b",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "granite-8b": "repro_torch.configs.granite_8b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "lumos5g-lstm": "repro_torch.configs.lumos5g_lstm",
 }
 
 #: archs of the reference registry the port does not run yet
-_NOT_PORTED = (
-    "musicgen-large", "llava-next-34b", "phi3.5-moe-42b-a6.6b",
-    "mixtral-8x7b",
-)
+_NOT_PORTED = ("phi3.5-moe-42b-a6.6b", "mixtral-8x7b")
 
 ARCH_IDS: List[str] = [k for k in _MODULES if k != "lumos5g-lstm"]
 

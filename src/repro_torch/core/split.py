@@ -60,14 +60,15 @@ def _split_states(states, cfg: ModelConfig, s: int):
 # ---------------------------------------------------------------------------
 
 def encoder_apply(params, tokens, cfg: ModelConfig, mode: int, *,
-                  train: bool = False):
+                  train: bool = False, embeddings=None):
     """UE side. Returns (payload, aux, info); the payload crosses the link:
     mode 0 the raw boundary activation and None; mode m the int codes and
     f32 scales of head m (under ``train``, its straight-through
-    fake-quantized code and None). ``info``: the positions and the wire
-    bytes."""
+    fake-quantized code and None). ``embeddings``: a vision prefix,
+    embedded before the text as in ``T.forward``. ``info``: the positions
+    and the wire bytes (of the embedded sequence, prefix included)."""
     s = cfg.split.split_at
-    x = T.embed_tokens(params, tokens, cfg)
+    x = T.embed_tokens(params, tokens, cfg, embeddings)
     B, S = x.shape[:2]
     positions = T.seq_positions(x)
     enc, _ = slice_layers(params["layers"], cfg, s)
@@ -104,11 +105,11 @@ def decoder_apply(params, payload, positions, cfg: ModelConfig, mode: int, *,
 
 
 def split_forward(params, tokens, cfg: ModelConfig, mode: int = 0, *,
-                  train: bool = False):
+                  train: bool = False, embeddings=None):
     """End-to-end split forward (the wire is identity on the payload's
     values; its bytes are in ``info``). Returns (logits, aux, info)."""
     payload, aux1, info = encoder_apply(params, tokens, cfg, mode,
-                                        train=train)
+                                        train=train, embeddings=embeddings)
     logits, aux2 = decoder_apply(params, payload, info["positions"], cfg,
                                  mode, train=train)
     return logits, aux1 + aux2, info
@@ -137,10 +138,11 @@ def split_decode_step(params, token, states, cur_pos, cfg: ModelConfig,
     """One-token decode with the boundary activation crossing the link in
     bottleneck ``mode`` (the whole batch on one mode). Encoder-side layer
     states stay on the UE, decoder-side ones at the edge; both update in
-    place. token: [B, 1]; ``cur_pos``: one int for aligned rows or a [B]
-    tensor. Returns (logits [B, 1, V], states, payload_bytes); with
-    ``return_tokens`` the fused decode tail replaces the logits with argmax
-    int32 tokens [B, 1]."""
+    place. token: [B, 1] ([B, K, 1] audio); ``cur_pos``: one int for
+    aligned rows or a [B] tensor. Returns (logits [B, 1, V] ([B, K, 1, V]
+    audio), states, payload_bytes); with ``return_tokens`` the decode tail
+    (``T.decode_tail_tokens``) replaces the logits with argmax int32
+    tokens shaped like ``token``."""
     s = cfg.split.split_at
     x = T.embed_tokens(params, token, cfg)
     B = x.shape[0]
@@ -166,8 +168,9 @@ def split_decode_step_mixed(params, stacked_bank, token, states, positions,
     (``mode_idx`` [B]: 0 = raw code z, m >= 1 = head m-1 of
     ``stacked_bank``). ``states`` update in place: the paged arena with
     ``block_table`` ([B, nb]), the dense per-slot state without.
-    Returns (logits [B, 1, V], states); with ``return_tokens`` the fused
-    decode tail replaces the logits with argmax int32 tokens [B, 1]."""
+    token: [B, 1] ([B, K, 1] audio). Returns (logits [B, 1, V] ([B, K, 1,
+    V] audio), states); with ``return_tokens`` the decode tail replaces
+    the logits with argmax int32 tokens shaped like ``token``."""
     s = cfg.split.split_at
     x = T.embed_tokens(params, token, cfg)
     enc_l, dec_l = slice_layers(params["layers"], cfg, s)
@@ -214,7 +217,8 @@ def split_prefill(params, tokens, cfg: ModelConfig, states, mode: int = 0,
     """Whole-prompt split prefill in one forward pass: encoder layers, the
     boundary through bottleneck ``mode`` (the prompt's single uplink
     transfer), decoder layers, filling every layer's decode state in place.
-    tokens: [B, S] right-padded; ``lengths``: optional [B] true lengths.
+    tokens: [B, S] ([B, K, S] audio) right-padded; ``lengths``: optional
+    [B] true lengths.
     Returns (last-real-position logits [B, 1, V], states, payload_bytes);
     the bytes cover the full padded [B, S] bucket, as in the reference."""
     logits, states = _prefill_through(

@@ -11,6 +11,8 @@ fleet).
         --arch recurrentgemma-2b --cache-len 2048 --policy static1
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-20b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b
     # continuous batching: per-request channels, per-slot bottleneck modes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --engine continuous --requests 8 --prompt-len 16 --gen 16
@@ -37,11 +39,15 @@ Policies (sync engine):
 
 ``--arch`` takes the archs of the port's registry. The continuous engine
 serves the dense archs (qwen2.5-3b, stablelm-3b, granite-8b,
-internlm2-20b) from the paged pool, and recurrentgemma-2b (RG-LRU and
-local-attention blocks) and xlstm-125m (mLSTM and sLSTM blocks) from the
-dense slot pool, whose rolling caches hold ``min(--cache-len,
-local_window)`` rows (the recurrent carries do not depend on it); the
-sync engine keeps one dense state of ``--requests`` rows.
+internlm2-20b, and the frontend archs musicgen-large and llava-next-34b)
+from the paged pool, and recurrentgemma-2b (RG-LRU and local-attention
+blocks) and xlstm-125m (mLSTM and sLSTM blocks) from the dense slot pool,
+whose rolling caches hold ``min(--cache-len, local_window)`` rows (the
+recurrent carries do not depend on it); the sync engine keeps one dense
+state of ``--requests`` rows. musicgen-large's prompts are ``[K, S]``
+codebook tokens from the Markov stream and it decodes K tokens a step;
+llava-next-34b is served on text prompts (its vision prefix goes through
+``T.prefill(embeddings=)``, not the engines, as in the reference).
 
 The cluster and fleet engines run their replicas on the one device, over
 one set of weights. ``--telemetry`` (or ``--trace-out``) attaches the
@@ -417,8 +423,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True, choices=ARCH_IDS,
                     help="an arch of the port's registry: dense "
                          "(qwen2.5-3b, stablelm-3b, granite-8b, "
-                         "internlm2-20b) or recurrent (recurrentgemma-2b, "
-                         "xlstm-125m)")
+                         "internlm2-20b), audio (musicgen-large), vision "
+                         "(llava-next-34b) or recurrent "
+                         "(recurrentgemma-2b, xlstm-125m)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--engine", default="sync",
                     choices=["sync", "continuous", "cluster", "fleet"],

@@ -1,6 +1,8 @@
 """Training launcher of the port, on one device (mirrors
 ``repro.launch.train`` without the mesh): random split parameters from
-``--seed``, the Markov token stream, the (optionally split) training loop
+``--seed``, the Markov token stream (``[B, K, S]`` codebooks for audio;
+for a vision arch ``--seq`` less the prefix of text after a vision prefix
+drawn by ``data.tokens.make_batch``), the (optionally split) training loop
 or Algorithm 1's cascade, then a checkpoint in the reference's ``.npz``
 layout and its ``_history.json``.
 
@@ -90,9 +92,16 @@ def main(argv=None):
                        warmup_steps=max(args.steps // 10, 1),
                        total_steps=max(args.steps, 100), seed=args.seed)
     src = tokens.MarkovTokenSource(cfg, seed=args.seed)
+    text = tokens.token_batch_shapes(cfg, args.batch, args.seq,
+                                     "train")["tokens"][-1]
 
     def data_fn(s):
-        return src.batch(args.batch, args.seq, s)
+        batch = src.batch(args.batch, text, s)
+        if cfg.frontend == "vision":     # the prefix: Nv + text = --seq
+            batch["embeddings"] = tokens.make_batch(
+                cfg, args.batch, args.seq, step=s,
+                seed=args.seed)["embeddings"]
+        return batch
 
     os.makedirs(args.ckpt_dir, exist_ok=True)
     history: dict = {}

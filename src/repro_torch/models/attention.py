@@ -3,7 +3,10 @@ bias, plain-op causal and sliding-window attention for the full-sequence
 forward and prefill, dense and blocked (no SDPA, so the numerics stay the
 reference's), the paged arena's prefill scatter and
 one-token decode through a block table, and the dense per-slot rolling
-cache's prefill and decode (the window of local-attention archs).
+cache's prefill and decode (the window of local-attention archs), in bf16
+/ f32 or as the reference's int8 cache (``kv_bits=8``: codes and one
+float32 scale per position and head; the paged arena has no int8 form,
+as in the reference).
 
 Caches and arenas are updated in place (the reference returns new ones);
 callers pass per-layer views of the pool's state.
@@ -14,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.core import quant as Q
 from repro_torch.models.layers import apply_rope, dense_init
 from repro_torch.models.scan_utils import recording, remat
 
@@ -225,12 +229,35 @@ def init_cache(batch: int, n_kv: int, hd: int, cache_len: int,
                dtype=torch.bfloat16, kv_bits: int = 0, device=None):
     """Per-layer rolling KV cache ``{"k","v"}: [batch, cache_len, n_kv,
     hd]``; ``cache_len`` is the window for windowed archs, the full
-    context otherwise. The int8 cache (``kv_bits=8``) is not ported."""
-    if kv_bits:
-        raise NotImplementedError("repro_torch has no int8 KV cache yet")
+    context otherwise. ``kv_bits=8``: int8 codes ``k``/``v`` and float32
+    scales ``k_s``/``v_s`` of shape [batch, cache_len, n_kv, 1], one per
+    position and head (the reference's int8 cache); the prefill and
+    decode paths tell the two apart by the scale leaves."""
     shape = (batch, cache_len, n_kv, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_bits == 0:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_bits != 8:
+        raise ValueError(f"kv_bits must be 0 or 8, got {kv_bits}")
+    sshape = (batch, cache_len, n_kv, 1)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_s": torch.zeros(sshape, dtype=torch.float32, device=device)}
+
+
+def _kv_codes(k, v):
+    """The int8 cache's leaves for rows of K and V: codes and float32
+    scales (``quant.quantize``: one absmax / 127 scale per position and
+    head, floored at 1e-8)."""
+    kq, ks = Q.quantize(k, 8)
+    vq, vs = Q.quantize(v, 8)
+    return {"k": kq, "k_s": ks, "v": vq, "v_s": vs}
+
+
+def _dequant(c, name: str, dtype):
+    """Leaf ``name`` of int8 leaves ``c`` dequantized to ``dtype``."""
+    return (c[name].float() * c[name + "_s"]).to(dtype)
 
 
 def prefill_attention(p, x, positions, cache, *, n_q: int, n_kv: int,
@@ -244,7 +271,9 @@ def prefill_attention(p, x, positions, cache, *, n_q: int, n_kv: int,
     lengths[b]``) are not written (the reference drops them with an
     out-of-bounds index; here they are masked out). x: [B, S, d];
     positions: [B, S]; ``cache``: one layer's ``{"k","v"}`` [B, cache_len,
-    n_kv, hd]. Returns out [B, S, d]."""
+    n_kv, hd], or the int8 cache, where the prompt attends its dequantized
+    K/V (what decode reads back) and the codes and scales are stored.
+    Returns out [B, S, d]."""
     B, S = x.shape[:2]
     clen = cache["k"].shape[1]
     q, k, v = _project_qkv(p, x, n_q, n_kv, hd)
@@ -254,10 +283,17 @@ def prefill_attention(p, x, positions, cache, *, n_q: int, n_kv: int,
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     lengths = lengths.to(device=x.device, dtype=torch.long)
 
+    rows_of = {"k": k, "v": v}
+    k_att, v_att = k, v
+    if "k_s" in cache:
+        rows_of = _kv_codes(k, v)
+        k_att = _dequant(rows_of, "k", k.dtype)
+        v_att = _dequant(rows_of, "v", v.dtype)
+
     # decode only ever sees the last ``clen`` positions, so the prefill
     # window is capped at the cache
     w_eff = min(window, clen) if window else window
-    out = _attend(q, k, v, positions, hd, w_eff)
+    out = _attend(q, k_att, v_att, positions, hd, w_eff)
 
     keep = min(S, clen)
     idx = lengths[:, None] - keep + torch.arange(keep, device=x.device)
@@ -268,8 +304,8 @@ def prefill_attention(p, x, positions, cache, *, n_q: int, n_kv: int,
     b_ix = torch.arange(B, device=x.device)[:, None].expand(B, keep)
     rows = b_ix[valid], slot[valid]
     src = b_ix[valid], idx_c[valid]
-    cache["k"][rows] = k[src]
-    cache["v"][rows] = v[src]
+    for name, a in rows_of.items():
+        cache[name][rows] = a[src]
     return out.to(x.dtype) @ p["wo"]["w"]
 
 
@@ -280,7 +316,9 @@ def decode_attention(p, x, cache, cur_pos, *, n_q: int, n_kv: int, hd: int,
     layer's ``{"k","v"}`` [B, cache_len, n_kv, hd], whose row ``pos %
     cache_len`` takes the new token (in place). With the cache as long as
     the window every written slot is inside it, so the mask reduces to
-    "has been written". Returns out [B, 1, d]."""
+    "has been written". The int8 cache stores the token's codes and
+    scales and attends the whole cache dequantized. Returns out [B, 1,
+    d]."""
     B = x.shape[0]
     clen = cache["k"].shape[1]
     q, k, v = _project_qkv(p, x, n_q, n_kv, hd)
@@ -289,12 +327,19 @@ def decode_attention(p, x, cache, cur_pos, *, n_q: int, n_kv: int, hd: int,
     k = apply_rope(k, pos, rope_theta)
     b_ix = torch.arange(B, device=x.device)
     slot = torch.remainder(pos[:, 0], clen).long()
-    cache["k"][b_ix, slot] = k[:, 0]
-    cache["v"][b_ix, slot] = v[:, 0]
-    scores = _gqa_scores(q, cache["k"]) / math.sqrt(hd)        # [B,kv,G,1,T]
+    if "k_s" in cache:
+        for name, a in _kv_codes(k, v).items():
+            cache[name][b_ix, slot] = a[:, 0]
+        ck = _dequant(cache, "k", k.dtype)
+        cv = _dequant(cache, "v", v.dtype)
+    else:
+        cache["k"][b_ix, slot] = k[:, 0]
+        cache["v"][b_ix, slot] = v[:, 0]
+        ck, cv = cache["k"], cache["v"]
+    scores = _gqa_scores(q, ck) / math.sqrt(hd)                # [B,kv,G,1,T]
     t = torch.arange(clen, device=x.device)
     n_fill = torch.clamp(pos[:, 0] + 1, max=clen)
     written = t[None, :] < n_fill[:, None]                     # [B, T]
     scores = torch.where(written[:, None, None, None, :], scores, NEG_INF)
-    out = _gqa_out(torch.softmax(scores, dim=-1), cache["v"]).to(x.dtype)
+    out = _gqa_out(torch.softmax(scores, dim=-1), cv).to(x.dtype)
     return out @ p["wo"]["w"]

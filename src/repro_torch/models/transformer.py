@@ -1,8 +1,9 @@
 """Decoder-only transformer for the ported families (mirrors
-``repro.models.transformer`` without MoE and the multimodal frontends):
-homogeneous attention stacks (dense GQA) and heterogeneous block patterns
-(RecurrentGemma's RG-LRU and local-attention blocks, xLSTM's alternating
-mLSTM and sLSTM blocks).
+``repro.models.transformer`` without MoE): homogeneous attention stacks
+(dense GQA, and the frontend archs: MusicGen's summed codebook embeddings
+with one LM head a codebook, LLaVA's vision prefix concatenated before the
+text) and heterogeneous block patterns (RecurrentGemma's RG-LRU and
+local-attention blocks, xLSTM's alternating mLSTM and sLSTM blocks).
 
 Homogeneous archs keep stacked ``[L, ...]`` layer leaves, and the layer
 runners loop over per-layer slices (views, no copies) where the reference
@@ -15,8 +16,9 @@ backward a zero tensor the size of the whole stack. Under ``train`` it
 recomputes each layer in the backward, as the reference's
 ``jax.checkpoint`` does. Decode state is updated in place: the paged arena
 ``{"k", "v"}`` of ``[L, n_pages, page_len, n_kv, hd]`` leaves, stacked
-dense rolling caches ``[L, B, cache_len, n_kv, hd]``, or a tuple of
-per-layer states (rolling caches, RG-LRU and xLSTM carries).
+dense rolling caches ``[L, B, cache_len, n_kv, hd]`` (or the int8
+cache's codes and scales, ``kv_bits=8``), or a tuple of per-layer states
+(rolling caches, RG-LRU and xLSTM carries).
 """
 from __future__ import annotations
 
@@ -90,12 +92,16 @@ def _kinds(cfg: ModelConfig) -> Tuple[str, ...]:
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.is_moe or cfg.frontend != "none" \
-            or not set(_kinds(cfg)) <= set(_KINDS):
+    if cfg.is_moe or not set(_kinds(cfg)) <= set(_KINDS):
         raise NotImplementedError(
             f"{cfg.name}: repro_torch runs dense attention, RG-LRU, mLSTM "
-            f"and sLSTM blocks only (MoE and multimodal archs are later "
-            f"slices)")
+            f"and sLSTM blocks only (MoE is a later slice)")
+
+
+def multi_codebook(cfg: ModelConfig) -> bool:
+    """Audio archs with several codebooks: K stacked embedding tables and
+    LM heads, tokens [B, K, S]."""
+    return cfg.frontend == "audio" and cfg.n_codebooks > 1
 
 
 def _attn_window(cfg: ModelConfig) -> int:
@@ -244,13 +250,13 @@ def block_apply_prefill(p, x, positions, state, cfg: ModelConfig,
 
 
 def block_state_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
-                     device=None):
+                     device=None, kv_bits: int = 0):
     dt = model_dtype(cfg)
     if kind == "attn":
         w = _attn_window(cfg)
         clen = min(cache_len, w) if w else cache_len
         return init_cache(batch, cfg.n_kv_heads, cfg.head_dim, clen,
-                          dtype=dt, device=device)
+                          dtype=dt, kv_bits=kv_bits, device=device)
     if kind == "rglru":
         return rglru_state_init(batch, cfg.d_rnn or cfg.d_model, dtype=dt,
                                 device=device)
@@ -272,16 +278,26 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     of per-layer trees otherwise)."""
     _check_supported(cfg)
     dt = model_dtype(cfg)
-    params: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=dt)}
+    K = cfg.n_codebooks
+    params: Dict[str, Any] = {}
+    if multi_codebook(cfg):             # K tables [K, V, d]
+        params["embed"] = _stacked(lambda: embed_init(
+            gen, cfg.vocab_size, cfg.d_model, dtype=dt), K)
+    else:
+        params["embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                     dtype=dt)
     if cfg.homogeneous:
-        params["layers"] = _stacked_init(gen, cfg, cfg.block_kind(0))
+        params["layers"] = _stacked(
+            lambda: block_init(gen, cfg, cfg.block_kind(0)), cfg.n_layers)
     else:
         params["layers"] = tuple(block_init(gen, cfg, cfg.block_kind(i))
                                  for i in range(cfg.n_layers))
     params["final_norm"] = norm_init(cfg.d_model, cfg.norm, dtype=dt,
                                      device=gen.device)
-    if not cfg.tie_embeddings:
+    if multi_codebook(cfg):             # K heads [K, d, V]
+        params["lm_head"] = _stacked(lambda: dense_init(
+            gen, cfg.d_model, cfg.vocab_size, dtype=dt), K)
+    elif not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        dtype=dt)
     return params
@@ -304,11 +320,11 @@ def prepare_params(params, cfg: ModelConfig) -> Dict[str, Any]:
     return {**params, "layers": layers}
 
 
-def _stacked_init(gen, cfg: ModelConfig, kind: str):
-    """``n_layers`` blocks of one kind as stacked ``[L, ...]`` leaves, drawn
-    block by block in layer order (the numbers ``torch.stack`` of the
-    per-block trees holds) and written into the stack as each is made, so
-    the peak is the stack plus one block."""
+def _stacked(draw, n: int):
+    """``n`` trees from ``draw()`` (a layer's block, a codebook's table or
+    head) as stacked ``[n, ...]`` leaves, drawn in order (the numbers
+    ``torch.stack`` of the trees holds) and written into the stack as each
+    is made, so the peak is the stack plus one tree."""
     def put(dst, src, i):
         if isinstance(dst, dict):
             for k in dst:
@@ -316,26 +332,29 @@ def _stacked_init(gen, cfg: ModelConfig, kind: str):
         else:
             dst[i].copy_(src)
 
-    first = block_init(gen, cfg, kind)
-    stack = tree_map(lambda a: a.new_empty((cfg.n_layers,) + a.shape), first)
+    first = draw()
+    stack = tree_map(lambda a: a.new_empty((n,) + a.shape), first)
     put(stack, first, 0)
     del first
-    for i in range(1, cfg.n_layers):
-        put(stack, block_init(gen, cfg, kind), i)
+    for i in range(1, n):
+        put(stack, draw(), i)
     return stack
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      device=None):
+                      device=None, kv_bits: int = 0):
     """Per-layer decode state: stacked ``{"k","v"}: [L, batch, clen, n_kv,
     hd]`` for homogeneous archs (a paged pool passes (arena pages,
-    page_len)), a tuple of per-layer states otherwise."""
+    page_len)), a tuple of per-layer states otherwise. ``kv_bits=8``: the
+    int8 rolling cache (codes and scales), in the attention blocks only."""
     if cfg.homogeneous:
-        one = block_state_init(cfg, "attn", batch, cache_len, "meta")
+        one = block_state_init(cfg, "attn", batch, cache_len, "meta",
+                               kv_bits)
         return tree_map(lambda a: torch.zeros((cfg.n_layers,) + a.shape,
                                               dtype=a.dtype, device=device),
                         one)
-    return tuple(block_state_init(cfg, kind, batch, cache_len, device)
+    return tuple(block_state_init(cfg, kind, batch, cache_len, device,
+                                  kv_bits if kind == "attn" else 0)
                  for kind in _kinds(cfg))
 
 
@@ -343,11 +362,22 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    """tokens: [B, S] int -> [B, S, d]."""
-    x = embed_apply(params["embed"], tokens.long())
+def embed_tokens(params, tokens, cfg: ModelConfig, embeddings=None):
+    """tokens: [B, S] int (or [B, K, S] audio) -> [B, S, d]. Audio sums the
+    K codebooks' rows in float32 and rounds once, as ``jnp.sum`` of the
+    reference does. ``embeddings``: the stubbed vision frontend's output
+    [B, Nv, d], cast to the model's dtype and put before the text (the
+    sequence is then Nv + S long)."""
+    if multi_codebook(cfg):
+        table = params["embed"]["table"]                     # [K, V, d]
+        k = torch.arange(table.shape[0], device=tokens.device)[:, None]
+        x = table[k, tokens.long()].float().sum(dim=1).to(table.dtype)
+    else:
+        x = embed_apply(params["embed"], tokens.long())
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.frontend == "vision" and embeddings is not None:
+        x = torch.cat([embeddings.to(x.dtype), x], dim=1)
     return x
 
 
@@ -356,8 +386,11 @@ def norm_apply_final(params, x, cfg: ModelConfig):
 
 
 def lm_logits(params, x, cfg: ModelConfig):
-    """Logits in float32: the tied read-out (``embed_logits``) or the LM
-    head."""
+    """Logits in float32: the tied read-out (``embed_logits``), the LM
+    head, or the K codebook heads ([B, K, S, V])."""
+    if multi_codebook(cfg):
+        return torch.einsum("bsd,kdv->bksv", x.float(),
+                            params["lm_head"]["w"].float())
     if cfg.tie_embeddings:
         return embed_logits(params["embed"], x)
     return x.float() @ params["lm_head"]["w"].float()
@@ -367,7 +400,14 @@ def decode_tail_tokens(params, x, cfg: ModelConfig):
     """Fused decode tail: final norm -> LM head -> argmax in one kernel on
     CUDA (``ops.decode_tail_op``); on the CPU its serving reference, which
     is expression-identical to the norm / lm_logits / argmax chain.
-    x: [B, S, d] decoder output (pre final norm). Returns int32 [B, S]."""
+    Multi-codebook audio heads keep that chain on every device, as the
+    reference does (a codebook's argmax is not one head's).
+    x: [B, S, d] decoder output (pre final norm). Returns int32 [B, S]
+    ([B, K, S] audio)."""
+    if multi_codebook(cfg):
+        xn = norm_apply_final(params, x, cfg)
+        return torch.argmax(lm_logits(params, xn, cfg), dim=-1).to(
+            torch.int32)
     from repro_torch.kernels import ops
     fn = params["final_norm"]
     if cfg.tie_embeddings:
@@ -388,11 +428,12 @@ def seq_positions(x):
     return torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, train: bool = False):
-    """Full-sequence forward. tokens: [B, S] int. Returns (logits [B, S, V]
-    float32, aux_loss). The multimodal frontends' ``embeddings`` are not
-    ported (``init_params`` refuses those archs)."""
-    x = embed_tokens(params, tokens, cfg)
+def forward(params, tokens, cfg: ModelConfig, *, train: bool = False,
+            embeddings=None):
+    """Full-sequence forward. tokens: [B, S] int ([B, K, S] audio);
+    ``embeddings``: a vision prefix [B, Nv, d]. Returns (logits [B, Nv +
+    S, V] float32 ([B, K, S, V] audio), aux_loss)."""
+    x = embed_tokens(params, tokens, cfg, embeddings)
     x, aux = run_layers(params["layers"], x, seq_positions(x), cfg,
                         train=train)
     x = norm_apply_final(params, x, cfg)
@@ -400,8 +441,8 @@ def forward(params, tokens, cfg: ModelConfig, *, train: bool = False):
 
 
 def lm_loss(logits, labels, mask=None):
-    """Cross-entropy over the vocab axis; labels int [B, S]. A 0-d float32
-    tensor: the mean, or the ``mask``-weighted mean."""
+    """Cross-entropy over the vocab axis; labels int [B, S] or [B, K, S].
+    A 0-d float32 tensor: the mean, or the ``mask``-weighted mean."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if mask is not None:
@@ -409,24 +450,29 @@ def lm_loss(logits, labels, mask=None):
     return torch.mean(nll)
 
 
-def prefill(params, tokens, cfg: ModelConfig, states, lengths=None):
+def prefill(params, tokens, cfg: ModelConfig, states, lengths=None,
+            embeddings=None, block_table=None):
     """Batched full-sequence prefill: the whole prompt in one forward pass,
-    filling ``states`` in place (KV rows at their rolling slots, recurrent
-    carries advanced to each row's last real token). tokens: [B, S],
-    right-padded; ``lengths``: optional [B] true prompt lengths. Returns
-    (logits at each row's last real position [B, 1, V], states)."""
-    x = embed_tokens(params, tokens, cfg)
+    filling ``states`` in place (KV rows at their rolling slots or, with
+    ``block_table`` [B, nb], into the paged arena; recurrent carries
+    advanced to each row's last real token). tokens: [B, S] ([B, K, S]
+    audio), right-padded; a vision prefix ``embeddings`` is concatenated as
+    in :func:`forward`, and ``lengths`` (optional [B] true lengths) then
+    count the concatenated sequence. Returns (logits at each row's last
+    real position, [B, 1, V] ([B, K, 1, V] audio), states)."""
+    x = embed_tokens(params, tokens, cfg, embeddings)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=x.device)
     x = run_layers_prefill(params["layers"], x, seq_positions(x), states,
-                           cfg, lengths=lengths)
+                           cfg, lengths=lengths, block_table=block_table)
     return last_logits(params, x, lengths, cfg), states
 
 
 def last_logits(params, x, lengths, cfg: ModelConfig):
-    """Logits [B, 1, V] at each row's last real position of a prefill's
-    output x [B, S, d] (``lengths`` [B], or None: all S)."""
+    """Logits [B, 1, V] ([B, K, 1, V] audio) at each row's last real
+    position of a prefill's output x [B, S, d] (``lengths`` [B], or None:
+    all S)."""
     B, S = x.shape[:2]
     last = (lengths.long() - 1 if lengths is not None
             else torch.full((B,), S - 1, dtype=torch.long, device=x.device))
@@ -436,14 +482,17 @@ def last_logits(params, x, lengths, cfg: ModelConfig):
 
 
 def decode_step(params, token, states, cur_pos, cfg: ModelConfig,
-                return_tokens: bool = False):
-    """One new token against the decode state (updated in place). token:
-    [B, 1]; ``cur_pos``: one int for aligned rows or a [B] tensor. Returns
-    (logits [B, 1, V], states); with ``return_tokens`` the fused decode
-    tail replaces the logits with argmax int32 tokens [B, 1]."""
+                return_tokens: bool = False, block_table=None):
+    """One new token against the decode state (updated in place): the dense
+    state, or the paged arena through ``block_table`` [B, nb]. token:
+    [B, 1] ([B, K, 1] audio); ``cur_pos``: one int for aligned rows or a
+    [B] tensor. Returns (logits [B, 1, V] ([B, K, 1, V] audio), states);
+    with ``return_tokens`` the decode tail replaces the logits with argmax
+    int32 tokens shaped like ``token``."""
     x = embed_tokens(params, token, cfg)
     pos = batch_positions(cur_pos, x.shape[0], x.device)
-    x = run_layers_decode(params["layers"], x, states, pos, cfg)
+    x = run_layers_decode(params["layers"], x, states, pos, cfg,
+                          block_table=block_table)
     if return_tokens:
         return decode_tail_tokens(params, x, cfg), states
     x = norm_apply_final(params, x, cfg)

@@ -1,5 +1,5 @@
-"""Continuous-batching split serving (mirrors the mixed-mode, fused-tail
-path of ``repro.serving.batcher``).
+"""Continuous-batching split serving (mirrors ``repro.serving.batcher``:
+the mixed-mode split steps, the bank-free ones and both window bodies).
 
 The engine keeps ``n_slots`` decode slots over one of two pools: the paged
 pool (ONE global page arena per KV leaf, the default for homogeneous
@@ -27,7 +27,15 @@ Every engine tick it:
 
 ``host_loop=True`` keeps the synchronous per-tick loop (logits + argmax
 read back every tick) as the equivalence oracle; both loops decode
-identical token streams.
+identical token streams. ``fused_tail=False`` ends each window tick in
+the logits + argmax chain instead of the fused tail: the oracle the
+fused window's tokens are held against.
+
+Params without a bottleneck bank (no ``bneck_modes``) run the bank-free
+steps, as the reference's "mono" steps: ``T.decode_step`` and
+``T.prefill`` of the unsplit model (the boundary crosses raw), every
+tick accounted on mode 0. Audio archs carry ``[K, 1]`` tokens a slot and
+``[K, S]`` prompts; a session records codebook 0's token.
 
 ``telemetry=`` (a :class:`~repro_torch.serving.telemetry.Telemetry`)
 records the reference's host events and histograms (admission verdicts,
@@ -37,8 +45,7 @@ inter-token latency) and folds the per-tick int32 telemetry block
 late; it changes no token. Live migration between engines
 (``serving/migration.py``) reads and writes the pools through
 ``read_rows`` / ``write_rows`` (dense) and ``read_pages`` / ``write_pages``
-(paged). The bank-free mono steps and mesh sharding (``mesh=``) are not
-ported yet and raise.
+(paged). Mesh sharding (``mesh=``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -361,7 +368,8 @@ class ContinuousBatchingEngine:
     ``Channel``. The pool lives on the device of ``params``; the engine
     runs a prepared view of them (``T.prepare_params``), which shares
     every weight tensor with ``params`` — N engines over one model cost N
-    pools, not N models."""
+    pools, not N models. Params without a bottleneck bank run the
+    bank-free steps (raw boundary, mode 0)."""
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 8,
                  cache_len: int = 128,
@@ -376,6 +384,7 @@ class ContinuousBatchingEngine:
                  page_len: int = 8,
                  n_pages: Optional[int] = None,
                  mesh=None,
+                 fused_tail: bool = True,
                  telemetry: Optional[Telemetry] = None):
         if mesh is not None:
             raise NotImplementedError(
@@ -390,10 +399,9 @@ class ContinuousBatchingEngine:
                                  "orchestrator) or an orchestrator, not both")
             orchestrator = controller.orch
         bank = params.get("bneck_modes") or ()
-        if not len(bank):
-            raise NotImplementedError(
-                "repro_torch serves the mixed-mode split path only: params "
-                "need a bottleneck mode bank (init_split_params)")
+        if controller is not None and not len(bank):
+            raise ValueError("adaptive mode control needs a bottleneck mode "
+                             "bank in params (init_split_params)")
         self.params = T.prepare_params(params, cfg)
         self.cfg = cfg
         self.device = params["embed"]["table"].device
@@ -435,15 +443,20 @@ class ContinuousBatchingEngine:
         self.max_context: Optional[int] = (
             self.pool.capacity if self.paged
             else cache_len if T.full_attention_arch(cfg) else None)
-        self.stacked_bank = bottleneck.bank_stack(bank, cfg.split)
+        #: the stacked mode bank, or None: the bank-free steps
+        self.stacked_bank = (bottleneck.bank_stack(bank, cfg.split)
+                             if len(bank) else None)
+        self._tok_shape = ((n_slots, cfg.n_codebooks, 1)
+                           if T.multi_codebook(cfg) else (n_slots, 1))
+        self.fused_tail = bool(fused_tail)
         self.host_loop = host_loop
         self.max_window = max(int(max_window), 1)
         # device loop: tokens and positions stay on the device; the host
         # only receives small int32 token blocks, one window late
         if host_loop:
-            self.cur_tokens = np.zeros((n_slots, 1), np.int32)
+            self.cur_tokens = np.zeros(self._tok_shape, np.int32)
         else:
-            self.cur_tokens = torch.zeros((n_slots, 1), dtype=torch.int32,
+            self.cur_tokens = torch.zeros(self._tok_shape, dtype=torch.int32,
                                           device=self.device)
         self._positions = torch.zeros(n_slots, dtype=torch.int32,
                                       device=self.device)
@@ -465,7 +478,7 @@ class ContinuousBatchingEngine:
                            "mode_ticks": np.zeros(0, np.int64)}
         self._pb_table = None
         if self._tel is not None:
-            n_modes = cfg.split.n_modes
+            n_modes = cfg.split.n_modes if self.stacked_bank is not None else 1
             self.device_tel["mode_ticks"] = np.zeros(n_modes, np.int64)
             self._pb_table = np.asarray(
                 [self._payload_bytes(m) for m in range(n_modes)], np.int64)
@@ -561,7 +574,8 @@ class ContinuousBatchingEngine:
                     if req.channel is not None:
                         cap = req.channel.step()
                         self.orch.observe_capacity(cap, rid=req.rid)
-                    mode = self.orch.choose_mode(rid=req.rid)
+                    if self.stacked_bank is not None:
+                        mode = self.orch.choose_mode(rid=req.rid)
             admits.append((req, slot, mode, budget, cap))
         return admits
 
@@ -575,11 +589,11 @@ class ContinuousBatchingEngine:
         n = len(group)
         t_pre = _now() if self._tel is not None else 0.0
         bp = _bucket_len(n, lo=1)          # pow2 batch
-        toks = np.zeros((bp, blen), np.int32)
+        toks = np.zeros((bp,) + self._tok_shape[1:-1] + (blen,), np.int32)
         lens = np.ones(bp, np.int32)       # pad rows: harmless length-1 rows
         modes = np.zeros(bp, np.int32)
         for i, (req, _, mode, _, _) in enumerate(group):
-            toks[i, :req.prompt_len] = req.prompt
+            toks[i, ..., :req.prompt_len] = req.prompt
             lens[i] = req.prompt_len
             modes[i] = mode
         dev = self.device
@@ -594,11 +608,19 @@ class ContinuousBatchingEngine:
         else:
             states = T.init_decode_state(self.cfg, bp, self.pool.cache_len,
                                          device=dev)
-        logits, new_states = SP.split_prefill_mixed(
-            self.params, self.stacked_bank, torch.from_numpy(toks).to(dev),
-            states, self.cfg, torch.from_numpy(modes).to(dev),
-            lengths=torch.from_numpy(lens).to(dev), block_table=bt)
-        first_dev = torch.argmax(logits, dim=-1).to(torch.int32)   # [bp, 1]
+        toks_dev = torch.from_numpy(toks).to(dev)
+        lens_dev = torch.from_numpy(lens).to(dev)
+        if self.stacked_bank is not None:
+            logits, new_states = SP.split_prefill_mixed(
+                self.params, self.stacked_bank, toks_dev, states, self.cfg,
+                torch.from_numpy(modes).to(dev), lengths=lens_dev,
+                block_table=bt)
+        else:                              # no bank: the raw boundary
+            logits, new_states = T.prefill(self.params, toks_dev, self.cfg,
+                                           states, lengths=lens_dev,
+                                           block_table=bt)
+        # [bp, 1] ([bp, K, 1] audio)
+        first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
         self.prefill_calls += 1
         self.prefill_tokens += int(lens[:n].sum())
         self.prefill_padded_tokens += bp * blen
@@ -707,8 +729,11 @@ class ContinuousBatchingEngine:
                 else:
                     if cap is not None:
                         self.orch.observe_capacity(cap, rid=rid)
-                    mode = (sess.admission_mode if self.freeze_modes
-                            else self.orch.choose_mode(rid=rid))
+                    # no bank: only the raw boundary can cross, so the
+                    # tick is accounted on mode 0
+                    if self.stacked_bank is not None:
+                        mode = (sess.admission_mode if self.freeze_modes
+                                else self.orch.choose_mode(rid=rid))
                 pb = self._payload_bytes(mode)
                 link = self.orch.register(rid)
                 tx = tx_seconds(pb, cap if cap is not None
@@ -754,11 +779,10 @@ class ContinuousBatchingEngine:
                                       int(self.pool.positions[slot]) + 1)
             bt = self.pool.block_table()
         dev = self.device
-        logits, _ = SP.split_decode_step_mixed(
-            self.params, self.stacked_bank,
+        logits = self._decode(
             torch.from_numpy(self.cur_tokens.copy()).to(dev),
-            self.pool.states, torch.from_numpy(self.pool.positions.copy()).to(dev),
-            self.cfg, torch.from_numpy(modes).to(dev), bt)
+            torch.from_numpy(self.pool.positions.copy()).to(dev),
+            torch.from_numpy(modes).to(dev), bt, False)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
         if self._tel is not None:
@@ -889,17 +913,34 @@ class ContinuousBatchingEngine:
         self.tick += k
         return True
 
+    def _decode(self, tok, positions, modes, bt, return_tokens: bool):
+        """One decode step over the pool (in place): the mixed-mode split
+        step, or without a bank the unsplit model's. Returns its logits
+        or, with ``return_tokens``, the decode tail's tokens."""
+        if self.stacked_bank is None:
+            out, _ = T.decode_step(self.params, tok, self.pool.states,
+                                   positions, self.cfg,
+                                   return_tokens=return_tokens,
+                                   block_table=bt)
+        else:
+            out, _ = SP.split_decode_step_mixed(
+                self.params, self.stacked_bank, tok, self.pool.states,
+                positions, self.cfg, modes, bt, return_tokens=return_tokens)
+        return out
+
     def _run_window(self, modes_k: np.ndarray, bt) -> torch.Tensor:
-        """Enqueue K fused decode ticks on the device: each tick's tail
-        token feeds the next tick's embed and positions advance on the
-        device. Returns the window's [K, B, 1] int32 tokens (not read)."""
+        """Enqueue K decode ticks on the device: each tick's token (the
+        fused tail's, or with ``fused_tail=False`` the argmax of its
+        logits) feeds the next tick's embed and positions advance on the
+        device. Returns the window's [K, B, 1] ([K, B, K_cb, 1] audio)
+        int32 tokens (not read)."""
         modes_dev = torch.from_numpy(modes_k).to(self.device)
         tok, positions = self.cur_tokens, self._positions
         outs = []
         for i in range(modes_k.shape[0]):
-            nxt, _ = SP.split_decode_step_mixed(
-                self.params, self.stacked_bank, tok, self.pool.states,
-                positions, self.cfg, modes_dev[i], bt, return_tokens=True)
+            out = self._decode(tok, positions, modes_dev[i], bt,
+                               self.fused_tail)
+            nxt = out if self.fused_tail else torch.argmax(out, dim=-1)
             tok = nxt.to(torch.int32).reshape(tok.shape)
             outs.append(tok)
             positions = positions + 1

@@ -36,8 +36,8 @@ def make_serve_step(cfg: ModelConfig, *, mode: Optional[int] = None,
 
     mode None: the monolithic model; mode int: the split model with
     bottleneck mode m crossing the simulated link. With ``return_tokens``
-    the fused decode tail returns argmax int32 tokens [B, 1] instead of
-    the logits."""
+    the decode tail returns argmax int32 tokens shaped like ``token``
+    ([B, 1], or [B, K, 1] audio) instead of the logits."""
     if mode is None:
         def step(params, token, states, cur_pos):
             return T.decode_step(params, token, states, cur_pos, cfg,
@@ -98,7 +98,8 @@ class ServingEngine:
         self.stats = GenStats()
 
     def prefill(self, tokens) -> torch.Tensor:
-        """tokens: [B, S]. Returns the last position's logits [B, 1, V].
+        """tokens: [B, S] ([B, K, S] audio). Returns the last position's
+        logits [B, 1, V] ([B, K, 1, V] audio).
 
         From a fresh state this is one batched full-sequence forward; a
         mid-stream continuation (``pos > 0``) keeps the per-token decode
@@ -126,9 +127,10 @@ class ServingEngine:
 
     def decode_tokens(self, first_token, n_steps: int, *,
                       capacity_bps_fn=None) -> np.ndarray:
-        """Generate ``n_steps`` tokens per row from ``first_token`` [B, 1];
-        for each token the orchestrator picks the transmit mode from the
-        live channel capacity. Returns int32 [B, n_steps]."""
+        """Generate ``n_steps`` tokens per row from ``first_token`` [B, 1]
+        ([B, K, 1] audio); for each token the orchestrator picks the
+        transmit mode from the live channel capacity. Returns int32
+        [B, n_steps] ([B, K, n_steps] audio)."""
         T.check_cache_capacity(self.cfg, self.pos, n_steps, self.cache_len,
                                what="decode")
         tok = torch.as_tensor(first_token, device=self.device)

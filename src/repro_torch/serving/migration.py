@@ -85,7 +85,8 @@ from repro_torch.serving.session import Session
 
 #: accounted wire overhead per snapshot beyond the state leaves: position
 #: and rid/routing metadata (the current token is charged separately at
-#: 4 bytes per value)
+#: 4 bytes per value: an audio session's [K, 1] row carries one a
+#: codebook)
 SNAPSHOT_HEADER_BYTES = 16
 
 

@@ -36,16 +36,24 @@ def make_loss_fn(cfg: ModelConfig, *, mode: Optional[int] = None,
 
     mode None: the full-model forward; mode m: the split forward through
     bottleneck mode m (0 = raw boundary). ``batch``: "tokens" and "labels",
-    [B, S] int tensors on the parameters' device."""
+    [B, S] ([B, K, S] audio) int tensors on the parameters' device, and
+    for a vision arch optionally "embeddings" [B, Nv, d], the prefix: the
+    logits are then cut to the text positions before the loss."""
     _single_device(mesh, use_pipeline)
 
     def loss_fn(params, batch):
+        emb = batch.get("embeddings")
         if mode is None:
-            logits, aux = T.forward(params, batch["tokens"], cfg, train=True)
+            logits, aux = T.forward(params, batch["tokens"], cfg, train=True,
+                                    embeddings=emb)
         else:
             logits, aux, _ = SP.split_forward(params, batch["tokens"], cfg,
-                                              mode, train=True)
-        loss = T.lm_loss(logits, batch["labels"])
+                                              mode, train=True,
+                                              embeddings=emb)
+        labels = batch["labels"]
+        if cfg.frontend == "vision" and emb is not None:
+            logits = logits[:, -labels.shape[-1]:]     # text positions only
+        loss = T.lm_loss(logits, labels)
         total = loss + AUX_WEIGHT * aux
         return total, {"lm_loss": loss, "aux_loss": aux}
     return loss_fn
