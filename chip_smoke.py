@@ -125,6 +125,23 @@ Phases, each printing one JSON line; any failure exits nonzero:
     run's or part first at a near tie. The reduced f32 references (both
     engines; bank-free and unfused too), the main paths on both engines
     with their launches (musicgen-large launches no tail) and profiles.
+15. mixture of experts: phi3.5-moe-42b-a6.6b (16 experts, top 2, the
+    paged pool) and mixtral-8x7b (8 experts, top 2, a 4096-token window:
+    the dense rolling pool) at full width, cut to 26 and 24 of their 32
+    layers (``MOE_LAYERS``: 68 and 70 GB of bf16 weights), one model on
+    the card at a time. The reduced f32 references of both engines, card
+    against CPU, under the near-tie rule (``TOL["moe_near_tie"]``); the
+    tail at [4096, 32064] (a last slab of 64 columns) and [4096, 32000]
+    against its plain version (pools in place, 4 real rows of a 16-row
+    block, an exact tie, the last column made the argmax), timed with its
+    bound; mixtral's int8 rolling cache (batch 8, ``cache_len`` 1024, 10
+    steps; relative logit error under ``KV8_LOGIT_REL_MOE``); the main
+    paths on both engines through the launcher's runners on the cut
+    configs, with their launches, and profiles; the memory at each
+    model's peak. Then Algorithm 1's steps on phi3.5-moe at full width
+    and 2 layers (``MOE_TRAIN``): finite losses, the aux within (0,
+    layers * E], no kernel launched, ms a step, peak memory, a profiled
+    step.
 
 Kernel times come from ``torch.profiler`` traces. A trace can lose
 events: a lost one counts as its kernel's mean traced event (a call
@@ -244,10 +261,21 @@ TOL = {
     # row; an argmax that differs must sit at a top-two gap under
     # tail_rel_gap
     "vision_prefill": "(2^-7 + 2 d 2^-24) sum_k |xn_k w_kj| a logit",
+    # MoE routing is discontinuous: a token whose k-th and (k+1)-th router
+    # probabilities differ by less than this may route otherwise on f32
+    # sums in another order (the card's against the CPU's). The tokens of
+    # an MoE run may part from its reference only if the reference made
+    # such a near-tied decision, and at most this share of its decisions
+    # may be near ties; exact ties go to the lowest expert on both sides
+    "moe_near_tie": 1e-6,
+    "moe_near_tie_share": 0.01,
 }
 # the int8 KV cache against bf16 (tests/test_kv_quant.py's bounds, dense
-# archs): state bytes, greatest relative logit error, greedy agreement
+# archs): state bytes, greatest relative logit error, greedy agreement; MoE
+# routing is discontinuous (int8 noise can flip an expert choice), so the
+# reference holds MoE archs to a relative logit error under 0.25
 KV8_BYTES, KV8_LOGIT_REL, KV8_AGREE = 0.75, 0.05, 0.9
+KV8_LOGIT_REL_MOE = 0.25
 # device kernels a decode step of one RG-LRU layer issues fewer with its
 # float32 forms made once: the casts of w_a's and w_x's weights and biases
 # and of the conv taps (5), and -softplus(-lam) (neg, softplus, neg)
@@ -1824,6 +1852,12 @@ FRONTENDS = ("musicgen-large", "llava-next-34b")
 # the reduced stablelm-3b at the full model's proportion (head_dim 80 =
 # d_model / n_heads); the reduced config keeps head_dim 80 too
 HD80 = {"d_model": 160, "n_heads": 2, "n_kv_heads": 2, "head_dim": 80}
+# the mixture-of-experts archs of phase 15: phi3.5-moe (full attention,
+# the paged pool) and mixtral-8x7b (a 4096-token window, the dense pool)
+PHI, MIXTRAL = "phi3.5-moe-42b-a6.6b", "mixtral-8x7b"
+MOE = (PHI, MIXTRAL)
+# the archs the continuous engine serves from the paged pool
+PAGED = ("qwen2.5-3b", *DENSE, *FRONTENDS, PHI)
 
 
 def free_cuda() -> None:
@@ -1995,7 +2029,7 @@ SERVE = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SERVE_COMMON],
          "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SERVE_COMMON,
                                "--cache-len", "2048"],
          "xlstm-125m": ["--arch", "xlstm-125m", *SERVE_COMMON],
-         **{a: ["--arch", a, *SERVE_COMMON] for a in DENSE + FRONTENDS}}
+         **{a: ["--arch", a, *SERVE_COMMON] for a in DENSE + FRONTENDS + MOE}}
 
 
 @contextlib.contextmanager
@@ -2019,6 +2053,61 @@ def bank_free(params) -> dict:
     dict sharing every tensor (the engines then run the bank-free
     steps)."""
     return {k: v for k, v in params.items() if k != "bneck_modes"}
+
+
+def serve_run(argv: list, cfg=None, params=None) -> dict:
+    """``launch.serve.main(argv)``; with ``params``, the engine's own
+    runner (``run_continuous`` / ``run_sync``) on ``cfg`` (a config cut in
+    depth, which no flag of the launcher gives) and those weights, as
+    ``main`` calls it."""
+    from repro_torch.launch import serve
+    if params is None:
+        return serve.main(argv)
+    args = serve.parser().parse_args(argv)
+    run = {"continuous": serve.run_continuous,
+           "sync": serve.run_sync}[args.engine]
+    return {"arch": args.arch, **run(args, cfg, params)}
+
+
+@contextlib.contextmanager
+def near_ties(sink: list):
+    """Count, while the block runs, the routing decisions of
+    ``models.moe.route`` (one a token and layer) and those among them
+    whose k-th and (k+1)-th router probabilities differ by less than
+    ``TOL["moe_near_tie"]`` (exact ties resolve to the lowest index on
+    both sides and are not counted): ``sink`` gets (decisions, near
+    ties) a call."""
+    import torch
+    from repro_torch.models import moe
+    orig = moe.route
+
+    def rec(router_w, xg, k, capacity):
+        out = orig(router_w, xg, k, capacity)
+        top = torch.topk(out[0], k + 1, dim=-1).values
+        gap = top[..., k - 1] - top[..., k]
+        sink.append((gap.numel(), int(((gap > 0) & (
+            gap < TOL["moe_near_tie"])).sum())))
+        return out
+
+    moe.route = rec
+    try:
+        yield sink
+    finally:
+        moe.route = orig
+
+
+def check_near_ties(ties: list, equal: bool, label: str) -> dict:
+    """The near-tie rule of an MoE run against its reference: tokens may
+    part only where the reference saw a near tie, and near ties are at most
+    ``TOL["moe_near_tie_share"]`` of its routing decisions."""
+    decisions = sum(n for n, _ in ties)
+    near = sum(t for _, t in ties)
+    check(near <= TOL["moe_near_tie_share"] * max(decisions, 1),
+          f"{label}: {near} near-tied routing decisions of {decisions}")
+    check(equal or near > 0,
+          f"{label}: tokens differ on the card with no near-tied routing "
+          f"decision in the reference")
+    return {"routing_decisions": decisions, "near_ties": near}
 
 
 def phase_reference(arch: str, device: str = "cuda", variant=None,
@@ -2056,26 +2145,34 @@ def phase_reference(arch: str, device: str = "cuda", variant=None,
     for label, mbps, kw, no_bank in runs:
         args = SERVE[arch] + ["--reduced", "--mean-mbps", mbps, "--device"]
         on = (bank_free(gpu), bank_free(cpu)) if no_bank else (gpu, cpu)
+        ties: list = []
         with serve_engine(**kw):
             got = serve.run_continuous(
                 serve.parser().parse_args(args + [device]), cfg, on[0])
-            want = serve.run_continuous(
-                serve.parser().parse_args(args + ["cpu"]), cfg, on[1])
+            with near_ties(ties):
+                want = serve.run_continuous(
+                    serve.parser().parse_args(args + ["cpu"]), cfg, on[1])
         for k in ("mode_counts", "wire_bytes", "decode_ticks"):
             check(got[k] == want[k], f"reduced f32 {label}: {k} differs")
         toks = [(got["tokens"][r], want["tokens"][r]) for r in want["tokens"]]
         same = sum(a == b for a, b in toks)
         first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                       None) for a, b in toks]
-        if label != "mixed":
-            check(set(got["mode_counts"]) == {0} and same == len(toks),
-                  f"reduced f32 {label}: {len(toks) - same} requests decode "
-                  f"other tokens on the card (first differing index "
-                  f"{first})")
         out[label] = {"mode_counts": got["mode_counts"],
                       "wire_bytes": got["wire_bytes"],
                       "requests_with_equal_tokens": same,
                       "requests": len(toks), "first_differing_index": first}
+        if label != "mixed":
+            check(set(got["mode_counts"]) == {0},
+                  f"reduced f32 {label}: modes {got['mode_counts']}")
+            if cfg.is_moe:
+                out[label].update(check_near_ties(
+                    ties, same == len(toks), f"reduced f32 {label}"))
+            else:
+                check(same == len(toks),
+                      f"reduced f32 {label}: {len(toks) - same} requests "
+                      f"decode other tokens on the card (first differing "
+                      f"index {first})")
     emit(out)
 
 
@@ -2152,10 +2249,11 @@ def tails_per_step(cfg) -> int:
     return 0 if cfg.frontend == "audio" and cfg.n_codebooks > 1 else 1
 
 
-def phase_main_path(cfg, smi: str):
+def phase_main_path(cfg, smi: str, params=None):
     """The arch's serving entry point at full width with every launch
     counter at 0 just before and read just after, prefill dispatches and
-    decode ticks counted beside them (warm-up included). Per decode tick
+    decode ticks counted beside them (warm-up included); with ``params``,
+    its runner on them and ``cfg`` (``serve_run``). Per decode tick
     the device loop launches one boundary, one tail (none for
     musicgen-large's codebook heads) and one paged attention per layer on
     the paged pool; per prefill dispatch one
@@ -2164,13 +2262,13 @@ def phase_main_path(cfg, smi: str):
     forms are made once, when the engine prepares its parameters, and
     never on a step."""
     from repro_torch.core import split as SP
-    from repro_torch.launch import serve
     fns = zero_counts()
     calls: dict = {}
     with counting(SP, "split_prefill_mixed", calls), \
             counting(SP, "split_decode_step_mixed", calls), \
             counting_f32_forms(calls):
-        summary = serve.main(SERVE[cfg.name] + ["--device", "cuda"])
+        summary = serve_run(SERVE[cfg.name] + ["--device", "cuda"], cfg,
+                            params)
     launches = {k: f.launches for k, f in fns.items()}
     prefills = calls.get("split_prefill_mixed", 0)
     ticks = calls.get("split_decode_step_mixed", 0)
@@ -2181,8 +2279,7 @@ def phase_main_path(cfg, smi: str):
         check(len(t) == 16 and all(0 <= v < cfg.vocab_size for v in t),
               f"main path: request {rid} returned {len(t)} tokens")
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
-    check(summary["paged"] == (cfg.name in DENSE + FRONTENDS
-                               or cfg.name == "qwen2.5-3b"),
+    check(summary["paged"] == (cfg.name in PAGED),
           f"main path {cfg.name}: paged pool {summary['paged']}")
     expect = {"boundary_mixed_grouped": ticks + prefills,
               "decode_tail_grouped": tails_per_step(cfg) * ticks,
@@ -2198,7 +2295,8 @@ def phase_main_path(cfg, smi: str):
           f"prefill dispatches and {ticks} decode ticks, expected {expect}")
     check_f32_forms(calls, kinds, f"main path {cfg.name}")
     emit({"phase": "main_path", "engine": "continuous", "arch": cfg.name,
-          "dtype": cfg.dtype, "paged": summary["paged"],
+          "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+          "paged": summary["paged"],
           "requests_finished": summary["requests_finished"],
           "decode_tokens": summary["decode_tokens"],
           "decode_ticks": summary["decode_ticks"],
@@ -2221,19 +2319,19 @@ PROFILE_CUT = {"continuous": ["--requests", "4", "--gen", "8"],
                "sync": ["--gen", "8"]}
 
 
-def phase_profile(cfg, engine: str):
+def phase_profile(cfg, engine: str, params=None):
     """The arch's main path on ``engine`` once more, traced with
     ``torch.profiler`` (its rate is not the one reported above): device
     busy time, idle share, launches per decode step and the kernels that
     take the time. The Chrome trace lands in build/profile/<engine>/<arch>.
-    A sync run's launches per step include its one prefill's."""
-    from repro_torch.launch import serve
+    A sync run's launches per step include its one prefill's. With
+    ``params``: on them and ``cfg`` (``serve_run``)."""
     argv = (SERVE if engine == "continuous" else SYNC)[cfg.name]
     if cfg.homogeneous:
         argv = argv + PROFILE_CUT[engine]
-    summary = serve.main(argv + [
+    summary = serve_run(argv + [
         "--device", "cuda", "--profile-dir",
-        str(ROOT / "build" / "profile" / engine / cfg.name)])
+        str(ROOT / "build" / "profile" / engine / cfg.name)], cfg, params)
     prof = summary["profile"]
     steps = (summary["decode_ticks"] if engine == "continuous"
              else len(sync_rows(summary["generated"])[0]))
@@ -2247,7 +2345,7 @@ def phase_profile(cfg, engine: str):
               f"a decode step, above {ceiling} (the per-step RG-LRU float32 "
               f"casts are back)")
     emit({"phase": "profile", "engine": engine, "arch": cfg.name,
-          "decode_steps": steps,
+          "n_layers": cfg.n_layers, "decode_steps": steps,
           "device_traced": prof["kernel_launches"] > 0,
           "launches_per_decode_step": per_step,
           "launches_ceiling": ceiling,
@@ -2313,7 +2411,7 @@ SYNC = {"qwen2.5-3b": ["--arch", "qwen2.5-3b", *SYNC_COMMON],
         "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", *SYNC_COMMON,
                               "--cache-len", "2048"],
         "xlstm-125m": ["--arch", "xlstm-125m", *SYNC_COMMON],
-        **{a: ["--arch", a, *SYNC_COMMON] for a in DENSE + FRONTENDS}}
+        **{a: ["--arch", a, *SYNC_COMMON] for a in DENSE + FRONTENDS + MOE}}
 
 
 def phase_sync_reference(arch: str, device: str = "cuda"):
@@ -2334,10 +2432,12 @@ def phase_sync_reference(arch: str, device: str = "cuda"):
     out = {"phase": "sync_reference", "arch": arch}
     for policy in ("orchestrator", "static1"):
         argv = SYNC[arch] + ["--reduced", "--policy", policy, "--device"]
+        ties: list = []
         got = serve.run_sync(serve.parser().parse_args(argv + [device]), cfg,
                              gpu)
-        want = serve.run_sync(serve.parser().parse_args(argv + ["cpu"]), cfg,
-                              cpu)
+        with near_ties(ties):
+            want = serve.run_sync(serve.parser().parse_args(argv + ["cpu"]),
+                                  cfg, cpu)
         for k in ("mode_counts", "wire_bytes", "tokens"):
             check(got[k] == want[k], f"sync reduced f32 {policy}: {k} "
                                      f"{got[k]} on the card, {want[k]} on "
@@ -2346,12 +2446,16 @@ def phase_sync_reference(arch: str, device: str = "cuda"):
         first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                       None)
                  for a, b in zip(got["generated"], want["generated"])]
-        check(all(same), f"sync reduced f32 {policy}: rows decode other "
-                         f"tokens on the card (first differing index "
-                         f"{first})")
         out[policy] = {"mode_counts": got["mode_counts"],
                        "wire_bytes": got["wire_bytes"],
                        "rows_with_equal_tokens": sum(same)}
+        if cfg.is_moe:
+            out[policy].update(check_near_ties(
+                ties, all(same), f"sync reduced f32 {policy}"))
+        else:
+            check(all(same), f"sync reduced f32 {policy}: rows decode other "
+                             f"tokens on the card (first differing index "
+                             f"{first})")
     emit(out)
 
 
@@ -2363,15 +2467,15 @@ def sync_rows(generated) -> list:
     return a.reshape(-1, a.shape[-1]).tolist()
 
 
-def phase_sync_main_path(cfg, smi: str):
-    """The sync engine through ``serve.main`` at full width, every launch
-    counter at 0 just before and read just after, prefills and decode
-    steps counted beside them. Per decode step (the orchestrator's, which
+def phase_sync_main_path(cfg, smi: str, params=None):
+    """The sync engine through ``serve.main`` at full width (with
+    ``params``: its runner on them and ``cfg``), every launch counter at
+    0 just before and read just after, prefills and decode steps counted
+    beside them. Per decode step (the orchestrator's, which
     ends in the fused tail) one decode tail (none for musicgen-large's
     codebook heads); per prefill one scan per
     RG-LRU or mLSTM layer; no boundary, paged attention or wire kernel."""
     from repro_torch.core import split as SP
-    from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     fns = zero_counts()
     calls: dict = {}
@@ -2379,7 +2483,8 @@ def phase_sync_main_path(cfg, smi: str):
             counting(SP, "split_decode_step", calls), \
             counting(T, "decode_step", calls), \
             counting_f32_forms(calls):
-        summary = serve.main(SYNC[cfg.name] + ["--device", "cuda"])
+        summary = serve_run(SYNC[cfg.name] + ["--device", "cuda"], cfg,
+                            params)
     launches = {k: f.launches for k, f in fns.items()}
     prefills = calls.get("prefill", 0)
     steps = calls.get("split_decode_step", 0) + calls.get("decode_step", 0)
@@ -2405,7 +2510,8 @@ def phase_sync_main_path(cfg, smi: str):
           f"prefills and {steps} decode steps, expected {expect}")
     check_f32_forms(calls, kinds, f"sync main path {cfg.name}")
     emit({"phase": "main_path", "engine": "sync", "arch": cfg.name,
-          "dtype": cfg.dtype, "prefill_s": summary["prefill_s"],
+          "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+          "prefill_s": summary["prefill_s"],
           "decode_tok_per_s": summary["decode_tok_per_s"],
           "tokens": summary["tokens"], "mode_counts": summary["mode_counts"],
           "wire_bytes_per_token": summary["wire_bytes_per_token"],
@@ -3664,56 +3770,106 @@ def bank_free_runs(params, cfg, smi: str) -> dict:
     return by_path
 
 
+@contextlib.contextmanager
+def routes(tape: list, replay: bool = False):
+    """``models.moe.route`` while the block runs: each call's result is
+    appended to ``tape``, or with ``replay`` the calls return ``tape``'s
+    results in order instead of routing (the recorded run's experts,
+    slots and gates)."""
+    from repro_torch.models import moe
+    orig = moe.route
+    played = iter(tape) if replay else None
+
+    def route(*args):
+        if played is not None:
+            return next(played)
+        out = orig(*args)
+        tape.append(out)
+        return out
+
+    moe.route = route
+    try:
+        yield tape
+    finally:
+        moe.route = orig
+
+
 def int8_cache(params, cfg, dev, seed: int) -> dict:
     """The int8 rolling cache at full width (musicgen-large: full MHA, the
-    larger state a token of the two frontend archs) against bf16: batch 8,
+    larger state a token of the two frontend archs; mixtral-8x7b, whose
+    window is the reference's MoE int8 case) against bf16: batch 8,
     ``cache_len`` 1024, 10 decode steps from position 0 on the same tokens
     (bf16's greedy ones), with ``tests/test_kv_quant.py``'s bounds: state
     bytes under ``KV8_BYTES``, greatest relative logit error (the norm of
-    the difference over the norm) under ``KV8_LOGIT_REL``, greedy agreement
-    at least ``KV8_AGREE``; ms a step of each."""
+    the difference over the norm) under ``KV8_LOGIT_REL``
+    (``KV8_LOGIT_REL_MOE`` for MoE), greedy agreement at least
+    ``KV8_AGREE``; ms a step of each.
+
+    MoE: int8 noise flips expert choices, and a flipped choice swaps a
+    token's whole MLP output, so on random full-width weights the greedy
+    agreement is the routing's, not the cache's (mixtral at 24 layers on
+    an H100 80GB HBM3 at 700 W: 65 of 80). The free int8 run is held to
+    the MoE bound on the logits and its agreement printed; a third run on
+    the int8 cache replays the bf16 run's routes (``routes``), which takes
+    the discontinuity out, and is held to the dense bounds
+    (``KV8_LOGIT_REL``, ``KV8_AGREE``)."""
     import torch
 
     from repro_torch.models import transformer as T
     B, clen, steps = 8, 1024, 10
-    st = {bits: T.init_decode_state(cfg, B, clen, device=dev, kv_bits=bits)
-          for bits in (0, 8)}
+    runs = (0, 8, "pinned") if cfg.is_moe else (0, 8)
+    st = {r: T.init_decode_state(cfg, B, clen, device=dev,
+                                 kv_bits=0 if r == 0 else 8) for r in runs}
     nbytes = {bits: sum(a.numel() * a.element_size()
-                        for a in T.tree_leaves(s)) for bits, s in st.items()}
+                        for a in T.tree_leaves(st[bits])) for bits in (0, 8)}
     ratio = nbytes[8] / nbytes[0]
     gen = torch.Generator(device=dev).manual_seed(seed + 15)
     shape = (B, cfg.n_codebooks, 1) if tails_per_step(cfg) == 0 else (B, 1)
     tok = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev,
                         dtype=torch.int32)
     ms = {0: [], 8: []}
-    rel, agree, total = 0.0, 0, 0
+    rel = {r: 0.0 for r in runs[1:]}
+    agree = {r: 0 for r in runs[1:]}
+    total = 0
     with torch.no_grad():
         for i in range(steps):
-            out = {}
-            for bits in (0, 8):
+            out, tape = {}, []
+            for r in runs:
+                ctx = (routes(tape, replay=r == "pinned") if cfg.is_moe
+                       and r != 8 else contextlib.nullcontext())
                 sync(dev)
                 t0 = time.perf_counter()
-                out[bits], _ = T.decode_step(params, tok, st[bits], i, cfg)
+                with ctx:
+                    out[r], _ = T.decode_step(params, tok, st[r], i, cfg)
                 sync(dev)
-                ms[bits].append((time.perf_counter() - t0) * 1e3)
-            lf, lq = out[0].float(), out[8].float()
-            rel = max(rel, float(torch.linalg.vector_norm(lf - lq)
-                                 / torch.linalg.vector_norm(lf)))
-            agree += int((lf.argmax(-1) == lq.argmax(-1)).sum())
+                if r in ms:
+                    ms[r].append((time.perf_counter() - t0) * 1e3)
+            lf = out[0].float()
+            for r in runs[1:]:
+                lq = out[r].float()
+                rel[r] = max(rel[r], float(torch.linalg.vector_norm(lf - lq)
+                                           / torch.linalg.vector_norm(lf)))
+                agree[r] += int((lf.argmax(-1) == lq.argmax(-1)).sum())
             total += lf.argmax(-1).numel()
             tok = lf.argmax(-1).to(torch.int32).reshape(tok.shape)
     del st
-    check(ratio < KV8_BYTES and rel < KV8_LOGIT_REL
-          and agree >= KV8_AGREE * total,
+    rel_max = KV8_LOGIT_REL_MOE if cfg.is_moe else KV8_LOGIT_REL
+    held = "pinned" if cfg.is_moe else 8
+    check(ratio < KV8_BYTES and rel[8] < rel_max and rel[held] < KV8_LOGIT_REL
+          and agree[held] >= KV8_AGREE * total,
           f"int8 cache: bytes {ratio:.4f} of bf16, relative logit error "
-          f"{rel:.4g}, {agree} of {total} greedy tokens agree")
+          f"{rel}, greedy tokens agreeing {agree} of {total}")
     out = {"phase": "int8_cache", "arch": cfg.name, "batch": B,
-           "cache_len": clen, "steps": steps, "state_bytes": nbytes[0],
+           "cache_len": clen, "n_layers": cfg.n_layers, "steps": steps,
+           "max_rel_logit_err_limit": rel_max, "state_bytes": nbytes[0],
            "state_bytes_int8": nbytes[8], "bytes_ratio": ratio,
-           "max_rel_logit_err": rel, "greedy_agree": agree,
+           "max_rel_logit_err": rel[8], "greedy_agree": agree[8],
            "greedy_total": total,
            "ms_a_step": statistics.median(ms[0][1:]),
            "ms_a_step_int8": statistics.median(ms[8][1:])}
+    if cfg.is_moe:
+        out["routes_pinned"] = {"max_rel_logit_err": rel["pinned"],
+                                "greedy_agree": agree["pinned"]}
     emit(out)
     return out
 
@@ -3758,6 +3914,204 @@ def phase_frontends(dev, seed: int, iters: int, smi: str) -> dict:
             phase_profile(cfg, engine)
             free_cuda()
     emit({"phase": "frontends", "seconds": time.perf_counter() - t0})
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 15: mixture of experts
+# ---------------------------------------------------------------------------
+
+#: layers served of each MoE arch's 32: its bf16 weights at 32 layers (83.7
+#: and 93.4 GB) do not fit the 80 GB card, so the depth is cut (PERF.md
+#: section 4) and every width, expert and k is kept; split_at 16 stays
+MOE_LAYERS = {PHI: 26, MIXTRAL: 24}
+#: the MoE train steps: phi3.5-moe at full width, 2 layers, split at 1,
+#: batch [4, 128]; two steps of Algorithm 1's phase 1, one of phase 2
+MOE_TRAIN = {"layers": 2, "split_at": 1, "batch": 4, "seq": 128,
+             "steps": (2, 1)}
+
+
+def moe_config(name: str, layers: int = 0, split_at: int = 0):
+    """The arch's full config cut to ``layers`` (default ``MOE_LAYERS``),
+    and its split moved to ``split_at`` when given."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, n_layers=layers or MOE_LAYERS[name])
+    if split_at:
+        cfg = dataclasses.replace(cfg, split=dataclasses.replace(
+            cfg.split, split_at=split_at))
+    return cfg
+
+
+def memory_line(dev, cfg) -> dict:
+    """The device memory of a model's run (its capture, kernels and
+    served paths): the weights' bytes, the peak allocated and reserved
+    since the last reset, and what the card had free at that reserved
+    peak."""
+    import torch
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {"phase": "memory", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "params": cfg.param_count(),
+           "weight_bytes": 2 * cfg.param_count(), "total_bytes": total,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+           "free_at_peak_bytes": total - torch.cuda.max_memory_reserved(dev)}
+    emit(out)
+    return out
+
+
+def moe_tail(cap, cfg, dev, seed: int, iters: int) -> dict:
+    """The decode tail at an MoE arch's untied head ([4096, 32064]:
+    250 whole 128-column slabs and one of 64 columns, whose lanes past V
+    the kernel masks; [4096, 32000]: whole slabs): ``dense_tail``'s pools
+    of 1, 4, 8 and 13 rows in place, its exact tie and its timing at 4
+    rows with the bound; 4 real rows of a 16-row block; and the last
+    column made the argmax of a pool's first row (twice the top token's
+    column), which the kernel must find in the last slab. Emits one line
+    and returns it."""
+    from repro_torch.kernels import ref
+    params = cap["params"]
+    head = params["lm_head"]["w"][None]
+    V = head.shape[2]
+    tail = dense_tail(cap, cfg, dev, seed, iters)
+    scale = params["final_norm"]["scale"]
+    tail_block_cases(cap["x_dec"], cap["valid"], head, scale, seed + 31,
+                     tail["cases"])
+    x = pick_rows(cap["x_dec"], cap["valid"], 8, seed + 33)
+    top = int(ref.decode_tail_ref(x, scale, None, head)[0, 0])
+    xn = ref._final_norm(x.float(), scale, None, cfg.norm).to(x.dtype)
+    logit = float(xn[0, 0].float() @ head[0, :, top].float())
+    last = head.clone()       # a power of two scales the logit exactly
+    last[0, :, V - 1] = head[0, :, top] * (2.0 if logit > 0 else 0.5)
+    diff, _ = check_tail(x, scale, last, f"{cfg.name} last column",
+                         expect=V - 1)
+    del last
+    tail["cases"].append({"case": "bfloat16 last column the argmax",
+                          "expected": V - 1, "tokens_differing": diff})
+    out = {"phase": "kernels_at_arch", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "head": [cfg.d_model, V],
+           "slabs": [V // 128, V % 128], "decode_tail_grouped": tail}
+    emit(out)
+    return out
+
+
+def moe_train(dev, seed: int, smi: str) -> dict:
+    """Algorithm 1's transformer steps on phi3.5-moe at full width
+    (``MOE_TRAIN``): donated cascade steps of phase 1 (mode 0, the bank
+    frozen) then phase 2 (mode 1, only the bank's head), every kernel
+    counter at 0 just before and read just after (none of the six kernels
+    is on the training path). Gates: each step's loss, lm loss and aux
+    finite, the aux (the layers' summed load-balance loss) within (0,
+    layers * E], no launch. The second phase-1 step is profiled (busy ms,
+    idle share, the top device kernels); ms a step and the peak memory
+    printed. Returns the launches."""
+    import torch
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import cascade as C
+    from repro_torch.core import split as SP
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.launch import serve
+    from repro_torch.training import loop as L
+    from repro_torch.training import optimizer as opt
+    from torch.profiler import ProfilerActivity, profile
+    t = MOE_TRAIN
+    cfg = moe_config(PHI, t["layers"], t["split_at"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = SP.init_split_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg)
+    state = opt.init(params)
+    src = MarkovTokenSource(cfg, seed=0)
+    fns = zero_counts()
+    steps, prof_out = [], None
+    for phase, n in zip((1, 2), t["steps"]):
+        loss = L.make_loss_fn(cfg, mode=phase - 1)
+        step = C.make_train_step(lambda p, b, _: loss(p, b), TrainConfig(),
+                                 donate=True)
+        mask = C.transformer_phase_mask(params, phase)
+        for i in range(n):
+            batch = L.device_batch(src.batch(t["batch"], t["seq"],
+                                             len(steps)), dev)
+            traced = phase == 1 and i == 1
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if traced else contextlib.nullcontext())
+            sync(dev)
+            t0 = time.perf_counter()
+            with prof:
+                params, state, m = step(params, state, batch, mask,
+                                        mode=phase - 1)
+                sync(dev)
+            secs = time.perf_counter() - t0
+            if traced:
+                prof_out = serve.profile_summary(prof, secs)
+            rec = {k: float(m[k]) for k in ("loss", "lm_loss", "aux_loss")}
+            steps.append({"phase": phase, "ms": secs * 1e3,
+                          "profiled": traced, **rec})
+    launches = {k: f.launches for k, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, state
+    free_cuda()
+    aux_max = t["layers"] * cfg.n_experts
+    check(all(math.isfinite(r[k]) for r in steps
+              for k in ("loss", "lm_loss", "aux_loss")),
+          f"moe train: a loss is not finite: {steps}")
+    check(all(0 < r["aux_loss"] <= aux_max for r in steps),
+          f"moe train: an aux loss outside (0, {aux_max}]: {steps}")
+    check(not any(launches.values()),
+          f"moe train: the training path launched {launches}")
+    emit({"phase": "moe_train", "arch": PHI, **t,
+          "params": cfg.param_count(), "n_experts": cfg.n_experts,
+          "experts_per_tok": cfg.experts_per_tok, "step_records": steps,
+          "peak_memory_bytes": peak, "launches": launches,
+          "profile_phase1_step": prof_out, "card": smi})
+    return launches
+
+
+def phase_moe(dev, seed: int, iters: int, smi: str) -> dict:
+    """Phase 15: phi3.5-moe-42b-a6.6b (paged pool) and mixtral-8x7b (its
+    4096-token window: the dense rolling pool) at full width and cut depth
+    (``MOE_LAYERS``), one model on the card at a time. Each: the reduced
+    f32 references of both engines (card against CPU, under the near-tie
+    rule); captured (the weights the main paths then serve); the tail at
+    its [4096, V] head (``moe_tail``); mixtral's int8 rolling cache; the
+    main paths on both engines through the launcher's runners, with their
+    launches, and their profiles; the memory at the model's peak
+    (``memory_line``); freed. Then the MoE train steps (``moe_train``).
+    Returns the launches of each path."""
+    import torch
+    t0 = time.perf_counter()
+    by_path = {}
+    for name in MOE:
+        phase_reference(name)
+        phase_sync_reference(name)
+        cfg = moe_config(name)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        cap = capture(cfg, dev, seed)
+        emit({"phase": "capture", "arch": name, "n_layers": cfg.n_layers,
+              "seconds": time.perf_counter() - t1,
+              "lengths": [int(n) for n in cap["lens"]]})
+        moe_tail(cap, cfg, dev, seed, iters)
+        params = cap["params"]
+        del cap
+        free_cuda()
+        if name == MIXTRAL:
+            int8_cache(params, cfg, dev, seed)
+            free_cuda()
+        for engine, main_path in (("continuous", phase_main_path),
+                                  ("sync", phase_sync_main_path)):
+            by_path[f"{name} {engine}"] = main_path(cfg, smi, params)
+            free_cuda()
+            phase_profile(cfg, engine, params)
+            free_cuda()
+        memory_line(dev, cfg)
+        del params
+        free_cuda()
+    by_path[f"{PHI} train"] = moe_train(dev, seed, smi)
+    emit({"phase": "moe", "seconds": time.perf_counter() - t0})
     return by_path
 
 
@@ -3873,6 +4227,8 @@ def main(argv=None) -> int:
     by_path.update(phase_scale_out(dev, smi))
     free_cuda()
     by_path.update(phase_frontends(dev, args.seed, args.iters, smi))
+    free_cuda()
+    by_path.update(phase_moe(dev, args.seed, args.iters, smi))
 
     emit({"phase": "untraced", "measurements": UNTRACED})
     print(smi, flush=True)

@@ -1,7 +1,6 @@
 """Config registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 
-Only the archs the port can run are listed; every other arch of the
-reference registry raises ``NotImplementedError`` until its slice lands.
+The same archs as the reference registry, in its order.
 ``lumos5g-lstm`` is the paper's own proof of concept (an ``LSTMConfig``,
 trained by ``repro_torch.examples.throughput_prediction``); like the
 reference it stays out of ``ARCH_IDS``, the archs the serving entry point
@@ -19,6 +18,8 @@ _MODULES: Dict[str, str] = {
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "llava-next-34b": "repro_torch.configs.llava_next_34b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "granite-8b": "repro_torch.configs.granite_8b",
@@ -26,17 +27,10 @@ _MODULES: Dict[str, str] = {
     "lumos5g-lstm": "repro_torch.configs.lumos5g_lstm",
 }
 
-#: archs of the reference registry the port does not run yet
-_NOT_PORTED = ("phi3.5-moe-42b-a6.6b", "mixtral-8x7b")
-
 ARCH_IDS: List[str] = [k for k in _MODULES if k != "lumos5g-lstm"]
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet; ported: "
-            f"{ARCH_IDS}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(_MODULES[arch])

@@ -38,13 +38,17 @@ Policies (sync engine):
   static1       always mode 1 (bottleneck z', cheapest)
 
 ``--arch`` takes the archs of the port's registry. The continuous engine
-serves the dense archs (qwen2.5-3b, stablelm-3b, granite-8b,
-internlm2-20b, and the frontend archs musicgen-large and llava-next-34b)
-from the paged pool, and recurrentgemma-2b (RG-LRU and local-attention
-blocks) and xlstm-125m (mLSTM and sLSTM blocks) from the dense slot pool,
-whose rolling caches hold ``min(--cache-len, local_window)`` rows (the
-recurrent carries do not depend on it); the sync engine keeps one dense
-state of ``--requests`` rows. musicgen-large's prompts are ``[K, S]``
+serves the full-attention archs (qwen2.5-3b, stablelm-3b, granite-8b,
+internlm2-20b, the mixture of experts phi3.5-moe-42b-a6.6b, and the
+frontend archs musicgen-large and llava-next-34b) from the paged pool,
+and the windowed ones from the dense slot pool, whose rolling caches hold
+``min(--cache-len, window)`` rows: mixtral-8x7b (experts and a 4096-token
+sliding window), recurrentgemma-2b (RG-LRU and local-attention blocks)
+and xlstm-125m (mLSTM and sLSTM blocks, whose carries do not depend on
+it); the sync engine keeps one dense state of ``--requests`` rows. The
+two MoE archs do not fit one 80 GB card in bf16 at their 32 layers (84
+and 93 GB of weights): pass a config cut in depth to ``run_continuous``
+/ ``run_sync`` (``chip_smoke.py`` serves 26 and 24 layers). musicgen-large's prompts are ``[K, S]``
 codebook tokens from the Markov stream and it decodes K tokens a step;
 llava-next-34b is served on text prompts (its vision prefix goes through
 ``T.prefill(embeddings=)``, not the engines, as in the reference).
@@ -423,9 +427,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True, choices=ARCH_IDS,
                     help="an arch of the port's registry: dense "
                          "(qwen2.5-3b, stablelm-3b, granite-8b, "
-                         "internlm2-20b), audio (musicgen-large), vision "
-                         "(llava-next-34b) or recurrent "
-                         "(recurrentgemma-2b, xlstm-125m)")
+                         "internlm2-20b), mixture of experts "
+                         "(phi3.5-moe-42b-a6.6b, mixtral-8x7b), audio "
+                         "(musicgen-large), vision (llava-next-34b) or "
+                         "recurrent (recurrentgemma-2b, xlstm-125m)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--engine", default="sync",
                     choices=["sync", "continuous", "cluster", "fleet"],

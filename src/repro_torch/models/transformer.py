@@ -1,9 +1,13 @@
-"""Decoder-only transformer for the ported families (mirrors
-``repro.models.transformer`` without MoE): homogeneous attention stacks
-(dense GQA, and the frontend archs: MusicGen's summed codebook embeddings
-with one LM head a codebook, LLaVA's vision prefix concatenated before the
-text) and heterogeneous block patterns (RecurrentGemma's RG-LRU and
-local-attention blocks, xLSTM's alternating mLSTM and sLSTM blocks).
+"""Decoder-only transformer for every arch family of the reference
+(mirrors ``repro.models.transformer``): homogeneous attention stacks
+(dense GQA; mixture of experts, whose blocks route through
+``models.moe``; and the frontend archs: MusicGen's summed codebook
+embeddings with one LM head a codebook, LLaVA's vision prefix
+concatenated before the text) and heterogeneous block patterns
+(RecurrentGemma's RG-LRU and local-attention blocks, xLSTM's alternating
+mLSTM and sLSTM blocks). The reference's expert-parallel MoE
+(``moe_ep``, reached only under a device mesh) is not ported: with no
+mesh it is not on any path.
 
 Homogeneous archs keep stacked ``[L, ...]`` layer leaves, and the layer
 runners loop over per-layer slices (views, no copies) where the reference
@@ -35,6 +39,7 @@ from repro_torch.models.attention import (attn_init, decode_attention,
 from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
                                        embed_logits, mlp_apply, mlp_init,
                                        norm_apply, norm_init)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rglru import (rglru_full, rglru_init, rglru_prefill,
                                       rglru_prepare, rglru_state_init,
                                       rglru_step)
@@ -92,10 +97,10 @@ def _kinds(cfg: ModelConfig) -> Tuple[str, ...]:
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.is_moe or not set(_kinds(cfg)) <= set(_KINDS):
+    if not set(_kinds(cfg)) <= set(_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs dense attention, RG-LRU, mLSTM "
-            f"and sLSTM blocks only (MoE is a later slice)")
+            f"{cfg.name}: repro_torch runs attention, RG-LRU, mLSTM and "
+            f"sLSTM blocks only")
 
 
 def multi_codebook(cfg: ModelConfig) -> bool:
@@ -163,15 +168,28 @@ def block_init(gen, cfg: ModelConfig, kind: str = "attn"):
     if kind in ("attn", "rglru") and cfg.d_ff:
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, dtype=dt,
                                device=gen.device)
-        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype=dt)
+        if cfg.is_moe:
+            p["mlp"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                dtype=dt)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype=dt)
     return p
 
 
 def _mlp_residual(p, x, cfg: ModelConfig):
+    """The block's MLP (dense, or the MoE layer) on its residual: (x, aux
+    loss), the aux MoE's 0-d float32 load-balance loss, None without
+    experts."""
+    aux = None
     if "mlp" in p:
-        x = x + mlp_apply(p["mlp"], norm_apply(p["norm2"], x, cfg.norm),
-                          cfg.act)
-    return x
+        h = norm_apply(p["norm2"], x, cfg.norm)
+        if cfg.is_moe:
+            m, aux = moe_apply(p["mlp"], h, k=cfg.experts_per_tok,
+                               act=cfg.act)
+        else:
+            m = mlp_apply(p["mlp"], h, cfg.act)
+        x = x + m
+    return x, aux
 
 
 def _attn_dims(cfg: ModelConfig):
@@ -182,11 +200,10 @@ def _attn_dims(cfg: ModelConfig):
 def block_apply_full(p, x, positions, cfg: ModelConfig, kind: str = "attn",
                      train: bool = False):
     """Full-sequence block, no decode state. Returns (x, aux_loss), the
-    aux loss a 0-d float32 zero (it is MoE's load-balance loss). ``train``
-    keeps the recurrent families on their cell scans (the CUDA scan has no
-    backward); eval routes RG-LRU and the mLSTM normalizer through
-    ``ops.rglru_scan_op``."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux loss MoE's load-balance loss (a 0-d float32 zero without
+    experts). ``train`` keeps the recurrent families on their cell scans
+    (the CUDA scan has no backward); eval routes RG-LRU and the mLSTM
+    normalizer through ``ops.rglru_scan_op``."""
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn":
         mix = full_attention(p["mix"], h, positions, window=_attn_window(cfg),
@@ -199,13 +216,17 @@ def block_apply_full(p, x, positions, cfg: ModelConfig, kind: str = "attn",
         mix = slstm_full(p["mix"], h, cfg.n_heads)
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, x + mix, cfg), aux
+    x, aux = _mlp_residual(p, x + mix, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def block_apply_decode(p, x, state, cur_pos, cfg: ModelConfig,
                        kind: str = "attn", block_table=None):
     """One-token decode through one block; ``state`` (its paged arena,
-    rolling cache, RG-LRU or xLSTM carry) updates in place. Returns x."""
+    rolling cache, RG-LRU or xLSTM carry) updates in place. Returns x (a
+    MoE layer's aux loss is dropped, as in the reference)."""
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn" and block_table is not None:
         mix = paged_decode_attention(p["mix"], h, state, block_table,
@@ -221,14 +242,15 @@ def block_apply_decode(p, x, state, cur_pos, cfg: ModelConfig,
         mix = slstm_step(p["mix"], h, state, cfg.n_heads)
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, x + mix, cfg)
+    return _mlp_residual(p, x + mix, cfg)[0]
 
 
 def block_apply_prefill(p, x, positions, state, cfg: ModelConfig,
                         kind: str = "attn", lengths=None, block_table=None):
     """Full-sequence block that also fills its decode state (in place):
     K/V rows into the arena through ``block_table`` or into the rolling
-    cache, or the recurrent carry. Returns x."""
+    cache, or the recurrent carry. Returns x (a MoE layer's aux loss
+    dropped)."""
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn" and block_table is not None:
         mix = paged_prefill_attention(p["mix"], h, positions, state,
@@ -246,7 +268,7 @@ def block_apply_prefill(p, x, positions, state, cfg: ModelConfig,
         mix = slstm_prefill(p["mix"], h, state, cfg.n_heads, lengths=lengths)
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, x + mix, cfg)
+    return _mlp_residual(p, x + mix, cfg)[0]
 
 
 def block_state_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int,

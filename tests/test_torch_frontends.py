@@ -61,12 +61,15 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
-# tests/test_configs_smoke.py's assignment table, for the ported archs
+MOE = ("phi3.5-moe-42b-a6.6b", "mixtral-8x7b")
+# tests/test_configs_smoke.py's assignment table
 ASSIGNMENT = {
     "musicgen-large": (48, 2048, 32, 32, 8192, 2048),
     "stablelm-3b": (32, 2560, 32, 32, 6912, 50304),
     "llava-next-34b": (60, 7168, 56, 8, 20480, 64000),
     "qwen2.5-3b": (36, 2048, 16, 2, 11008, 151936),
+    "phi3.5-moe-42b-a6.6b": (32, 4096, 32, 8, 6400, 32064),
+    "mixtral-8x7b": (32, 4096, 32, 8, 14336, 32000),
     "internlm2-20b": (48, 6144, 48, 8, 16384, 92544),
     "recurrentgemma-2b": (26, 2560, 10, 1, 7680, 256000),
     "granite-8b": (36, 4096, 32, 8, 14336, 49152),
@@ -75,26 +78,27 @@ ASSIGNMENT = {
 
 
 def test_registry_and_full_configs():
-    """``ARCH_IDS`` is the reference's less the two MoE archs; every
-    ported arch's full config matches the assignment table, and both
-    frontend configs (full and reduced) equal the reference's field for
-    field, with the reference's parameter counts."""
+    """``ARCH_IDS`` is the reference's; every arch's full config matches
+    the assignment table, and the frontend and MoE configs (full and
+    reduced) equal the reference's field for field, with the reference's
+    parameter counts."""
     from repro.configs import ARCH_IDS as J_ARCH_IDS
-    assert ARCH_IDS == [a for a in J_ARCH_IDS if a not in (
-        "phi3.5-moe-42b-a6.6b", "mixtral-8x7b")]
+    assert ARCH_IDS == J_ARCH_IDS
     for arch, (L_, d, h, kv, ff, v) in ASSIGNMENT.items():
         c = t_config(arch)
         assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.d_ff,
                 c.vocab_size) == (L_, d, h, kv, ff, v), arch
-    for arch in ARCHS:
+    for arch in (*ARCHS, *MOE):
         for tget, jget in ((t_config, j_config), (t_reduced, j_reduced)):
             assert dataclasses.asdict(tget(arch)) == dataclasses.asdict(
                 jget(arch))
     assert round(t_config("llava-next-34b").param_count() / 1e9, 2) == 34.39
     assert round(t_config("musicgen-large").param_count() / 1e9, 2) == 3.24
-    for arch in ("phi3.5-moe-42b-a6.6b", "mixtral-8x7b"):
-        with pytest.raises(NotImplementedError):
-            t_config(arch)
+    assert round(t_config("phi3.5-moe-42b-a6.6b").param_count() / 1e9,
+                 2) == 41.87
+    assert round(t_config("mixtral-8x7b").param_count() / 1e9, 2) == 46.70
+    for arch in MOE:
+        assert t_config(arch).param_count() == j_config(arch).param_count()
 
 
 def test_token_batches_match_reference():

@@ -1,12 +1,13 @@
 """The int8 rolling KV cache in the port (``init_decode_state(kv_bits=8)``:
 int8 codes and one float32 scale per position and head).
 
-Mirrors ``tests/test_kv_quant.py`` on the port (stablelm-3b; its mixtral
-case waits for MoE) and adds recurrentgemma-2b, where only the
-local-attention layers take int8: decoding from the int8 cache tracks the
-exact decode on the reduced bf16 configs, with that test's bounds (the
-quantized attention state under 0.75x the bytes, the greatest relative
-logit error under 0.05, greedy agreement at least 90%).
+Mirrors ``tests/test_kv_quant.py`` on the port (stablelm-3b and
+mixtral-8x7b) and adds recurrentgemma-2b, where only the local-attention
+layers take int8: decoding from the int8 cache tracks the exact decode on
+the reduced bf16 configs, with that test's bounds (the quantized attention
+state under 0.75x the bytes, the greatest relative logit error under 0.05,
+or 0.25 for MoE, whose routing int8 noise can flip; greedy agreement at
+least 90%).
 
 Against the reference's int8 path (reduced f32, weights converted from
 JAX): after a ragged prefill and after each of three decode steps, every
@@ -37,6 +38,8 @@ from repro_torch.core import split as TSP
 from repro_torch.models import transformer as TT
 
 ARCHS = ("stablelm-3b", "recurrentgemma-2b")
+# the reference's int8 decode cases: its dense and MoE archs
+DECODE_ARCHS = ("stablelm-3b", "mixtral-8x7b", "recurrentgemma-2b")
 EDGE_LANES = 1e-3
 SCALE_RTOL = 1e-5
 LOGIT_RTOL = 1e-5
@@ -65,7 +68,7 @@ def _nbytes(tree) -> int:
     return sum(a.numel() * a.element_size() for a in TT.tree_leaves(tree))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_kv8_decode_tracks_exact(arch):
     cfg = t_reduced(arch)
     params = TSP.init_split_params(torch.Generator().manual_seed(0), cfg)
@@ -95,7 +98,9 @@ def test_kv8_decode_tracks_exact(arch):
         maxdiff = max(maxdiff, rel)
         agree += int((lf.argmax(-1) == lq.argmax(-1)).sum())
         tok = lf.argmax(-1).to(torch.int32).reshape(tok.shape)
-    assert maxdiff < 0.05, maxdiff
+    # MoE routing is discontinuous: int8 noise can flip an expert choice
+    # on untrained weights, so greedy agreement is the invariant there
+    assert maxdiff < (0.25 if cfg.is_moe else 0.05), maxdiff
     assert agree >= 0.9 * steps * B          # greedy tokens agree
 
 
