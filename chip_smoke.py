@@ -142,6 +142,23 @@ Phases, each printing one JSON line; any failure exits nonzero:
     and 2 layers (``MOE_TRAIN``): finite losses, the aux within (0,
     layers * E], no kernel launched, ms a step, peak memory, a profiled
     step.
+16. the serving mesh (``models/sharding.py``) on the one card: the
+    kernels at the per-rank shapes (paged attention at mp 2's one KV head,
+    group 8, in both forms bf16 bit for bit, timed beside its plain
+    version, SDPA and the bound; the boundary on a dp rank's 2 rows of 4
+    bit for bit the whole batch's rows; the tail at 2 rows), the
+    continuous engine on one NCCL rank (``launch.serve --dp 1 --mp 1``),
+    then two gloo ranks on cuda:0 (NCCL refuses two ranks on one device)
+    through the launchers with the main path's arguments: qwen2.5-3b
+    continuous at (dp, mp) = (2, 1), its unfused engine at (1, 2) against
+    one device's (the same schedule, logits within
+    ``TOL["mp_logit_rel"]``, a stream parting only at a near tie), the
+    sync engine at (2, 1), recurrentgemma-2b at dp 2, a 2-replica cluster
+    at (1, 1) each under migrate raw, and ``bench_serving --slot-scaling
+    1,2`` at cut arguments under the reference gate's rules (every row
+    finishes, dp 2 at least ``SHARD_FLOOR`` of dp 1's tok/s). dp runs
+    decode the one-device runs' tokens (phases 7, 9 and a one-device
+    cluster); each rank's launches are summed by layout.
 
 Kernel times come from ``torch.profiler`` traces. A trace can lose
 events: a lost one counts as its kernel's mean traced event (a call
@@ -2273,6 +2290,7 @@ def phase_main_path(cfg, smi: str, params=None):
     prefills = calls.get("split_prefill_mixed", 0)
     ticks = calls.get("split_decode_step_mixed", 0)
     toks = summary["tokens"]
+    MAIN_RUNS[f"{cfg.name} continuous"] = toks
     check(summary["requests_finished"] == 8 and len(toks) == 8,
           f"main path: {summary['requests_finished']} of 8 requests finished")
     for rid, t in toks.items():
@@ -2323,15 +2341,25 @@ def phase_profile(cfg, engine: str, params=None):
     """The arch's main path on ``engine`` once more, traced with
     ``torch.profiler`` (its rate is not the one reported above): device
     busy time, idle share, launches per decode step and the kernels that
-    take the time. The Chrome trace lands in build/profile/<engine>/<arch>.
-    A sync run's launches per step include its one prefill's. With
-    ``params``: on them and ``cfg`` (``serve_run``)."""
+    take the time, summarized from the profiler's events (no Chrome trace
+    is written: the script reads none, and writing a full-width trace took
+    much of the phase's time). A sync run's launches per step include its
+    one prefill's. With ``params``: on them and ``cfg`` (``serve_run``)."""
+    from repro_torch.launch import serve
     argv = (SERVE if engine == "continuous" else SYNC)[cfg.name]
     if cfg.homogeneous:
         argv = argv + PROFILE_CUT[engine]
-    summary = serve_run(argv + [
-        "--device", "cuda", "--profile-dir",
-        str(ROOT / "build" / "profile" / engine / cfg.name)], cfg, params)
+    export = serve.profile_extra
+    serve.profile_extra = lambda args, prof, seconds: (
+        {} if prof is None else {"profile": serve.profile_summary(prof,
+                                                                  seconds)})
+    try:
+        summary = serve_run(argv + [
+            "--device", "cuda", "--profile-dir",
+            str(ROOT / "build" / "profile" / engine / cfg.name)], cfg,
+            params)
+    finally:
+        serve.profile_extra = export
     prof = summary["profile"]
     steps = (summary["decode_ticks"] if engine == "continuous"
              else len(sync_rows(summary["generated"])[0]))
@@ -2489,6 +2517,7 @@ def phase_sync_main_path(cfg, smi: str, params=None):
     prefills = calls.get("prefill", 0)
     steps = calls.get("split_decode_step", 0) + calls.get("decode_step", 0)
     gen = sync_rows(summary["generated"])
+    MAIN_RUNS[f"{cfg.name} sync"] = summary["generated"]
     check(summary["tokens"] == len(gen) * 16 and len(gen) == 8 * (
               cfg.n_codebooks if tails_per_step(cfg) == 0 else 1)
           and all(len(r) == 16 and all(0 <= v < cfg.vocab_size for v in r)
@@ -3170,7 +3199,7 @@ def phase_eval_forwards(seed: int, dev, smi: str) -> dict:
 # train_100m's batch: the example's, at half its default sequence (its
 # eager time loops with both recomputes take ~25 s a step at 256 on the
 # card, the one part of the script that grows with the sequence)
-TRAIN_100M_ARGV = ["--steps", "3", "--batch", "2", "--seq", "128"]
+TRAIN_100M_ARGV = ["--steps", "2", "--batch", "2", "--seq", "128"]
 
 
 def phase_train_100m(dev, smi: str) -> dict:
@@ -3238,8 +3267,8 @@ FLEET_ARGV = ["--arch", "qwen2.5-3b", "--engine", "fleet", "--requests",
 # autoscaler A/B at 256 on 4-slot replicas generating 4 tokens each (at
 # 256 UEs the autoscaled arm scales up; at 64 it would compare two equal
 # fixed fleets)
-BENCH_SERVING_ARGV = ["--loads", "8,2", "--requests", "8", "--channel-trace",
-                      "fade", "--overhead-repeats", "2",
+BENCH_SERVING_ARGV = ["--loads", "8", "--requests", "8", "--channel-trace",
+                      "fade", "--overhead-repeats", "1",
                       "--prefill-prompt-len", "16", "--gen", "8",
                       "--compare-slots", "4", "--compare-gen", "6",
                       "--trace-gen", "8"]
@@ -4115,6 +4144,495 @@ def phase_moe(dev, seed: int, iters: int, smi: str) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serving mesh
+# ---------------------------------------------------------------------------
+
+#: the one-device runs of the main paths, by path label: the continuous
+#: engine's tokens by request, the sync engine's generated rows (phases 7
+#: and 9); phase 16 holds its mesh runs to them
+MAIN_RUNS: dict = {}
+#: every rank of phase 16's gloo runs on the one card, as does its
+#: one-device run of the mp check
+MESH_GLOO = ["--dist-backend", "gloo", "--device", "cuda:0"]
+MESH_ONE = ["--device", "cuda:0"]
+MESH_CLUSTER = ["--arch", "qwen2.5-3b", "--engine", "cluster", "--replicas",
+                "2", "--requests", "8", "--prompt-len", "16", "--gen", "16",
+                "--n-slots", "4", "--placement", "best-channel",
+                "--handover", "migrate"]
+#: ``bench_serving --slot-scaling 1,2`` cut to one load level of 2
+#: requests of 4 tokens and no engine or telemetry A/B
+MESH_BENCH = ["--arch", "qwen2.5-3b", "--loads", "8", "--requests", "2",
+              "--gen", "4", "--compare-slots", "0", "--overhead-repeats", "0",
+              "--prefill-prompt-len", "16", "--slot-scaling", "1,2"]
+#: the reference bench gate's floor on a dp > 1 row's tok/s over dp 1's
+#: (tools/check_bench.py, SHARD_FLOOR)
+SHARD_FLOOR = 0.1
+#: mp (1, 2) against one device, bf16 at full width: each live row's
+#: logits within this share of the row's largest |logit| (each of the 72
+#: row-split outputs of qwen2.5-3b's 36 layers rounds its two bf16 partial
+#: sums where one device rounds one, and the residual stream carries it:
+#: a 36-layer bf16 model at d 512 showed 3.1% on the CPU, this is about
+#: twice that); a token may part from one device's only where that
+#: engine's top-two gap is within twice this share (both sides within it)
+TOL["mp_logit_rel"] = 2.0 ** -4
+#: seconds a phase 16 rank waits in a collective before it gives up
+MESH_TIMEOUT = 600
+
+
+def taped_engine():
+    """The continuous engine recording each unfused step's live slots (by
+    request) and the float32 logits of every row it decodes, without
+    warm-up (the check reads values, not times)."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    class Taped(ContinuousBatchingEngine):
+        last = None
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.tape = []
+            Taped.last = self
+
+        def warm(self, prompt, gen: int = 2):
+            self.reset_counters()
+
+        def _decode(self, tok, positions, modes, bt, return_tokens):
+            out = super()._decode(tok, positions, modes, bt, return_tokens)
+            if not return_tokens:
+                self.tape.append(
+                    ({s: x.request.rid for s, x in self.active.items()},
+                     out[:, 0].float()))
+            return out
+
+    return Taped
+
+
+def mp_against_one_device(base, got) -> dict:
+    """The mp rule (``TOL["mp_logit_rel"]``) on two taped engines: the
+    same schedule and accounting, each live row's logits within the
+    tolerance until its request's stream parts, and a stream parting only
+    at a near tie."""
+    want = {s.request.rid: s for s in base.finished}
+    have = {s.request.rid: s for s in got.finished}
+    check(set(want) == set(have) and len(want) == 8,
+          f"mp (1, 2): {len(have)} requests finished, one device {len(want)}")
+    parted = {}
+    for rid, w in want.items():
+        h = have[rid]
+        check((h.finished_tick, h.wire_bytes, h.mode_counts, len(h.tokens))
+              == (w.finished_tick, w.wire_bytes, w.mode_counts,
+                  len(w.tokens)),
+              f"mp (1, 2): request {rid}'s schedule or accounting differs")
+        i = next((i for i, (a, b) in enumerate(zip(h.tokens, w.tokens))
+                  if a != b), None)
+        if i is not None:
+            check(i > 0, f"mp (1, 2): request {rid}'s prefill token differs")
+            parted[rid] = w.admitted_tick + i - 1
+    check(len(base.tape) == len(got.tape),
+          f"mp (1, 2): {len(got.tape)} decode steps, one device "
+          f"{len(base.tape)}")
+    tol = TOL["mp_logit_rel"]
+    worst, rows, gaps = 0.0, 0, []
+    for t, ((live, a), (glive, b)) in enumerate(zip(base.tape, got.tape)):
+        check(live == glive, f"mp (1, 2): step {t} decodes other slots")
+        for s, rid in live.items():
+            if t > parted.get(rid, t):
+                continue
+            top = float(a[s].abs().max())
+            rel = float((a[s] - b[s]).abs().max()) / max(top, 1e-30)
+            worst = max(worst, rel)
+            rows += 1
+            if t == parted.get(rid):
+                two = a[s].topk(2).values
+                gaps.append(float(two[0] - two[1]) / max(top, 1e-30))
+                check(gaps[-1] <= 2 * tol,
+                      f"mp (1, 2): request {rid} parts at step {t} where "
+                      f"one device's top-two gap is {gaps[-1]:.4g} of the "
+                      f"largest logit (limit {2 * tol})")
+    check(worst <= tol, f"mp (1, 2): logits differ by {worst:.4g} of the "
+                        f"row's largest |logit| (limit {tol})")
+    return {"rows_compared": rows, "worst_logit_rel": worst,
+            "requests_parted": len(parted), "parting_gaps_rel": gaps,
+            "tolerance_rel": tol}
+
+
+def mesh_runs():
+    """The gloo runs of phase 16, in order: (label, function of the rank)
+    on the two ranks' world (every rank on cuda:0)."""
+    def serve(argv, profiled: bool = False):
+        """``launch.serve.main``; ``profiled``: each rank's measured run
+        under the profiler (``profile_runs``), which slows the host-bound
+        run about 3x (so only qwen2.5-3b's dp layout, for the script's
+        time)."""
+        from repro_torch.launch import serve as S
+        return S.main(argv + (["--profile-dir", str(ROOT / "build")]
+                              if profiled else []))
+
+    def mp2(rank):
+        import torch.distributed as dist
+        Taped = taped_engine()
+        argv = SERVE["qwen2.5-3b"] + ["--mp", "2", *MESH_GLOO]
+        base = None
+        if rank == 0:                       # one device, alone
+            with serve_engine(Taped, fused_tail=False):
+                serve(SERVE["qwen2.5-3b"] + MESH_ONE)
+            base = Taped.last
+        dist.barrier()
+        zero_counts()
+        with serve_engine(Taped, fused_tail=False):
+            out = serve(argv)
+        res = {"summary": out}
+        if rank == 0:
+            res["against_one_device"] = mp_against_one_device(base,
+                                                              Taped.last)
+        return res
+
+    def bench(rank):
+        from repro_torch.benchmarks import bench_serving
+        out = bench_serving.main(MESH_BENCH + MESH_GLOO)
+        return {"slot_scaling": out["slot_scaling"]}
+
+    return (
+        ("qwen2.5-3b continuous dp2", lambda r: {"summary": serve(
+            SERVE["qwen2.5-3b"] + ["--dp", "2", *MESH_GLOO], True)}),
+        ("qwen2.5-3b continuous mp2", mp2),
+        ("qwen2.5-3b sync dp2", lambda r: {"summary": serve(
+            SYNC["qwen2.5-3b"] + ["--dp", "2", *MESH_GLOO])}),
+        ("recurrentgemma-2b continuous dp2", lambda r: {"summary": serve(
+            SERVE["recurrentgemma-2b"] + ["--dp", "2", *MESH_GLOO])}),
+        ("qwen2.5-3b cluster 2x(1,1)", lambda r: {"summary": serve(
+            MESH_CLUSTER + ["--dp", "1", "--mp", "1", *MESH_GLOO])}),
+        ("qwen2.5-3b slot-scaling", bench),
+    )
+
+
+def profile_runs() -> None:
+    """Make this process's launcher runs (``--profile-dir``) profile the
+    measured run's device kernels only, summarized without a trace file:
+    each rank's busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve as S
+    S.make_profiler = lambda args, dev: (
+        profile(activities=[ProfilerActivity.CUDA]) if args.profile_dir
+        else None)
+    S.profile_extra = lambda args, prof, seconds: (
+        {} if prof is None else {"profile": S.profile_summary(prof,
+                                                              seconds)})
+
+
+def mesh_rank(rank: int, world: int, port: int, queue) -> None:
+    """One gloo rank of phase 16: every run of ``mesh_runs`` with the
+    launch counters at 0 just before and read just after; its results (or
+    its error) to the parent."""
+    import datetime
+    import traceback
+    out = {}
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        profile_runs()
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+        for label, run in mesh_runs():
+            fns = zero_counts()
+            t0 = time.perf_counter()
+            res = run(rank)
+            torch.cuda.synchronize()
+            res["seconds"] = time.perf_counter() - t0
+            res["launches"] = {k: f.launches for k, f in fns.items()}
+            res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            s = res.get("summary")
+            if s is not None:               # what the checks read
+                res["profile"] = s.get("profile")
+                res["summary"] = {k: s[k] for k in (
+                    "tokens", "generated", "requests_finished",
+                    "decode_tok_per_s", "seconds", "mode_counts",
+                    "wire_bytes", "migrations", "mesh") if k in s}
+            out[label] = res
+            free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def start_mesh(world: int):
+    """Start ``world`` gloo ranks of ``mesh_rank``; (processes, queue)
+    for ``collect_mesh``."""
+    import multiprocessing
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, port, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, queue
+
+
+def collect_mesh(procs, queue) -> dict:
+    """{rank: results} of ``start_mesh``'s ranks; raises if a rank failed.
+    Every rank is joined or ended."""
+    from repro_torch.launch.serve import _first_result
+    results = {}
+    try:
+        for _ in procs:
+            r, res = _first_result(queue, procs)
+            results[r] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r, res in sorted(results.items()):
+        check("error" not in res, f"mesh rank {r} failed:\n"
+                                  f"{res.get('error')}")
+    return results
+
+
+def mesh_kernels(dev, seed: int, iters: int) -> dict:
+    """The kernels at the per-rank shapes of the mesh's main path
+    (qwen2.5-3b, random inputs of its widths): paged attention at mp 2
+    (one KV head a rank, group 8, hd 128; 4 slots at positions 16 to 31)
+    in both forms bf16 bit for bit against the plain version, timed beside
+    it, SDPA and the bound; the boundary on a dp rank's 2 rows of 4, bit
+    for bit the rows of the whole batch, timed at 2 rows; the tail at 2
+    rows against the plain logits, timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import bottleneck
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.boundary_mixed import (boundary_mixed_grouped,
+                                                    decode_tail_grouped)
+    from repro_torch.kernels.paged_attention import paged_attention
+    cfg = get_config("qwen2.5-3b")
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    flush = l2_flusher(dev)
+    bf = torch.bfloat16
+    # paged attention at the mp-2 rank's heads
+    hd, g, plen = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads, 8
+    n_pages = 4 * 16 + 1
+    kp = torch.randn((n_pages, plen, 1, hd), generator=gen, device=dev).to(bf)
+    vp = torch.randn((n_pages, plen, 1, hd), generator=gen, device=dev).to(bf)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = perm[:16].reshape(4, 4).to(torch.int32).contiguous()
+    pos = torch.tensor([16, 20, 24, 31], dtype=torch.int32, device=dev)
+    q = torch.randn((4, g, hd), generator=gen, device=dev).to(bf)
+    cases = [check_paged(q, kp, vp, bt, pos, pps, f"mp2 rank {form}",
+                         oracle=True)
+             for pps, form in ((4, "one range"), (1, "split 1"))]
+    paged = {"timed_shape": {"B": 4, "positions": [16, 20, 24, 31], "nq": g,
+                             "n_kv": 1, "hd": hd, "page_len": plen},
+             "cases": cases,
+             "ms": time_ms(lambda: paged_attention(q, kp, vp, bt, pos),
+                           iters, flush),
+             "plain_ms": time_ms(lambda: ref.paged_attention_ref(
+                 q, kp, vp, bt, pos), max(iters // 5, 3), flush),
+             "library_ms": sdpa_ms(q, kp, vp, bt, pos, iters, flush)}
+    paged["bound_ms"], paged["bound_by"] = paged_bound(kp, q, bt, pos)
+    # the boundary on a dp rank's rows
+    bank = bottleneck.bank_stack(bottleneck.bank_init(gen, cfg, dtype=bf),
+                                 cfg.split)
+    d, w = cfg.d_model, int(bank["width"][0])
+    x = torch.randn((4, 1, d), generator=gen, device=dev).to(bf)
+    modes = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+    full = ops.boundary_mixed_op(bank, x, modes, dtype=bf)
+    member = type("Rank", (), {"member": True})()
+    for lo in (0, 2):
+        part = ops.boundary_mixed_sharded(bank, x[lo:lo + 2],
+                                          modes[lo:lo + 2], member, dtype=bf)
+        check(same_bits(part, full[lo:lo + 2]),
+              f"boundary: rows {lo}..{lo + 1} alone differ from their rows "
+              f"in the 4-row batch")
+    x2, m2 = x[2:].reshape(2, d), modes[2:]
+    boundary = {"timed_shape": {"rows": 2, "d": d, "width": w,
+                                "modes": [0, 1]},
+                "rows_bit_identical": True,
+                "ms": time_ms(lambda: boundary_mixed_grouped(
+                    x2, m2, 1, bank, dtype=bf), iters, flush),
+                "plain_ms": time_ms(lambda: ref.boundary_mixed_rows_ref(
+                    x2, m2, bank, bf), max(iters // 5, 3), flush)}
+    boundary["bound_ms"], boundary["bound_by"] = bound(
+        2 * (2 * 2 * d + 2 * d * w + d), 2 * 2 * d * w, "bfloat16")
+    # the tail at 2 rows, on a random head of the model's width
+    head = (torch.randn((1, d, cfg.vocab_size), generator=gen, device=dev)
+            / math.sqrt(d)).to(bf)
+    scale = torch.ones(d, dtype=bf, device=dev)
+    xt = torch.randn((2, 1, d), generator=gen, device=dev).to(bf)
+    differ, _ = check_tail(xt, scale, head, "2 rows")
+    V = cfg.vocab_size
+    tail = {"timed_shape": {"rows": 2, "d": d, "V": V},
+            "tokens_differing": differ,
+            "ms": time_ms(lambda: decode_tail_grouped(
+                xt[:, 0], head, scale, None, block_r=16), iters),
+            "plain_ms": time_ms(lambda: ref.decode_tail_ref(
+                xt, scale, None, head), iters)}
+    tail["bound_ms"], tail["bound_by"] = bound(
+        2 * (V * d + 2 * d + d) + 4 * 2, 2 * 2 * d * V, "bfloat16")
+    return {"paged_attention": paged, "boundary_mixed_grouped": boundary,
+            "decode_tail_grouped": tail}
+
+
+#: the kernels each mesh path must launch (the tail is replicated over
+#: mp and runs fused; the mp run is the unfused engine, the sync engine's
+#: wire is the plain bottleneck)
+MESH_KERNELS = {
+    "qwen2.5-3b continuous dp2": ("boundary_mixed_grouped",
+                                  "decode_tail_grouped", "paged_attention"),
+    "qwen2.5-3b continuous mp2": ("boundary_mixed_grouped",
+                                  "paged_attention"),
+    "qwen2.5-3b sync dp2": ("decode_tail_grouped",),
+    "recurrentgemma-2b continuous dp2": ("boundary_mixed_grouped",
+                                         "decode_tail_grouped",
+                                         "rglru_scan"),
+    "qwen2.5-3b cluster 2x(1,1)": ("boundary_mixed_grouped",
+                                   "decode_tail_grouped", "paged_attention"),
+    "qwen2.5-3b slot-scaling": ("boundary_mixed_grouped",
+                                "decode_tail_grouped", "paged_attention"),
+    "qwen2.5-3b continuous nccl (1,1)": ("boundary_mixed_grouped",
+                                         "decode_tail_grouped",
+                                         "paged_attention"),
+}
+
+
+def mesh_checks(ranks: dict, one: dict):
+    """Phase 16's rules on the gloo ranks' results against the one-device
+    runs ``one``: every rank's summary the same, each path's kernels
+    launched, dp tokens equal to one device's, the mp rule, the slot
+    scaling gate. Returns (launches by path, per-run record, the mp
+    check, the slot-scaling rows)."""
+    runs, by_path = {}, {}
+    for label, _ in mesh_runs():
+        per = [ranks[r][label] for r in sorted(ranks)]
+        launches = {k: sum(p["launches"][k] for p in per)
+                    for k in per[0]["launches"]}
+        by_path[label] = launches
+        runs[label] = {"seconds": [p["seconds"] for p in per],
+                       "peak_gb": [p["peak_gb"] for p in per],
+                       "launches": launches}
+        if per[0].get("summary") is not None:
+            runs[label]["tok_per_s_by_rank"] = [
+                p["summary"].get("decode_tok_per_s") for p in per]
+        if per[0].get("profile"):
+            runs[label]["per_rank"] = [
+                {"decode_tok_per_s": p["summary"].get("decode_tok_per_s"),
+                 "device_busy_s": p["profile"]["device_busy_s"],
+                 "device_idle_share": p["profile"]["device_idle_share"],
+                 "kernel_launches": p["profile"]["kernel_launches"]}
+                for p in per]
+        s = per[0].get("summary")
+        if s is not None:
+            runs[label].update(
+                {k: s[k] for k in ("decode_tok_per_s", "requests_finished",
+                                   "mode_counts", "wire_bytes", "migrations")
+                 if k in s})
+            same = ("tokens", "generated", "requests_finished",
+                    "mode_counts", "wire_bytes", "migrations")
+            check(all({k: p["summary"].get(k) for k in same}
+                      == {k: s.get(k) for k in same} for p in per),
+                  f"mesh {label}: the ranks' summaries differ")
+        for k in MESH_KERNELS[label]:
+            check(launches[k] > 0, f"mesh {label}: kernel {k} never "
+                                   f"launched")
+    r0 = {label: ranks[0][label] for label, _ in mesh_runs()}
+    for label, ref_label in (
+            ("qwen2.5-3b continuous dp2", "qwen2.5-3b continuous"),
+            ("recurrentgemma-2b continuous dp2",
+             "recurrentgemma-2b continuous"),
+            ("qwen2.5-3b cluster 2x(1,1)", "qwen2.5-3b cluster")):
+        got = r0[label]["summary"]["tokens"]
+        check(got == one[ref_label],
+              f"mesh {label}: tokens differ from one device's (request, "
+              f"index) {first_difference(got, one[ref_label])}")
+    check(sync_rows(r0["qwen2.5-3b sync dp2"]["summary"]["generated"])
+          == sync_rows(one["qwen2.5-3b sync"]),
+          "mesh qwen2.5-3b sync dp2: tokens differ from one device's")
+    check(r0["qwen2.5-3b cluster 2x(1,1)"]["summary"]["migrations"] > 0,
+          "mesh cluster: no session migrated")
+    mp = r0["qwen2.5-3b continuous mp2"]["against_one_device"]
+    rows = r0["qwen2.5-3b slot-scaling"]["slot_scaling"]["rows"]
+    check([r["dp"] for r in rows] == [1, 2],
+          f"mesh slot scaling: rows {[r['dp'] for r in rows]}")
+    for r in rows:
+        check(r["finished"] == r["requests"],
+              f"mesh slot scaling dp {r['dp']}: {r['finished']} of "
+              f"{r['requests']} requests finished")
+        check(r["decode_tok_per_s"] >= SHARD_FLOOR
+              * rows[0]["decode_tok_per_s"],
+              f"mesh slot scaling dp {r['dp']}: {r['decode_tok_per_s']} "
+              f"tok/s under {SHARD_FLOOR} x dp 1's")
+    return by_path, runs, mp, rows
+
+
+def phase_mesh(dev, seed: int, iters: int, smi: str) -> dict:
+    """Phase 16: the serving mesh on the one card. The kernels at the
+    per-rank shapes (``mesh_kernels``); the one-device cluster run; the
+    continuous engine on one NCCL rank (launch.serve --dp 1 --mp 1, which
+    starts it); then two gloo ranks on cuda:0 (``mesh_runs``), their
+    launches summed by path. dp runs must decode the one-device tokens
+    (phases 7 and 9's runs, and the cluster's), the mp run keeps the
+    schedule under ``TOL["mp_logit_rel"]``, and the slot scaling rows
+    finish their workloads above ``SHARD_FLOOR``. Ranks sharing one card
+    measure correctness and launches, not dp or mp speed. Returns the
+    launches of each path."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    kernels = mesh_kernels(dev, seed, iters)
+    free_cuda()
+    one = {"qwen2.5-3b continuous": MAIN_RUNS["qwen2.5-3b continuous"],
+           "qwen2.5-3b sync": MAIN_RUNS["qwen2.5-3b sync"],
+           "recurrentgemma-2b continuous":
+               MAIN_RUNS["recurrentgemma-2b continuous"]}
+    # the gloo ranks run while this process serves the one-device cluster
+    # and the NCCL rank: the card and the host's cores have room for both
+    # (for the script's time; the rates below then share the card)
+    t_gloo = time.perf_counter()
+    started = start_mesh(2)
+    one["qwen2.5-3b cluster"] = serve_run(MESH_CLUSTER + ["--device",
+                                                         "cuda"])["tokens"]
+    free_cuda()
+    t_nccl = time.perf_counter()
+    nccl = serve.main(SERVE["qwen2.5-3b"] + ["--dp", "1", "--mp", "1",
+                                              "--dist-backend", "nccl",
+                                              "--device", "cuda"])
+    t_nccl = time.perf_counter() - t_nccl
+    check(nccl["tokens"] == one["qwen2.5-3b continuous"]
+          and nccl["mesh"]["backend"] == "nccl",
+          "mesh nccl (1, 1): tokens differ from one device's")
+    ranks = collect_mesh(*started)
+    t_gloo = time.perf_counter() - t_gloo
+    by_path, runs, mp, rows = mesh_checks(ranks, one)
+    by_path["qwen2.5-3b continuous nccl (1,1)"] = nccl["mesh"]["launches"]
+    for k in MESH_KERNELS["qwen2.5-3b continuous nccl (1,1)"]:
+        check(nccl["mesh"]["launches"][k] > 0,
+              f"mesh nccl (1, 1): kernel {k} never launched")
+    emit({"phase": "mesh", "card": smi,
+          "note": "every rank on the one card: correctness and launches, "
+                  "not dp or mp speed",
+          "kernels_at_rank_shapes": kernels, "mp_against_one_device": mp,
+          "slot_scaling": rows, "runs": runs,
+          "nccl_1x1": {"seconds": t_nccl,
+                       "decode_tok_per_s": nccl["decode_tok_per_s"],
+                       "launches": nccl["mesh"]["launches"]},
+          "gloo_ranks_seconds": t_gloo,
+          "seconds": time.perf_counter() - t0})
+    return by_path
+
+
 SOURCES = {
     "boundary_mixed_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
     "decode_tail_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
@@ -4138,7 +4656,7 @@ def main(argv=None) -> int:
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random full-width weights")
-    ap.add_argument("--iters", type=int, default=50,
+    ap.add_argument("--iters", type=int, default=30,
                     help="timed launches per kernel")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
@@ -4229,6 +4747,8 @@ def main(argv=None) -> int:
     by_path.update(phase_frontends(dev, args.seed, args.iters, smi))
     free_cuda()
     by_path.update(phase_moe(dev, args.seed, args.iters, smi))
+    free_cuda()
+    by_path.update(phase_mesh(dev, args.seed, args.iters, smi))
 
     emit({"phase": "untraced", "measurements": UNTRACED})
     print(smi, flush=True)

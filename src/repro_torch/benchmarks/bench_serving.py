@@ -24,9 +24,15 @@ admission-frozen modes. ``--trace-out`` exports a Perfetto-loadable
 Chrome trace of a small cluster run (SLO admission, a live migration and
 the autoscaler on per-replica lanes: ``cluster_trace_export``).
 
+``--slot-scaling 1,2,4`` adds the serving mesh's scenario
+(``slot_scaling``): at each dp the slot pool grows to 2 x dp slots under a
+saturating workload on dp ranks, dp 1 being the one-device engine. The
+bench then runs on ``max(dps)`` ranks (started here, or ``torchrun``'s),
+rank 0 running every other section and printing; ``--dist-backend`` as
+in ``launch.serve``.
+
 Runs the full-width config on ``cuda`` by default; ``--reduced`` takes the
-reduced config and ``--device cpu`` the plain PyTorch path. The serving
-mesh's ``--slot-scaling`` is not ported yet and raises.
+reduced config and ``--device cpu`` the plain PyTorch path.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_serving \
         [--arch qwen2.5-3b] [--reduced] [--device cpu] \
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
@@ -46,6 +53,7 @@ from repro_torch.core import bottleneck as BN
 from repro_torch.core import split as SP
 from repro_torch.core.channel import (RTT_SECONDS, ChannelConfig,
                                       TraceChannel, channel_fleet)
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.serving import (ContinuousBatchingEngine, ControllerConfig,
                                  ModeController, Request, Telemetry,
@@ -235,6 +243,74 @@ def compare_engine_loops(params, cfg, *, n_slots: int, prompt_len: int,
         out["device_loop"]["decode_tok_per_s"]
         / max(out["host_loop"]["decode_tok_per_s"], 1e-9), 2)
     return out
+
+
+def run_slot_scaling(params, cfg, *, dps, n_slots_base: int = 2,
+                     prompt_len: int = 4, gen: int = 16,
+                     device=None) -> dict:
+    """Slot scaling over the serving mesh (the reference's
+    ``run_slot_scaling``): at each dp the slot pool grows to
+    ``n_slots_base * dp`` (each dp shard holds the base slot count) and a
+    saturating workload (every request present at tick 0, 2x
+    oversubscribed) measures decode tok/s on the leader's clock. dp 1 is
+    the one-device ``mesh=None`` engine on rank 0. Call on every rank of
+    the process group (a mesh is built collectively); dp values above the
+    world size are skipped and listed in ``skipped_dps``. Ranks sharing
+    one card measure completion and launches, not dp speed."""
+    rank, size = sharding.world()
+    rows, skipped = [], []
+    for dp in dps:
+        if dp > size:
+            skipped.append(dp)
+            continue
+        mesh = (sharding.serving_mesh(dp, 1, device=device) if dp > 1
+                else None)
+        if (rank != 0) if mesh is None else not mesh.member:
+            _barrier()
+            continue
+        n_slots = n_slots_base * dp
+        eng = ContinuousBatchingEngine(
+            params, cfg, n_slots=n_slots,
+            cache_len=max(64, prompt_len + gen + 8),
+            orchestrator=default_orchestrator(cfg), mesh=mesh)
+        reqs = make_requests(cfg, 2 * n_slots, prompt_len=prompt_len,
+                             gen=gen, arrival_every=0)
+        eng.warm(reqs[0].prompt)
+        # one untimed round of the real admission pattern first
+        eng.run(make_requests(cfg, 2 * n_slots, prompt_len=prompt_len,
+                              gen=gen, arrival_every=0))
+        eng.reset_counters()
+        dev = eng.device
+        block(torch.zeros((), device=dev))
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        block(eng.cur_tokens)
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        eng.close()
+        rows.append({
+            "dp": dp,
+            "n_slots": n_slots,
+            "requests": 2 * n_slots,
+            "finished": st["requests_finished"],
+            "decode_tok_per_s": round(
+                st["decode_tokens"] / max(wall, 1e-9), 1),
+            "decode_ticks": st["decode_ticks"],
+            "slot_occupancy": round(
+                st["decode_tokens"]
+                / max(st["decode_ticks"] * n_slots, 1), 3),
+        })
+        _barrier()
+    if skipped and rank == 0:
+        print(f"slot_scaling: skipped dp={skipped} (only {size} ranks)")
+    return {"n_slots_base": n_slots_base, "gen": gen, "n_ranks": size,
+            "rows": rows, "skipped_dps": skipped}
+
+
+def _barrier():
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def run_telemetry_overhead(params, cfg, *, n_slots: int, prompt_len: int,
@@ -490,8 +566,12 @@ def main(argv=None):
                     help="decode tokens per request in the loop A/B")
     ap.add_argument("--slot-scaling", default=None, metavar="DPS",
                     help="comma list of dp mesh factors: the slot-scaling "
-                         "scenario over the serving mesh (not ported yet: "
-                         "raises)")
+                         "scenario over the serving mesh, on max(DPS) "
+                         "ranks")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="torch.distributed backend of --slot-scaling "
+                         "(default nccl on cuda, gloo on the CPU)")
     ap.add_argument("--channel-trace", default=None,
                     choices=["static", "fade", "burst"],
                     help="run the adaptive-vs-frozen mode-policy A/B on a "
@@ -509,16 +589,48 @@ def main(argv=None):
     ap.add_argument("--json", "--json-out", dest="json_out", default=None,
                     metavar="PATH", help="write the full result dict as JSON")
     args = ap.parse_args(argv)
+    from repro_torch.launch import serve
     if args.slot_scaling:
-        raise NotImplementedError(
-            "--slot-scaling needs the serving mesh, which is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+        dps = [int(v) for v in args.slot_scaling.split(",")]
+        return serve.run_on_ranks(
+            main, args, sys.argv[1:] if argv is None else argv, max(dps),
+            lambda: _bench(args, dps))
+    return _bench(args, None)
 
-    from repro_torch.launch.serve import resolve_device
-    dev = resolve_device(args.device)
+
+def _bench(args, dps):
+    from repro_torch.launch import serve
+    rank = sharding.world()[0]
+    if dps is None:
+        dev = serve.resolve_device(args.device)
+    else:
+        dev = serve.rank_device(args, rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     params = SP.init_split_params(
         torch.Generator(device=dev).manual_seed(0), cfg)
+    out = {"arch": args.arch, "n_slots": args.n_slots, "device": str(dev),
+           "reduced": bool(args.reduced)}
+    if rank == 0:
+        out.update(_sections(args, cfg, params, dev))
+    if dps:
+        sc = run_slot_scaling(params, cfg, dps=dps,
+                              prompt_len=args.prompt_len, device=dev)
+        out["slot_scaling"] = sc
+        for row in sc["rows"] if rank == 0 else ():
+            print(f"slot_scaling,dp={row['dp']},slots={row['n_slots']},"
+                  f"tok/s={row['decode_tok_per_s']} "
+                  f"finished={row['finished']}/{row['requests']} "
+                  f"occ={row['slot_occupancy']}")
+    if args.json_out and rank == 0:
+        with open(args.json_out, "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
+def _sections(args, cfg, params, dev) -> dict:
+    """Every section but the slot scaling (rank 0's)."""
     print(f"== bench_serving {args.arch} "
           f"({'reduced' if args.reduced else 'FULL'}) on {dev} "
           f"slots={args.n_slots} requests={args.requests} gen={args.gen} ==",
@@ -567,9 +679,7 @@ def main(argv=None):
     mixed_any = any(r["mixed_mode_ticks"] > 0 for r in levels)
     print(f"serving_summary,mixed_mode_batches={'yes' if mixed_any else 'no'},"
           f"levels={len(levels)},prefill_speedup={pf['ttft_speedup']}x")
-    out = {"arch": args.arch, "n_slots": args.n_slots, "device": str(dev),
-           "reduced": bool(args.reduced),
-           "prefill_comparison": pf, "levels": levels}
+    out = {"prefill_comparison": pf, "levels": levels}
     if lp is not None:
         out["long_prompt"] = lp
 
@@ -614,9 +724,6 @@ def main(argv=None):
               f"miss_frozen={tr['frozen']['deadline_miss_rate']} "
               f"switches={tr['adaptive']['mode_switches']} "
               f"adaptive_wins={'yes' if tr['adaptive_wins'] else 'no'}")
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(out, f, indent=1)
     return out
 
 

@@ -83,15 +83,20 @@ def bank_stack(bank, split: SplitConfig):
     }
 
 
-def boundary_mixed(stacked, x, mode_idx, *, dtype=torch.bfloat16):
+def boundary_mixed(stacked, x, mode_idx, *, dtype=torch.bfloat16,
+                   mesh=None):
     """Per-slot bottleneck at the split boundary.
 
     x: [B, S, d] boundary activation; mode_idx: [B] int32 in [0, M] (0 =
     raw code z, m >= 1 = head m-1 of the stacked bank). Returns the
     decoder-side activation [B, S, d]. On CUDA tensors this runs the
     hand-written boundary kernel; on CPU tensors its plain PyTorch version
-    (``kernels.ops.boundary_mixed_op``)."""
+    (``kernels.ops.boundary_mixed_op``). ``mesh``: a serving mesh, on whose
+    ranks it runs as ``ops.boundary_mixed_sharded``."""
     from repro_torch.kernels import ops
+    if mesh is not None:
+        return ops.boundary_mixed_sharded(stacked, x, mode_idx, mesh,
+                                          dtype=dtype)
     return ops.boundary_mixed_op(stacked, x, mode_idx, dtype=dtype)
 
 

@@ -134,7 +134,7 @@ def _wire(params, x, cfg: ModelConfig, mode: int):
 
 
 def split_decode_step(params, token, states, cur_pos, cfg: ModelConfig,
-                      mode: int = 0, return_tokens: bool = False):
+                      mode: int = 0, return_tokens: bool = False, plan=None):
     """One-token decode with the boundary activation crossing the link in
     bottleneck ``mode`` (the whole batch on one mode). Encoder-side layer
     states stay on the UE, decoder-side ones at the edge; both update in
@@ -142,7 +142,8 @@ def split_decode_step(params, token, states, cur_pos, cfg: ModelConfig,
     aligned rows or a [B] tensor. Returns (logits [B, 1, V] ([B, K, 1, V]
     audio), states, payload_bytes); with ``return_tokens`` the decode tail
     (``T.decode_tail_tokens``) replaces the logits with argmax int32
-    tokens shaped like ``token``."""
+    tokens shaped like ``token``. ``plan``: a serving mesh's ``RankPlan``
+    (``cfg`` the rank's config)."""
     s = cfg.split.split_at
     x = T.embed_tokens(params, token, cfg)
     B = x.shape[0]
@@ -150,9 +151,11 @@ def split_decode_step(params, token, states, cur_pos, cfg: ModelConfig,
     enc_l, dec_l = slice_layers(params["layers"], cfg, s)
     enc_st, dec_st = _split_states(states, cfg, s)
     kinds = _kinds(cfg)
-    x = T.run_layers_decode(enc_l, x, enc_st, pos, cfg, kinds=kinds[:s])
+    x = T.run_layers_decode(enc_l, x, enc_st, pos, cfg, kinds=kinds[:s],
+                            plan=plan)
     x = _wire(params, x, cfg, mode)
-    x = T.run_layers_decode(dec_l, x, dec_st, pos, cfg, kinds=kinds[s:])
+    x = T.run_layers_decode(dec_l, x, dec_st, pos, cfg, kinds=kinds[s:],
+                            plan=plan)
     pb = bottleneck.mode_payload_bytes(cfg, B, 1, mode)
     if return_tokens:
         return T.decode_tail_tokens(params, x, cfg), states, pb
@@ -162,7 +165,8 @@ def split_decode_step(params, token, states, cur_pos, cfg: ModelConfig,
 
 def split_decode_step_mixed(params, stacked_bank, token, states, positions,
                             cfg: ModelConfig, mode_idx, block_table=None,
-                            return_tokens: bool = False):
+                            return_tokens: bool = False, mesh=None,
+                            plan=None):
     """One decode step for a mixed-mode continuous batch: every slot at its
     own depth (``positions`` [B]) and through its own bottleneck
     (``mode_idx`` [B]: 0 = raw code z, m >= 1 = head m-1 of
@@ -170,18 +174,22 @@ def split_decode_step_mixed(params, stacked_bank, token, states, positions,
     ``block_table`` ([B, nb]), the dense per-slot state without.
     token: [B, 1] ([B, K, 1] audio). Returns (logits [B, 1, V] ([B, K, 1,
     V] audio), states); with ``return_tokens`` the decode tail replaces
-    the logits with argmax int32 tokens shaped like ``token``."""
+    the logits with argmax int32 tokens shaped like ``token``.
+
+    ``mesh``: a serving mesh (the boundary then runs as
+    ``ops.boundary_mixed_sharded``); ``plan``: its ``RankPlan``, ``cfg``
+    then the rank's config."""
     s = cfg.split.split_at
     x = T.embed_tokens(params, token, cfg)
     enc_l, dec_l = slice_layers(params["layers"], cfg, s)
     enc_st, dec_st = _split_states(states, cfg, s)
     kinds = _kinds(cfg)
     x = T.run_layers_decode(enc_l, x, enc_st, positions, cfg,
-                            kinds=kinds[:s], block_table=block_table)
+                            kinds=kinds[:s], block_table=block_table, plan=plan)
     x = bottleneck.boundary_mixed(stacked_bank, x, mode_idx,
-                                  dtype=T.model_dtype(cfg))
+                                  dtype=T.model_dtype(cfg), mesh=mesh)
     x = T.run_layers_decode(dec_l, x, dec_st, positions, cfg,
-                            kinds=kinds[s:], block_table=block_table)
+                            kinds=kinds[s:], block_table=block_table, plan=plan)
     if return_tokens:
         return T.decode_tail_tokens(params, x, cfg), states
     x = T.norm_apply_final(params, x, cfg)
@@ -189,7 +197,7 @@ def split_decode_step_mixed(params, stacked_bank, token, states, positions,
 
 
 def _prefill_through(params, tokens, cfg: ModelConfig, states, boundary,
-                     lengths, block_table):
+                     lengths, block_table, plan=None):
     """Whole-prompt prefill skeleton: encoder layers, ``boundary`` (the wire
     crossing), decoder layers, filling every layer's decode state.
     Returns (logits at each row's last real position [B, 1, V], states)."""
@@ -204,11 +212,11 @@ def _prefill_through(params, tokens, cfg: ModelConfig, states, boundary,
     kinds = _kinds(cfg)
     x = T.run_layers_prefill(enc_l, x, positions, enc_st, cfg,
                              kinds=kinds[:s], lengths=lengths,
-                             block_table=block_table)
+                             block_table=block_table, plan=plan)
     x = boundary(x)
     x = T.run_layers_prefill(dec_l, x, positions, dec_st, cfg,
                              kinds=kinds[s:], lengths=lengths,
-                             block_table=block_table)
+                             block_table=block_table, plan=plan)
     return T.last_logits(params, x, lengths, cfg), states
 
 
@@ -231,14 +239,17 @@ def split_prefill(params, tokens, cfg: ModelConfig, states, mode: int = 0,
 
 def split_prefill_mixed(params, stacked_bank, tokens, states,
                         cfg: ModelConfig, mode_idx, *, lengths=None,
-                        block_table=None):
+                        block_table=None, mesh=None, plan=None):
     """Batched multi-request prefill with per-row bottleneck modes: one
     forward over a right-padded prompt batch where row b's boundary
     activations cross the wire through its own mode. ``states``: the paged
     arena with ``block_table``, else a fresh dense state of the batch's
-    rows. Returns (last-real-position logits, states)."""
+    rows. ``mesh`` / ``plan``: as in ``split_decode_step_mixed``; the batch
+    runs replicated over dp (every rank of the mesh runs every row).
+    Returns (last-real-position logits, states)."""
     return _prefill_through(
         params, tokens, cfg, states,
         lambda x: bottleneck.boundary_mixed(stacked_bank, x, mode_idx,
-                                            dtype=T.model_dtype(cfg)),
-        lengths, block_table)
+                                            dtype=T.model_dtype(cfg),
+                                            mesh=mesh),
+        lengths, block_table, plan)

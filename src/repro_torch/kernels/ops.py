@@ -110,6 +110,29 @@ def boundary_mixed_op(stacked, x, mode_idx, *, dtype=torch.bfloat16):
     return y.reshape(B, S, d)
 
 
+def launch_counts() -> dict:
+    """Each kernel wrapper's launch counter (``<wrapper>.launches``)."""
+    return {f.__name__: f.launches
+            for f in (boundary_mixed_grouped, decode_tail_grouped,
+                      paged_attention, rglru_scan, bottleneck_quant,
+                      dequant_matmul)}
+
+
+def boundary_mixed_sharded(stacked, x, mode_idx, mesh, *,
+                           dtype=torch.bfloat16):
+    """``boundary_mixed_op`` on a serving mesh (the reference's
+    ``boundary_mixed_sharded``, a replicated ``shard_map`` region): each
+    rank of the engine group runs the boundary on the rows it decodes
+    (every slot's, in its place: ``models.sharding``), with the bank
+    replicated over mp, and no collective. Each row's bits are those it
+    gets alone or in any batch (the CUDA kernel's rows are independent,
+    the plain version sums each row in float64 and rounds once), so a
+    rank's rows are one device's. x: [B, S, d]; ``mode_idx``: [B]."""
+    if mesh is not None and not mesh.member:
+        raise ValueError(f"rank {mesh.rank} holds no rows of this mesh")
+    return boundary_mixed_op(stacked, x, mode_idx, dtype=dtype)
+
+
 def decode_tail_op(x, norm_scale, norm_bias, heads, head_idx=None, *,
                    norm_kind: str = "rmsnorm", tied: bool = False):
     """Fused decode tail: final norm -> LM head -> argmax -> int32 tokens

@@ -56,8 +56,23 @@ llava-next-34b is served on text prompts (its vision prefix goes through
 The cluster and fleet engines run their replicas on the one device, over
 one set of weights. ``--telemetry`` (or ``--trace-out``) attaches the
 metrics registry and trace recorder: the summary then carries TTFT and
-inter-token latency percentiles (``latency``, ms). ``--dp`` / ``--mp``
-(the serving mesh) are not ported yet and raise.
+inter-token latency percentiles (``latency``, ms).
+
+``--dp`` / ``--mp`` serve on a mesh of ``dp * mp`` ranks (``--replicas``
+times that for the cluster), one process a rank: the slots over dp, the
+dense attention archs' attention and MLP layers over mp. Under
+``torchrun`` the launcher takes its environment; otherwise it starts the
+ranks itself (``torch.multiprocessing``, spawn) and rank 0 prints.
+``--dist-backend`` is nccl with ``--device cuda`` and gloo with ``--device
+cpu`` unless given; rank r runs on ``cuda:r`` under ``--device cuda``,
+and every rank on the one device under ``--device cuda:N`` (gloo only:
+NCCL refuses two ranks on one device, and such a layout raises).
+
+    # 4 gloo ranks on the CPU: 2-way dp x 2-way mp
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --reduced --device cpu --engine continuous --dp 2 --mp 2
+    # on cards: torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+    #     --arch qwen2.5-3b --engine continuous --dp 2
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
 raises rather than falling back to the CPU.
@@ -67,9 +82,13 @@ from __future__ import annotations
 import argparse
 import bisect
 import contextlib
+import datetime
 import json
 import os
+import socket
+import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -83,6 +102,7 @@ from repro_torch.core.orchestrator import (AppRequirement, ModeProfile,
                                            Orchestrator)
 from repro_torch.data.lumos5g import capacity_traces_bps
 from repro_torch.data.tokens import MarkovTokenSource
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.serving import (HANDOVER_POLICIES, PLACEMENTS, Autoscaler,
                                  AutoscalerConfig, ContinuousBatchingEngine,
@@ -211,7 +231,7 @@ def _timed_run(args, dev, run):
 
 
 def run_continuous(args, cfg, params, tel=None):
-    dev = params["embed"]["table"].device
+    dev = _run_device(args, params)
     orch = build_orchestrator(cfg, 1, args.latency_budget_ms / 1e3,
                               hysteresis=1.0)
     chans = channel_fleet(
@@ -235,7 +255,7 @@ def run_continuous(args, cfg, params, tel=None):
         kw["freeze_modes"] = args.mode_policy == "frozen"
     eng = ContinuousBatchingEngine(params, cfg, n_slots=args.n_slots,
                                    cache_len=args.cache_len, telemetry=tel,
-                                   **kw)
+                                   mesh=getattr(args, "mesh", None), **kw)
     # run every prefill batch bucket and window length once, so the
     # decode rate measures steady-state serving
     eng.warm(np.asarray(batch[0]))
@@ -260,7 +280,7 @@ def run_cluster(args, cfg, params, tel=None):
     its home cell and crosses into the next cell partway through its
     generation, so every session exercises the configured handover policy
     (migrate / stay / drop) under the chosen placement."""
-    dev = params["embed"]["table"].device
+    dev = _run_device(args, params)
     n_rep = args.replicas
     cap_bps = args.mean_mbps * 1e6 / 8.0
     rng = np.random.default_rng(args.channel_seed)
@@ -282,7 +302,7 @@ def run_cluster(args, cfg, params, tel=None):
         handover=args.handover, snapshot_bits=args.snapshot_bits,
         backhaul_bps=args.backhaul_mbps * 1e6 / 8.0,
         latency_budget_s=args.latency_budget_ms / 1e3,
-        telemetry=tel)
+        telemetry=tel, **_cluster_mesh(args))
     # warm every replica's paths so decode_tok_per_s measures steady-state
     # serving, as on the continuous engine
     cluster.warm(np.asarray(batch[0]))
@@ -308,7 +328,7 @@ def run_fleet(args, cfg, params, tel=None):
     come from a Poisson or heavy-tail renewal process, and the elastic
     ``EdgeCluster`` applies SLO-driven admission plus replica
     autoscaling."""
-    dev = params["embed"]["table"].device
+    dev = _run_device(args, params)
     n = args.requests
     traces = capacity_traces_bps(n, 512, seed=args.channel_seed)
     fleet = FleetChannel(n, traces_bps=traces, cycle=True)
@@ -332,7 +352,7 @@ def run_fleet(args, cfg, params, tel=None):
             latency_budget_s=args.latency_budget_ms / 1e3)),
         autoscaler=autoscaler,
         telemetry=tel,
-        max_pending=max(n, 64))
+        max_pending=max(n, 64), **_cluster_mesh(args))
     cluster.warm(reqs[0].prompt)
     done, seconds, prof = _timed_run(args, dev,
                                      lambda: cluster.run_paced(reqs))
@@ -360,14 +380,14 @@ def run_sync(args, cfg, params, tel=None):
     the first token from its logits, then ``--gen`` decode steps, each on
     the policy's mode (the orchestrator's from one shared channel, or a
     fixed one). Wall times end in a device synchronize."""
-    dev = params["embed"]["table"].device
+    dev = _run_device(args, params)
     orch = None
     if args.policy == "orchestrator":
         orch = build_orchestrator(cfg, args.requests,
                                   args.latency_budget_ms / 1e3)
     eng = ServingEngine(params, cfg, cache_len=args.cache_len,
                         batch=args.requests, orchestrator=orch,
-                        telemetry=tel)
+                        telemetry=tel, mesh=getattr(args, "mesh", None))
     src = MarkovTokenSource(cfg, seed=7)
     prompt = torch.from_numpy(
         src.batch(args.requests, args.prompt_len)["tokens"]).to(dev)
@@ -385,16 +405,7 @@ def run_sync(args, cfg, params, tel=None):
             T.check_cache_capacity(cfg, eng.pos, args.gen, args.cache_len,
                                    what="--gen")
             mode = int(args.policy[-1])
-            out, wire = [], 0
-            tok = first
-            for _ in range(args.gen):
-                logits, eng.states, pb = SP.split_decode_step(
-                    eng.params, tok, eng.states, eng.pos, cfg, mode=mode)
-                eng.pos += 1
-                tok = torch.argmax(logits, dim=-1).to(torch.int32)
-                out.append(tok)
-                wire += int(pb)
-            gen = torch.cat(out, dim=-1).cpu().numpy()
+            gen, wire = eng.decode_static(first, args.gen, mode)
             stats = {"tokens": int(gen.size), "wire_bytes": wire,
                      "mode_counts": {mode: args.gen}}
         else:
@@ -421,6 +432,196 @@ def run_sync(args, cfg, params, tel=None):
     }
 
 
+def _run_device(args, params) -> torch.device:
+    """The device a runner times on: the rank's on a mesh, else the
+    weights'."""
+    mesh_dev = getattr(args, "mesh_device", None)
+    return mesh_dev if mesh_dev is not None else \
+        params["embed"]["table"].device
+
+
+def _cluster_mesh(args) -> dict:
+    """EdgeCluster's mesh arguments under --dp / --mp, else none."""
+    if not (args.dp or args.mp):
+        return {}
+    return {"dp": args.dp or 1, "mp": args.mp or 1,
+            "devices": args.mesh_device}
+
+
+def mesh_ranks(args) -> int:
+    """Ranks a --dp / --mp run needs: dp * mp an engine, times the
+    replicas of a cluster or fleet."""
+    per = (args.dp or 1) * (args.mp or 1)
+    return per * (args.replicas if args.engine in ("cluster", "fleet")
+                  else 1)
+
+
+def dist_backend(args) -> str:
+    """--dist-backend, or nccl on cuda and gloo on the CPU."""
+    if args.dist_backend:
+        return args.dist_backend
+    return "gloo" if torch.device(args.device).type == "cpu" else "nccl"
+
+
+def check_layout(args, world: int) -> None:
+    """Raise ``ValueError`` where the backend cannot run the layout (it is
+    never swapped for another)."""
+    backend = dist_backend(args)
+    dev = torch.device(args.device)
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("--dist-backend nccl needs --device cuda; gloo runs "
+                         "ranks on the CPU")
+    if dev.type != "cuda":
+        return
+    if dev.index is not None and world > 1 and backend == "nccl":
+        raise ValueError(
+            f"NCCL cannot run {world} ranks on one device ({dev}): pass "
+            f"--dist-backend gloo to share it, or --device cuda for one "
+            f"card a rank")
+    if dev.index is None and world > torch.cuda.device_count():
+        raise ValueError(
+            f"{world} ranks on cuda:<rank> need {world} cards, "
+            f"{torch.cuda.device_count()} visible: pass --device cuda:0 "
+            f"and --dist-backend gloo to share one")
+
+
+def rank_device(args, rank: int) -> torch.device:
+    """Rank r's device: cuda:r under --device cuda, the device named
+    otherwise (CUDA without a card raises)."""
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", rank)
+    return dev
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+#: how long a rank waits in a collective before its group gives up
+DIST_TIMEOUT = datetime.timedelta(seconds=600)
+
+
+def _spawned_rank(entry, rank: int, world: int, port: int, backend: str,
+                  argv, queue) -> None:
+    """One rank started by :func:`spawn_ranks`: join the group, run
+    ``entry(argv)``, hand rank 0's result (or any rank's error) back."""
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=DIST_TIMEOUT)
+    try:
+        out = entry(argv)
+        if rank == 0:
+            queue.put(("ok", out))
+    except BaseException:
+        queue.put(("error", f"rank {rank}:\n{traceback.format_exc()}"))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _first_result(queue, procs):
+    """The first (status, result) a rank puts on ``queue``; raises if a
+    rank dies without one (a crash puts nothing)."""
+    import queue as queue_mod
+    while True:
+        try:
+            return queue.get(timeout=5)
+        except queue_mod.Empty:
+            dead = [(i, p.exitcode) for i, p in enumerate(procs)
+                    if not p.is_alive() and p.exitcode != 0]
+            if dead:
+                raise RuntimeError(f"ranks died without a result: {dead}")
+
+
+def spawn_ranks(entry, argv, world: int, backend: str):
+    """Start ``world`` ranks (``torch.multiprocessing``, spawn) over a
+    ``tcp://localhost`` group, each running ``entry(argv)`` (a module-level
+    function, which finds the group initialized); returns rank 0's result
+    and raises if any rank failed. Every rank is joined before it
+    returns."""
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_spawned_rank,
+                         args=(entry, r, world, port, backend, argv, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        status, out = _first_result(queue, procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    if status != "ok":
+        raise RuntimeError(f"a rank failed: {out}")
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"ranks exited with {bad}")
+    return out
+
+
+def run_on_ranks(entry, args, argv, world: int, run):
+    """``run()`` on this rank when ``torch.distributed`` is initialized;
+    under ``torchrun``'s environment, after joining its group; else on
+    ``world`` ranks started here, each calling ``entry(argv)``."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return run()
+    backend = dist_backend(args)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        check_layout(args, int(os.environ["WORLD_SIZE"]))
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=DIST_TIMEOUT)
+        try:
+            return run()
+        finally:
+            dist.destroy_process_group()
+    check_layout(args, world)
+    return spawn_ranks(entry, argv, world, backend)
+
+
+def serve_rank(args) -> dict:
+    """This rank's part of a --dp / --mp run (the process group is up):
+    its device and mesh, the run, and the kernel launches of every rank
+    summed under ``mesh``. Rank 0 prints."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    rank, world = sharding.world()
+    need = mesh_ranks(args)
+    if world < need:
+        raise ValueError(f"--dp {args.dp} --mp {args.mp} ({args.engine}) "
+                         f"needs {need} ranks, the group has {world}")
+    check_layout(args, world)
+    dev = rank_device(args, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    args.mesh_device = dev
+    args.mesh = (sharding.serving_mesh(args.dp or 1, args.mp or 1,
+                                       device=dev)
+                 if args.engine in ("continuous", "sync") else None)
+    summary = _serve(args, dev, quiet=rank != 0)
+    counts = ops.launch_counts()
+    t = torch.tensor(list(counts.values()), dtype=torch.int64)
+    if dist.get_backend() != "gloo":
+        t = t.to(dev)
+    dist.all_reduce(t)
+    summary["mesh"] = {"dp": args.dp or 1, "mp": args.mp or 1,
+                       "world": world, "rank": rank,
+                       "backend": dist.get_backend(),
+                       "launches": dict(zip(counts, t.tolist()))}
+    if rank == 0:
+        print(json.dumps({"mesh": summary["mesh"]}), flush=True)
+    return summary
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -438,8 +639,7 @@ def parser() -> argparse.ArgumentParser:
                          "continuous batching with per-slot modes; cluster: "
                          "N replicas with handover on scripted mobility; "
                          "fleet: Lumos5G trace lanes with SLO admission "
-                         "and autoscaling (the serving mesh, --dp/--mp, "
-                         "still raises)")
+                         "and autoscaling")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch path)")
@@ -502,11 +702,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-replicas", type=int, default=8,
                     help="fleet engine: autoscaler ceiling")
     ap.add_argument("--dp", type=int, default=None,
-                    help="serving mesh data-parallel axis (not ported yet: "
-                         "raises)")
+                    help="serving mesh: data-parallel axis (slots over dp "
+                         "ranks)")
     ap.add_argument("--mp", type=int, default=None,
-                    help="serving mesh tensor-parallel axis (not ported "
-                         "yet: raises)")
+                    help="serving mesh: tensor-parallel axis (the dense "
+                         "attention archs' heads and d_ff over mp ranks)")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="torch.distributed backend of a --dp / --mp run "
+                         "(default nccl on cuda, gloo on the CPU)")
     ap.add_argument("--telemetry", action="store_true",
                     help="attach the metrics registry + trace recorder "
                          "(latency percentiles land in the summary)")
@@ -527,33 +731,43 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.dp or args.mp:
-        raise NotImplementedError(
-            "--dp / --mp: the serving mesh is not ported yet (ROADMAP Queue "
-            "1 item 7)")
-    dev = resolve_device(args.device)
+    if args.dp is not None or args.mp is not None:
+        if min(v for v in (args.dp, args.mp) if v is not None) < 1:
+            raise ValueError(f"mesh axes must be >= 1, got --dp {args.dp} "
+                             f"--mp {args.mp}")
+        return run_on_ranks(main, args,
+                            sys.argv[1:] if argv is None else argv,
+                            mesh_ranks(args), lambda: serve_rank(args))
+    return _serve(args, resolve_device(args.device))
+
+
+def _serve(args, dev, quiet: bool = False):
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    print(f"== repro_torch.launch.serve {args.arch} "
-          f"({'reduced' if args.reduced else 'FULL'}) on {dev} "
-          f"engine={args.engine} "
-          f"requests={args.requests} prompt={args.prompt_len} "
-          f"gen={args.gen} ==", flush=True)
+    if not quiet:
+        print(f"== repro_torch.launch.serve {args.arch} "
+              f"({'reduced' if args.reduced else 'FULL'}) on {dev} "
+              f"engine={args.engine} "
+              f"requests={args.requests} prompt={args.prompt_len} "
+              f"gen={args.gen} ==", flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = SP.init_split_params(gen, cfg)
     if args.ckpt:
         params = checkpoint.restore(args.ckpt, params)
-        print(f"loaded weights from {args.ckpt}", flush=True)
+        if not quiet:
+            print(f"loaded weights from {args.ckpt}", flush=True)
     tel = Telemetry() if (args.telemetry or args.trace_out) else None
     runner = {"sync": run_sync, "continuous": run_continuous,
               "cluster": run_cluster, "fleet": run_fleet}[args.engine]
     summary = {"arch": args.arch, **runner(args, cfg, params, tel)}
-    if args.trace_out and tel is not None:
+    if args.trace_out and tel is not None and not quiet:
         tel.trace.export(args.trace_out)
         summary["trace_out"] = args.trace_out
         summary["trace_events"] = len(tel.trace.events())
     # the generated tokens are returned, not printed
     printed = {k: v for k, v in summary.items() if k != "generated"
                and not (k == "tokens" and isinstance(v, dict))}
+    if quiet:
+        return summary
     print(json.dumps(printed, indent=1, default=str))
     if args.json_out:
         with open(args.json_out, "w") as f:

@@ -9,7 +9,10 @@ float32 scale per position and head; the paged arena has no int8 form,
 as in the reference).
 
 Caches and arenas are updated in place (the reference returns new ones);
-callers pass per-layer views of the pool's state.
+callers pass per-layer views of the pool's state. ``group`` (serving
+mesh, mp > 1): the heads are this rank's (``n_q`` / ``n_kv`` local
+counts, the weights' column and row slices) and the output projection's
+partial products are summed over the group (``row_parallel_sum``).
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import math
 import torch
 
 from repro_torch.core import quant as Q
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import (apply_rope, dense_init,
+                                       row_parallel_sum)
 from repro_torch.models.scan_utils import recording, remat
 
 NEG_INF = -1e30
@@ -156,7 +160,7 @@ def full_attention(p, x, positions, *, n_q: int, n_kv: int, hd: int,
 
 def paged_prefill_attention(p, x, positions, arena, block_table, *,
                             n_q: int, n_kv: int, hd: int, rope_theta: float,
-                            lengths=None):
+                            lengths=None, group=None):
     """Full-sequence causal prefill that scatters K/V rows through a block
     table into a paged arena (in place). ``arena``: one layer's
     ``{"k","v"}`` of shape [n_pages, page_len, n_kv, hd]; ``block_table``:
@@ -179,11 +183,12 @@ def paged_prefill_attention(p, x, positions, arena, block_table, *,
     row = torch.remainder(positions, plen).long()
     arena["k"][pg[valid], row[valid]] = k[valid]
     arena["v"][pg[valid], row[valid]] = v[valid]
-    return out.to(x.dtype) @ p["wo"]["w"]
+    return row_parallel_sum(out.to(x.dtype) @ p["wo"]["w"], group)
 
 
 def paged_decode_attention(p, x, arena, block_table, cur_pos, *, n_q: int,
-                           n_kv: int, hd: int, rope_theta: float):
+                           n_kv: int, hd: int, rope_theta: float,
+                           group=None):
     """One-token decode against a paged arena through a block table.
 
     x: [B, 1, d]; cur_pos: [B] absolute positions; ``arena``: one layer's
@@ -222,7 +227,7 @@ def paged_decode_attention(p, x, arena, block_table, cur_pos, *, n_q: int,
         scores = torch.where(written[:, None, None, None, :], scores,
                              NEG_INF)
         out = _gqa_out(torch.softmax(scores, dim=-1), cv).to(x.dtype)
-    return out @ p["wo"]["w"]
+    return row_parallel_sum(out @ p["wo"]["w"], group)
 
 
 def init_cache(batch: int, n_kv: int, hd: int, cache_len: int,
@@ -262,7 +267,7 @@ def _dequant(c, name: str, dtype):
 
 def prefill_attention(p, x, positions, cache, *, n_q: int, n_kv: int,
                       hd: int, rope_theta: float, window: int = 0,
-                      lengths=None):
+                      lengths=None, group=None):
     """Full-sequence prefill that also fills the rolling cache (in place).
 
     Causal (optionally sliding-window) attention over the whole prompt in
@@ -306,11 +311,11 @@ def prefill_attention(p, x, positions, cache, *, n_q: int, n_kv: int,
     src = b_ix[valid], idx_c[valid]
     for name, a in rows_of.items():
         cache[name][rows] = a[src]
-    return out.to(x.dtype) @ p["wo"]["w"]
+    return row_parallel_sum(out.to(x.dtype) @ p["wo"]["w"], group)
 
 
 def decode_attention(p, x, cache, cur_pos, *, n_q: int, n_kv: int, hd: int,
-                     rope_theta: float, window: int = 0):
+                     rope_theta: float, window: int = 0, group=None):
     """One-token decode against the rolling cache, each sequence at its own
     depth. x: [B, 1, d]; cur_pos: [B] absolute positions; ``cache``: one
     layer's ``{"k","v"}`` [B, cache_len, n_kv, hd], whose row ``pos %
@@ -342,4 +347,4 @@ def decode_attention(p, x, cache, cur_pos, *, n_q: int, n_kv: int, hd: int,
     written = t[None, :] < n_fill[:, None]                     # [B, T]
     scores = torch.where(written[:, None, None, None, :], scores, NEG_INF)
     out = _gqa_out(torch.softmax(scores, dim=-1), cv).to(x.dtype)
-    return out @ p["wo"]["w"]
+    return row_parallel_sum(out @ p["wo"]["w"], group)

@@ -11,6 +11,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
@@ -100,10 +101,23 @@ def _act(x, kind: str):
     raise ValueError(f"unknown activation {kind!r}")
 
 
-def mlp_apply(p, x, act: str = "silu"):
+def row_parallel_sum(y, group=None):
+    """The sum over an mp ``group`` of the partial products of a row-split
+    matrix (``wo``, ``w_down``): one ``all_reduce`` in float32, rounded once
+    to ``y``'s dtype. No group: ``y`` as it is."""
+    if group is None:
+        return y
+    acc = y.float()
+    dist.all_reduce(acc, group=group)
+    return acc.to(y.dtype)
+
+
+def mlp_apply(p, x, act: str = "silu", group=None):
+    """Gated MLP; ``group``: the mp group over which ``w_gate`` / ``w_up``
+    are split by columns and ``w_down`` by rows (``row_parallel_sum``)."""
     g = _act(dense_apply(p["w_gate"], x), act)
     u = dense_apply(p["w_up"], x)
-    return dense_apply(p["w_down"], g * u)
+    return row_parallel_sum(dense_apply(p["w_down"], g * u), group)
 
 
 # ---------------------------------------------------------------------------

@@ -176,10 +176,10 @@ def block_init(gen, cfg: ModelConfig, kind: str = "attn"):
     return p
 
 
-def _mlp_residual(p, x, cfg: ModelConfig):
+def _mlp_residual(p, x, cfg: ModelConfig, group=None):
     """The block's MLP (dense, or the MoE layer) on its residual: (x, aux
     loss), the aux MoE's 0-d float32 load-balance loss, None without
-    experts."""
+    experts. ``group``: the mp group a dense MLP is split over."""
     aux = None
     if "mlp" in p:
         h = norm_apply(p["norm2"], x, cfg.norm)
@@ -187,7 +187,7 @@ def _mlp_residual(p, x, cfg: ModelConfig):
             m, aux = moe_apply(p["mlp"], h, k=cfg.experts_per_tok,
                                act=cfg.act)
         else:
-            m = mlp_apply(p["mlp"], h, cfg.act)
+            m = mlp_apply(p["mlp"], h, cfg.act, group)
         x = x + m
     return x, aux
 
@@ -223,17 +223,22 @@ def block_apply_full(p, x, positions, cfg: ModelConfig, kind: str = "attn",
 
 
 def block_apply_decode(p, x, state, cur_pos, cfg: ModelConfig,
-                       kind: str = "attn", block_table=None):
+                       kind: str = "attn", block_table=None, plan=None):
     """One-token decode through one block; ``state`` (its paged arena,
-    rolling cache, RG-LRU or xLSTM carry) updates in place. Returns x (a
-    MoE layer's aux loss is dropped, as in the reference)."""
+    rolling cache, RG-LRU or xLSTM carry) updates in place. ``plan``: the
+    serving mesh's ``RankPlan`` (its mp groups; ``cfg`` then holds the
+    rank's head counts). Returns x (a MoE layer's aux loss is dropped, as
+    in the reference)."""
+    attn_g, mlp_g = plan if plan is not None else (None, None)
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn" and block_table is not None:
         mix = paged_decode_attention(p["mix"], h, state, block_table,
-                                     cur_pos, **_attn_dims(cfg))
+                                     cur_pos, group=attn_g,
+                                     **_attn_dims(cfg))
     elif kind == "attn":
         mix = decode_attention(p["mix"], h, state, cur_pos,
-                               window=_attn_window(cfg), **_attn_dims(cfg))
+                               window=_attn_window(cfg), group=attn_g,
+                               **_attn_dims(cfg))
     elif kind == "rglru":
         mix = rglru_step(p["mix"], h, state)
     elif kind == "mlstm":
@@ -242,24 +247,26 @@ def block_apply_decode(p, x, state, cur_pos, cfg: ModelConfig,
         mix = slstm_step(p["mix"], h, state, cfg.n_heads)
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, x + mix, cfg)[0]
+    return _mlp_residual(p, x + mix, cfg, mlp_g)[0]
 
 
 def block_apply_prefill(p, x, positions, state, cfg: ModelConfig,
-                        kind: str = "attn", lengths=None, block_table=None):
+                        kind: str = "attn", lengths=None, block_table=None,
+                        plan=None):
     """Full-sequence block that also fills its decode state (in place):
     K/V rows into the arena through ``block_table`` or into the rolling
-    cache, or the recurrent carry. Returns x (a MoE layer's aux loss
-    dropped)."""
+    cache, or the recurrent carry. ``plan`` as in ``block_apply_decode``.
+    Returns x (a MoE layer's aux loss dropped)."""
+    attn_g, mlp_g = plan if plan is not None else (None, None)
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn" and block_table is not None:
         mix = paged_prefill_attention(p["mix"], h, positions, state,
                                       block_table, lengths=lengths,
-                                      **_attn_dims(cfg))
+                                      group=attn_g, **_attn_dims(cfg))
     elif kind == "attn":
         mix = prefill_attention(p["mix"], h, positions, state,
                                 window=_attn_window(cfg), lengths=lengths,
-                                **_attn_dims(cfg))
+                                group=attn_g, **_attn_dims(cfg))
     elif kind == "rglru":
         mix = rglru_prefill(p["mix"], h, state, lengths=lengths)
     elif kind == "mlstm":
@@ -268,7 +275,7 @@ def block_apply_prefill(p, x, positions, state, cfg: ModelConfig,
         mix = slstm_prefill(p["mix"], h, state, cfg.n_heads, lengths=lengths)
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, x + mix, cfg)[0]
+    return _mlp_residual(p, x + mix, cfg, mlp_g)[0]
 
 
 def block_state_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
@@ -473,7 +480,7 @@ def lm_loss(logits, labels, mask=None):
 
 
 def prefill(params, tokens, cfg: ModelConfig, states, lengths=None,
-            embeddings=None, block_table=None):
+            embeddings=None, block_table=None, plan=None):
     """Batched full-sequence prefill: the whole prompt in one forward pass,
     filling ``states`` in place (KV rows at their rolling slots or, with
     ``block_table`` [B, nb], into the paged arena; recurrent carries
@@ -487,7 +494,8 @@ def prefill(params, tokens, cfg: ModelConfig, states, lengths=None,
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=x.device)
     x = run_layers_prefill(params["layers"], x, seq_positions(x), states,
-                           cfg, lengths=lengths, block_table=block_table)
+                           cfg, lengths=lengths, block_table=block_table,
+                           plan=plan)
     return last_logits(params, x, lengths, cfg), states
 
 
@@ -504,7 +512,7 @@ def last_logits(params, x, lengths, cfg: ModelConfig):
 
 
 def decode_step(params, token, states, cur_pos, cfg: ModelConfig,
-                return_tokens: bool = False, block_table=None):
+                return_tokens: bool = False, block_table=None, plan=None):
     """One new token against the decode state (updated in place): the dense
     state, or the paged arena through ``block_table`` [B, nb]. token:
     [B, 1] ([B, K, 1] audio); ``cur_pos``: one int for aligned rows or a
@@ -514,7 +522,7 @@ def decode_step(params, token, states, cur_pos, cfg: ModelConfig,
     x = embed_tokens(params, token, cfg)
     pos = batch_positions(cur_pos, x.shape[0], x.device)
     x = run_layers_decode(params["layers"], x, states, pos, cfg,
-                          block_table=block_table)
+                          block_table=block_table, plan=plan)
     if return_tokens:
         return decode_tail_tokens(params, x, cfg), states
     x = norm_apply_final(params, x, cfg)
@@ -562,21 +570,25 @@ def _per_layer(layers, states, cfg: ModelConfig,
 
 def run_layers_decode(layers, x, states, cur_pos, cfg: ModelConfig,
                       kinds: Optional[Tuple[str, ...]] = None,
-                      block_table=None):
+                      block_table=None, plan=None):
     """One-token decode through a group of layers; ``states`` (the same
     layers' decode state) update in place. ``block_table`` (paged pool) is
-    shared by every attention layer. Returns x."""
+    shared by every attention layer. ``plan``: a serving mesh's
+    ``RankPlan`` (the mp groups the split blocks reduce over; ``cfg`` the
+    rank's config). Returns x."""
     for lp, st, kind in _per_layer(layers, states, cfg, kinds):
-        x = block_apply_decode(lp, x, st, cur_pos, cfg, kind, block_table)
+        x = block_apply_decode(lp, x, st, cur_pos, cfg, kind, block_table,
+                               plan)
     return x
 
 
 def run_layers_prefill(layers, x, positions, states, cfg: ModelConfig,
                        kinds: Optional[Tuple[str, ...]] = None, lengths=None,
-                       block_table=None):
+                       block_table=None, plan=None):
     """Full-sequence pass through a group of layers that fills every
-    layer's decode state (in place). Returns x."""
+    layer's decode state (in place); ``plan`` as in ``run_layers_decode``.
+    Returns x."""
     for lp, st, kind in _per_layer(layers, states, cfg, kinds):
         x = block_apply_prefill(lp, x, positions, st, cfg, kind, lengths,
-                                block_table)
+                                block_table, plan)
     return x

@@ -60,6 +60,7 @@ from repro_torch.core import bottleneck
 from repro_torch.core import split as SP
 from repro_torch.core.channel import Channel, tx_seconds
 from repro_torch.core.orchestrator import Orchestrator
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.serving.controller import ModeController
 from repro_torch.serving.session import Request, RequestQueue, Session
@@ -115,21 +116,58 @@ def _admit_meta(positions, cur_tokens, slots, pos_vals, first_tokens):
     return positions, cur_tokens
 
 
+class _Rows:
+    """Where a pool's slots live on a serving mesh: this rank holds slots
+    [lo, hi) (all of them without a mesh; none off the engine group). A
+    rank of the engine group decodes every slot's row, in its place, as
+    one device does (``sharding.ServingMesh`` says why); a slot it does not
+    hold decodes on scratch state."""
+
+    def __init__(self, n_slots: int, mesh):
+        self.lo, self.hi = (mesh.slot_rows(n_slots) if mesh is not None
+                            else (0, n_slots))
+        #: this rank decodes (every slot's row on the engine group)
+        self.decodes = mesh is None or mesh.member
+        #: this rank writes its rows into exchanges of the whole pool: one
+        #: holder of each shard (dp rank 0 where the slot axis replicates)
+        self.holds = mesh is None or (
+            mesh.member and (mesh.slot_shards(n_slots) > 1
+                             or mesh.coords[0] == 0))
+
+    def local(self, slots) -> Tuple[List[int], List[int]]:
+        """(positions in ``slots``, the slots) of the slots held here."""
+        pairs = [(i, int(s)) for i, s in enumerate(slots)
+                 if self.lo <= int(s) < self.hi]
+        return [i for i, _ in pairs], [r for _, r in pairs]
+
+
+def _pool_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
+    return mesh.local_cfg(cfg) if mesh is not None else cfg
+
+
 class SlotPool:
     """Fixed pool of decode slots with recycled dense state: per-slot
     rolling KV caches and recurrent carries (RG-LRU, mLSTM, sLSTM; the
-    xLSTM stabiliser starts at -inf), written in place on the device."""
+    xLSTM stabiliser starts at -inf), written in place on the device.
+
+    ``mesh``: a serving mesh; the rank holds its dp shard's slots (and its
+    mp rank's KV heads) and writes only those; its pool has every slot's
+    row, in its place, since the rank decodes every row (the others'
+    state is scratch). The host bookkeeping covers every slot."""
 
     paged = False
 
     def __init__(self, cfg: ModelConfig, n_slots: int, cache_len: int, *,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.cache_len = cache_len
         self.device = device
-        self.states = T.init_decode_state(cfg, n_slots, cache_len,
-                                          device=device)
+        self.mesh = mesh
+        self.rows = _Rows(n_slots, mesh)
+        self.states = (T.init_decode_state(_pool_cfg(cfg, mesh), n_slots,
+                                           cache_len, device=device)
+                       if self.rows.decodes else None)
         self.positions = np.zeros(n_slots, np.int32)
         self._free = list(range(n_slots - 1, -1, -1))
 
@@ -148,22 +186,53 @@ class SlotPool:
         self.positions[slot] = 0
         self._free.append(slot)
 
-    def _idx(self, slots) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+    def _idx(self, rows) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
 
-    def write_rows(self, batch_states, slots, positions):
+    def write_rows(self, batch_states, slots, positions, *,
+                   full_heads: bool = False):
         """Install rows 0..len(slots)-1 of a freshly prefilled batched state
-        into the given slots (full overwrite of the previous occupant)."""
-        scatter_rows(self.states, batch_states, self._idx(slots),
-                     _slot_axis(self.cfg))
+        into the given slots (full overwrite of the previous occupant); on
+        a mesh, only the slots this rank holds. ``full_heads``: the rows
+        carry every KV head (a migrated snapshot), of which this rank keeps
+        its own."""
         for s, p in zip(slots, positions):
             self.positions[s] = p
+        which, rows = self.rows.local(slots)
+        if not rows:
+            return
+        if full_heads:
+            batch_states = sharding.shard_state(batch_states, self.mesh,
+                                                self.cfg)
+        axis = _slot_axis(self.cfg)
+        src = self._idx(which)
+        for p, b in zip(T.tree_leaves(self.states),
+                        T.tree_leaves(batch_states)):
+            p.index_copy_(axis, self._idx(rows),
+                          b.index_select(axis, src).to(p.dtype))
 
     def read_rows(self, slots):
         """The given slots' decode state as a batched state tree, the shape
-        ``write_rows`` accepts."""
-        return gather_rows(self.states, self._idx(slots),
-                           _slot_axis(self.cfg))
+        ``write_rows`` accepts. On a mesh: every KV head, on every rank of
+        the scope, gathered from the rows' holders (a collective)."""
+        axis = _slot_axis(self.cfg)
+        if self.mesh is None:
+            return gather_rows(self.states, self._idx(slots), axis)
+        full = T.init_decode_state(self.cfg, len(slots), self.cache_len,
+                                   device="meta")
+        local = None
+        which, rows = self.rows.local(slots)
+        if self.rows.holds:
+            local = T.tree_map(lambda a: torch.zeros(
+                a.shape[:axis] + (len(slots),) + a.shape[axis + 1:],
+                dtype=a.dtype, device=self.device), self.states)
+            if rows:
+                for d, a in zip(T.tree_leaves(local),
+                                T.tree_leaves(self.states)):
+                    d.index_copy_(axis, self._idx(which),
+                                  a.index_select(axis, self._idx(rows)))
+        return sharding.unshard_state(local, self.mesh, self.cfg, full,
+                                      self.rows.holds)
 
 
 class PagedPool:
@@ -180,13 +249,23 @@ class PagedPool:
     ``commit_pages`` reserves a session's worst-case page count at
     admission and ``pages_available`` subtracts every resident session's
     undrawn reservation, so on-demand ``alloc_pages`` growth can always be
-    satisfied."""
+    satisfied.
+
+    ``mesh``: a serving mesh. A slot's pages live on its own dp shard:
+    each shard keeps its own arena (its own scratch page 0) and its own
+    free list over shard-local page ids, the ``n_pages`` split between the
+    shards (so the pages that can be allocated in all are the unsharded
+    pool's). Every shard's arena has the largest shard's page count; a
+    shard with fewer carries padding pages that never enter its free list
+    (the reference pads its one arena to a dp-divisible page count). A
+    session draws only from its own shard's pages: at the default
+    ``n_pages`` every slot has its full budget there."""
 
     paged = True
 
     def __init__(self, cfg: ModelConfig, n_slots: int, cache_len: int, *,
                  page_len: int = 8, n_pages: Optional[int] = None,
-                 device=None):
+                 device=None, mesh=None):
         if not (T.full_attention_arch(cfg) and cfg.homogeneous):
             raise ValueError("paged pools need a homogeneous full-attention "
                              "arch")
@@ -195,19 +274,30 @@ class PagedPool:
         self.cache_len = cache_len
         self.page_len = page_len
         self.device = device
+        self.mesh = mesh
+        self.rows = _Rows(n_slots, mesh)
         per_slot = -(-cache_len // page_len)
         self.n_pages = n_pages if n_pages is not None else n_slots * per_slot
         #: arena rows — ONE session's max context (it may claim every page)
         self.capacity = self.n_pages * page_len
-        self.states = T.init_decode_state(cfg, self.n_pages + 1, page_len,
-                                          device=device)
+        self.n_shards = (mesh.slot_shards(n_slots) if mesh is not None
+                         else 1)
+        base, extra = divmod(self.n_pages, self.n_shards)
+        #: allocatable pages of each shard (ids 1..shard_pages[j] there)
+        self.shard_pages = [base + (j < extra) for j in range(self.n_shards)]
+        self.arena_pages = max(self.shard_pages) + 1
+        self.states = (T.init_decode_state(_pool_cfg(cfg, mesh),
+                                           self.arena_pages, page_len,
+                                           device=device)
+                       if self.rows.decodes else None)
         self.positions = np.zeros(n_slots, np.int32)
         self._free = list(range(n_slots - 1, -1, -1))
         self.block_np = np.zeros((n_slots, self.n_pages), np.int32)
         self.pages_used = np.zeros(n_slots, np.int32)
         self._committed = np.zeros(n_slots, np.int32)
-        self._free_pages = list(range(self.n_pages, 0, -1))  # pop -> 1, 2, ..
-        self._free_page_set = set(self._free_pages)
+        # pop -> 1, 2, ..
+        self._free_pages = [list(range(n, 0, -1)) for n in self.shard_pages]
+        self._free_page_set = [set(f) for f in self._free_pages]
         self.peak_pages_in_use = 0
 
     @property
@@ -223,31 +313,54 @@ class PagedPool:
         if slot in self._free:
             raise ValueError(f"double release of slot {slot}")
         for i in range(int(self.pages_used[slot])):
-            self._push_free_page(int(self.block_np[slot, i]))
+            self._push_free_page(self._shard(slot),
+                                 int(self.block_np[slot, i]))
         self.block_np[slot, :] = 0
         self.pages_used[slot] = 0
         self._committed[slot] = 0
         self.positions[slot] = 0
         self._free.append(slot)
 
+    def _shard(self, slot: int) -> int:
+        return (self.mesh.shard_of(slot, self.n_slots) if self.n_shards > 1
+                else 0)
+
+    @property
+    def free_page_count(self) -> int:
+        return sum(len(f) for f in self._free_pages)
+
     @property
     def pages_in_use(self) -> int:
-        return self.n_pages - len(self._free_pages)
+        return self.n_pages - self.free_page_count
+
+    def _available(self, shard: Optional[int]) -> int:
+        sl = (slice(None) if shard is None else
+              [s for s in range(self.n_slots) if self._shard(s) == shard])
+        reserved = (int(self._committed[sl].sum())
+                    - int(self.pages_used[sl].sum()))
+        free = (self.free_page_count if shard is None
+                else len(self._free_pages[shard]))
+        return free - reserved
 
     @property
     def pages_available(self) -> int:
         """Pages a NEW admission may claim: the free list minus pages
-        already committed to resident sessions but not drawn."""
-        reserved = int(self._committed.sum()) - int(self.pages_used.sum())
-        return len(self._free_pages) - reserved
+        already committed to resident sessions but not drawn (on a mesh,
+        those of the shard of the slot ``acquire`` gives next)."""
+        if self.n_shards == 1:
+            return self._available(None)
+        if not self._free:
+            return 0
+        return self._available(self._shard(self._free[-1]))
 
-    def _push_free_page(self, page: int):
-        if not 1 <= page <= self.n_pages:
-            raise ValueError(f"page {page} out of range [1, {self.n_pages}]")
-        if page in self._free_page_set:
+    def _push_free_page(self, shard: int, page: int):
+        if not 1 <= page <= self.shard_pages[shard]:
+            raise ValueError(f"page {page} out of range "
+                             f"[1, {self.shard_pages[shard]}]")
+        if page in self._free_page_set[shard]:
             raise ValueError(f"double free of page {page}")
-        self._free_pages.append(page)
-        self._free_page_set.add(page)
+        self._free_pages[shard].append(page)
+        self._free_page_set[shard].add(page)
 
     def commit_pages(self, slot: int, n_total: int):
         """Reserve a session's worst-case page count."""
@@ -255,18 +368,20 @@ class PagedPool:
 
     def alloc_pages(self, slot: int, n_rows: int):
         """Ensure pages covering logical rows ``0..n_rows-1`` are allocated
-        to the slot (idempotent; growth draws from the free list)."""
+        to the slot (idempotent; growth draws from the free list of the
+        slot's shard)."""
         need = -(-max(int(n_rows), 1) // self.page_len)
         have = int(self.pages_used[slot])
         if need <= have:
             return
-        if need - have > len(self._free_pages):
+        free = self._free_pages[self._shard(slot)]
+        if need - have > len(free):
             raise RuntimeError(
                 f"page arena exhausted: slot {slot} needs {need - have} more "
-                f"pages, {len(self._free_pages)} free")
+                f"pages, {len(free)} free")
         for i in range(have, need):
-            page = self._free_pages.pop()
-            self._free_page_set.discard(page)
+            page = free.pop()
+            self._free_page_set[self._shard(slot)].discard(page)
             self.block_np[slot, i] = page
         self.pages_used[slot] = need
         self._committed[slot] = max(int(self._committed[slot]), need)
@@ -283,21 +398,41 @@ class PagedPool:
         return min(b, self.n_pages)
 
     def block_table(self) -> torch.Tensor:
-        """Device copy of the block table at the current bucketed width (the
-        host-side ``block_np`` stays authoritative)."""
+        """Device copy of the block table at the current bucketed width
+        (the host-side ``block_np`` stays authoritative); on a mesh the
+        rows of slots this rank does not hold point at its scratch page."""
+        w = self.table_width()
         return torch.from_numpy(
-            self.block_np[:, :self.table_width()].copy()).to(self.device)
+            self.local_table(range(self.n_slots), w)).to(self.device)
+
+    def local_table(self, slots, width: int) -> np.ndarray:
+        """[len(slots), width] block-table rows for a batch over ``slots``:
+        each held slot's pages, zeros (the scratch page) for the rest."""
+        bt = np.zeros((len(slots), width), np.int32)
+        which, _ = self.rows.local(slots)
+        for i in which:
+            bt[i] = self.block_np[slots[i], :width]
+        return bt
 
     def _table(self, rows) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(
             self.device)
+
+    def _one_device(self, what: str):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"PagedPool.{what} is the one-device dense row I/O; on a "
+                f"serving mesh sessions move by pages (read_pages / "
+                f"write_pages)")
 
     # -- row/page I/O ---------------------------------------------------------
     def write_rows(self, batch_states, slots, positions):
         """Block-table-aware scatter: install dense logical-row blocks
         ``[L, n, R, ...]`` into each slot's pages, allocating on demand for
         the given positions — ``write_rows(read_rows(s), s, pos)`` is
-        bit-exact over every allocated page."""
+        bit-exact over every allocated page. One device only (a mesh's
+        pools move sessions by pages: ``read_pages`` / ``write_pages``)."""
+        self._one_device("write_rows")
         R = T.tree_leaves(batch_states)[0].shape[2]
         nb = R // self.page_len
         for s, p in zip(slots, positions):
@@ -326,7 +461,8 @@ class PagedPool:
     def read_rows(self, slots):
         """The gather inverse of :meth:`write_rows`: each slot's logical
         rows in order, ``[L, n, table_width() * page_len, ...]`` per leaf,
-        with unallocated chunks zeroed."""
+        with unallocated chunks zeroed. One device only."""
+        self._one_device("read_rows")
         sl = np.asarray(slots, np.int64)
         nb = self.table_width()
         bt = self._table(self.block_np[sl][:, :nb])
@@ -345,19 +481,36 @@ class PagedPool:
     def read_pages(self, slot: int):
         """A slot's ALLOCATED pages in block-table order — ``[L, nbu, plen,
         ...]`` per leaf, the migration payload (pages only, no dense
-        expansion, no scratch rows)."""
+        expansion, no scratch rows). On a mesh: every KV head, on every
+        rank of the scope, gathered from the slot's holders (a
+        collective)."""
         nbu = max(int(self.pages_used[slot]), 1)
-        return gather_rows(self.states, self._table(self.block_np[slot, :nbu]),
-                           1)
+        if self.mesh is None:
+            return gather_rows(self.states,
+                               self._table(self.block_np[slot, :nbu]), 1)
+        full = T.tree_map(lambda a: torch.empty(
+            (a.shape[0], nbu) + a.shape[2:], dtype=a.dtype, device="meta"),
+            T.init_decode_state(self.cfg, 1, self.page_len, device="meta"))
+        mine = self.rows.holds and bool(self.rows.local([slot])[1])
+        local = (gather_rows(self.states,
+                             self._table(self.block_np[slot, :nbu]), 1)
+                 if mine else None)
+        return sharding.unshard_state(local, self.mesh, self.cfg, full,
+                                      mine)
 
     def write_pages(self, slot: int, blocks, position: int):
         """Install a migrated-in session's page block (the exact
-        :meth:`read_pages` layout) into freshly allocated local pages."""
+        :meth:`read_pages` layout, every KV head) into freshly allocated
+        local pages."""
         nbu = T.tree_leaves(blocks)[0].shape[1]
         self.alloc_pages(slot, nbu * self.page_len)
+        self.positions[slot] = int(position)
+        if not self.rows.local([slot])[1]:
+            return
+        if self.mesh is not None:
+            blocks = sharding.shard_state(blocks, self.mesh, self.cfg)
         scatter_rows(self.states, blocks,
                      self._table(self.block_np[slot, :nbu]), 1)
-        self.positions[slot] = int(position)
 
 
 class ContinuousBatchingEngine:
@@ -386,10 +539,6 @@ class ContinuousBatchingEngine:
                  mesh=None,
                  fused_tail: bool = True,
                  telemetry: Optional[Telemetry] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "repro_torch serves on one device: the serving mesh "
-                "(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
         if controller is not None:
             if freeze_modes:
                 raise ValueError("controller and freeze_modes are mutually "
@@ -402,9 +551,29 @@ class ContinuousBatchingEngine:
         if controller is not None and not len(bank):
             raise ValueError("adaptive mode control needs a bottleneck mode "
                              "bank in params (init_split_params)")
-        self.params = T.prepare_params(params, cfg)
+        #: serving mesh (``models.sharding.serving_mesh``) or None
+        self.mesh = mesh
         self.cfg = cfg
+        #: the config the rank's model runs (its heads and d_ff over mp)
+        self.run_cfg = cfg
+        self.plan = None
         self.device = params["embed"]["table"].device
+        member = mesh is None or mesh.member
+        if mesh is not None:
+            mesh.check_model(cfg)
+            self.run_cfg = mesh.local_cfg(cfg)
+            self.plan = mesh.rank_plan(cfg)
+            self.device = mesh.device
+            if member:
+                params = T.tree_map(lambda a: a.to(self.device),
+                                    sharding.shard_params(params, mesh,
+                                                          cfg=cfg))
+        #: the engine runs the split steps (False: the bank-free ones)
+        self.banked = bool(len(bank))
+        # a rank off the engine group (a cluster's other replicas) keeps
+        # only the host state: no weights, no pool tensors
+        self.params = (T.prepare_params(params, self.run_cfg) if member
+                       else None)
         self.orch = orchestrator
         self.controller = controller
         self.freeze_modes = freeze_modes
@@ -419,10 +588,11 @@ class ContinuousBatchingEngine:
                 "paged=True needs a homogeneous full-attention arch; "
                 "windowed/recurrent decode state is bounded by construction")
         self.pool = (PagedPool(cfg, n_slots, cache_len, page_len=page_len,
-                               n_pages=n_pages, device=self.device)
+                               n_pages=n_pages, device=self.device,
+                               mesh=mesh)
                      if self.paged
                      else SlotPool(cfg, n_slots, cache_len,
-                                   device=self.device))
+                                   device=self.device, mesh=mesh))
         self.queue = RequestQueue(max_pending)
         self.active: Dict[int, Session] = {}          # slot -> session
         self.finished: List[Session] = []
@@ -444,8 +614,9 @@ class ContinuousBatchingEngine:
             self.pool.capacity if self.paged
             else cache_len if T.full_attention_arch(cfg) else None)
         #: the stacked mode bank, or None: the bank-free steps
-        self.stacked_bank = (bottleneck.bank_stack(bank, cfg.split)
-                             if len(bank) else None)
+        self.stacked_bank = (bottleneck.bank_stack(
+            self.params["bneck_modes"], cfg.split)
+            if self.banked and member else None)
         self._tok_shape = ((n_slots, cfg.n_codebooks, 1)
                            if T.multi_codebook(cfg) else (n_slots, 1))
         self.fused_tail = bool(fused_tail)
@@ -478,7 +649,7 @@ class ContinuousBatchingEngine:
                            "mode_ticks": np.zeros(0, np.int64)}
         self._pb_table = None
         if self._tel is not None:
-            n_modes = cfg.split.n_modes if self.stacked_bank is not None else 1
+            n_modes = cfg.split.n_modes if self.banked else 1
             self.device_tel["mode_ticks"] = np.zeros(n_modes, np.int64)
             self._pb_table = np.asarray(
                 [self._payload_bytes(m) for m in range(n_modes)], np.int64)
@@ -515,6 +686,14 @@ class ContinuousBatchingEngine:
         session completes inside its own prefill and frees its slot)."""
         while self.pool.n_free and len(self.queue):
             admits = self._collect_admits()
+            if self.mesh is not None:
+                # the leader's admissions (slot, mode, budget) are the ones
+                # every rank prefills; a rank that admitted others raises
+                ctl = np.zeros(1 + 3 * self.pool.n_slots, np.int64)
+                ctl[0] = len(admits)
+                for i, (_, slot, mode, budget, _) in enumerate(admits):
+                    ctl[1 + 3 * i:4 + 3 * i] = (slot, mode, budget)
+                self.mesh.agree(ctl, "admission")
             if not admits:            # everything popped was over capacity
                 break
             for blen, group in sorted(_group_by_bucket(admits).items()):
@@ -574,7 +753,7 @@ class ContinuousBatchingEngine:
                     if req.channel is not None:
                         cap = req.channel.step()
                         self.orch.observe_capacity(cap, rid=req.rid)
-                    if self.stacked_bank is not None:
+                    if self.banked:
                         mode = self.orch.choose_mode(rid=req.rid)
             admits.append((req, slot, mode, budget, cap))
         return admits
@@ -597,30 +776,17 @@ class ContinuousBatchingEngine:
             lens[i] = req.prompt_len
             modes[i] = mode
         dev = self.device
-        bt = None
-        if self.paged:
-            nb_p = max(-(-blen // self.pool.page_len), 1)
-            bt_np = np.zeros((bp, nb_p), np.int32)  # pad rows -> scratch page
-            for i, (_, slot, _, _, _) in enumerate(group):
-                bt_np[i] = self.pool.block_np[slot, :nb_p]
-            bt = torch.from_numpy(bt_np).to(dev)
-            states = self.pool.states
-        else:
-            states = T.init_decode_state(self.cfg, bp, self.pool.cache_len,
-                                         device=dev)
-        toks_dev = torch.from_numpy(toks).to(dev)
-        lens_dev = torch.from_numpy(lens).to(dev)
-        if self.stacked_bank is not None:
-            logits, new_states = SP.split_prefill_mixed(
-                self.params, self.stacked_bank, toks_dev, states, self.cfg,
-                torch.from_numpy(modes).to(dev), lengths=lens_dev,
-                block_table=bt)
-        else:                              # no bank: the raw boundary
-            logits, new_states = T.prefill(self.params, toks_dev, self.cfg,
-                                           states, lengths=lens_dev,
-                                           block_table=bt)
-        # [bp, 1] ([bp, K, 1] audio)
-        first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
+        slots = [a[1] for a in group]
+        new_states = None
+        if self.params is not None:
+            first_dev, new_states = self._prefill_rows(toks, lens, modes,
+                                                       slots, blen, bp)
+        else:                              # off the engine group
+            first_dev = torch.zeros((bp,) + self._tok_shape[1:],
+                                    dtype=torch.int32, device=dev)
+        if self.mesh is not None:
+            # every rank of the group computed these; all take the leader's
+            first_dev = self.mesh.share(first_dev)
         self.prefill_calls += 1
         self.prefill_tokens += int(lens[:n].sum())
         self.prefill_padded_tokens += bp * blen
@@ -630,7 +796,6 @@ class ContinuousBatchingEngine:
             self._tel.complete("prefill", t_pre, now - t_pre, cat="window",
                                rows=n, bucket=blen)
             self._tel.observe("engine.prefill_s", now - t_pre)
-        slots = [a[1] for a in group]
         plens = [a[0].prompt_len for a in group]
         if self.paged:
             # the prefill already wrote the arena through the block tables
@@ -680,6 +845,40 @@ class ContinuousBatchingEngine:
                 self.finished.append(sess)
             else:
                 self.active[slot] = sess
+
+    def _prefill_rows(self, toks, lens, modes, slots, blen: int, bp: int):
+        """The bucket's one batched prefill on this rank (every row: a mesh
+        runs admission replicated over dp). Paged: K/V scatter through the
+        block tables of the slots this rank holds (other rows: the scratch
+        page). Returns (first tokens [bp, 1] ([bp, K, 1] audio) int32, the
+        dense pool's fresh batch state or None)."""
+        dev = self.device
+        bt = None
+        if self.paged:
+            nb_p = max(-(-blen // self.pool.page_len), 1)
+            bt_np = np.zeros((bp, nb_p), np.int32)  # pad rows -> scratch page
+            bt_np[:len(slots)] = self.pool.local_table(slots, nb_p)
+            bt = torch.from_numpy(bt_np).to(dev)
+            states = self.pool.states
+        else:
+            states = T.init_decode_state(self.run_cfg, bp,
+                                         self.pool.cache_len, device=dev)
+        toks_dev = torch.from_numpy(toks).to(dev)
+        lens_dev = torch.from_numpy(lens).to(dev)
+        if self.banked:
+            logits, new_states = SP.split_prefill_mixed(
+                self.params, self.stacked_bank, toks_dev, states,
+                self.run_cfg, torch.from_numpy(modes).to(dev),
+                lengths=lens_dev, block_table=bt, mesh=self.mesh,
+                plan=self.plan)
+        else:                              # no bank: the raw boundary
+            logits, new_states = T.prefill(self.params, toks_dev,
+                                           self.run_cfg, states,
+                                           lengths=lens_dev, block_table=bt,
+                                           plan=self.plan)
+        # [bp, 1] ([bp, K, 1] audio)
+        return (torch.argmax(logits, dim=-1).to(torch.int32),
+                None if self.paged else new_states)
 
     def _release_links(self, sess: Session):
         """Drop a retiring session's orchestrator/controller state."""
@@ -731,7 +930,7 @@ class ContinuousBatchingEngine:
                         self.orch.observe_capacity(cap, rid=rid)
                     # no bank: only the raw boundary can cross, so the
                     # tick is accounted on mode 0
-                    if self.stacked_bank is not None:
+                    if self.banked:
                         mode = (sess.admission_mode if self.freeze_modes
                                 else self.orch.choose_mode(rid=rid))
                 pb = self._payload_bytes(mode)
@@ -772,6 +971,8 @@ class ContinuousBatchingEngine:
             return False
         t0 = _now() if self._tel is not None else 0.0
         modes = self._choose_modes()
+        if self.mesh is not None:
+            self._agree_window(modes[None])
         bt = None
         if self.paged:
             for slot in self.active:   # this tick writes row pos per slot
@@ -779,11 +980,16 @@ class ContinuousBatchingEngine:
                                       int(self.pool.positions[slot]) + 1)
             bt = self.pool.block_table()
         dev = self.device
-        logits = self._decode(
-            torch.from_numpy(self.cur_tokens.copy()).to(dev),
-            torch.from_numpy(self.pool.positions.copy()).to(dev),
-            torch.from_numpy(modes).to(dev), bt, False)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        nxt = None
+        if self.params is not None:
+            logits = self._decode(
+                torch.from_numpy(self.cur_tokens.copy()).to(dev),
+                torch.from_numpy(self.pool.positions.copy()).to(dev),
+                torch.from_numpy(modes).to(dev), bt, False)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if self.mesh is not None:
+            nxt = self._exchange(None if nxt is None else nxt[None])[0]
+        nxt = nxt.cpu().numpy()
 
         if self._tel is not None:
             # one synchronous host tick == one token per live slot
@@ -860,6 +1066,8 @@ class ContinuousBatchingEngine:
         snapshot = sorted(self.active.items())
         modes_k = np.stack([self._choose_modes(self.tick + i, items=snapshot)
                             for i in range(k)])
+        if self.mesh is not None:
+            self._agree_window(modes_k)
         prev = self._inflight
         toks_k = self._run_window(modes_k, bt)
         tel_blk = None
@@ -917,35 +1125,70 @@ class ContinuousBatchingEngine:
         """One decode step over the pool (in place): the mixed-mode split
         step, or without a bank the unsplit model's. Returns its logits
         or, with ``return_tokens``, the decode tail's tokens."""
-        if self.stacked_bank is None:
+        if not self.banked:
             out, _ = T.decode_step(self.params, tok, self.pool.states,
-                                   positions, self.cfg,
+                                   positions, self.run_cfg,
                                    return_tokens=return_tokens,
-                                   block_table=bt)
+                                   block_table=bt, plan=self.plan)
         else:
             out, _ = SP.split_decode_step_mixed(
                 self.params, self.stacked_bank, tok, self.pool.states,
-                positions, self.cfg, modes, bt, return_tokens=return_tokens)
+                positions, self.run_cfg, modes, bt,
+                return_tokens=return_tokens, mesh=self.mesh, plan=self.plan)
         return out
+
+    # -- the serving mesh -----------------------------------------------------
+    def _agree_window(self, modes_k: np.ndarray):
+        """The leader's window (its length and every tick's mode vector) is
+        the one every rank decodes: one broadcast a window or host tick; a
+        rank whose own schedule differs raises."""
+        n = self.pool.n_slots
+        ctl = np.zeros(1 + self.max_window * n, np.int64)
+        ctl[0] = modes_k.shape[0]
+        ctl[1:1 + modes_k.size] = modes_k.reshape(-1)
+        self.mesh.agree(ctl, "decode window")
+
+    def _exchange(self, toks, k: int = 1) -> torch.Tensor:
+        """Every slot's tokens [k, n_slots, ...] on every rank of the scope,
+        each slot's from the rank that holds it: ``toks`` the rows this
+        rank decoded (None off the engine group), through
+        ``mesh.exchange``."""
+        r = self.pool.rows
+        local = (toks[:, r.lo:r.hi] if toks is not None else
+                 torch.zeros((k, 0) + self._tok_shape[1:],
+                             dtype=torch.int32, device=self.device))
+        return self.mesh.exchange(local, self.pool.n_slots)
 
     def _run_window(self, modes_k: np.ndarray, bt) -> torch.Tensor:
         """Enqueue K decode ticks on the device: each tick's token (the
         fused tail's, or with ``fused_tail=False`` the argmax of its
         logits) feeds the next tick's embed and positions advance on the
-        device. Returns the window's [K, B, 1] ([K, B, K_cb, 1] audio)
-        int32 tokens (not read)."""
-        modes_dev = torch.from_numpy(modes_k).to(self.device)
-        tok, positions = self.cur_tokens, self._positions
-        outs = []
-        for i in range(modes_k.shape[0]):
-            out = self._decode(tok, positions, modes_dev[i], bt,
-                               self.fused_tail)
-            nxt = out if self.fused_tail else torch.argmax(out, dim=-1)
-            tok = nxt.to(torch.int32).reshape(tok.shape)
-            outs.append(tok)
-            positions = positions + 1
-        self.cur_tokens, self._positions = tok, positions
-        return torch.stack(outs)
+        device; on a serving mesh one token exchange then gives every rank
+        of the scope each slot's tokens from the rank that holds it.
+        Returns the window's [K, B, 1] ([K, B, K_cb, 1] audio) int32 tokens
+        (not read)."""
+        k = modes_k.shape[0]
+        toks_k = None
+        if self.params is not None:
+            modes_dev = torch.from_numpy(modes_k).to(self.device)
+            tok, positions = self.cur_tokens, self._positions
+            outs = []
+            for i in range(k):
+                out = self._decode(tok, positions, modes_dev[i], bt,
+                                   self.fused_tail)
+                nxt = out if self.fused_tail else torch.argmax(out, dim=-1)
+                tok = nxt.to(torch.int32).reshape(tok.shape)
+                outs.append(tok)
+                positions = positions + 1
+            toks_k = torch.stack(outs)
+        if self.mesh is None:
+            self.cur_tokens, self._positions = tok, positions
+            return toks_k
+        # every rank takes each slot's tokens from the rank that holds it
+        toks_k = self._exchange(toks_k, k)
+        self.cur_tokens = toks_k[-1].clone()
+        self._positions = self._positions + k
+        return toks_k
 
     def _tel_block(self, modes_k: np.ndarray, active: np.ndarray
                    ) -> np.ndarray:

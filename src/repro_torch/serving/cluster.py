@@ -66,8 +66,16 @@ thread and one CUDA stream; every replica's tick still runs the port's
 kernels (one boundary, one decode tail and one ``paged_attention`` a
 layer on the paged pool).
 
-``dp`` / ``mp`` / ``devices`` (replicas on disjoint device meshes) are not
-ported yet and raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+``dp`` / ``mp`` put each replica on a serving mesh of its own ranks:
+replica ``i`` takes global ranks ``[i * dp * mp, (i + 1) * dp * mp)`` of
+the initialized ``torch.distributed`` world as its engine group, and every
+rank of the world keeps every replica's host state (the scope of each
+replica's mesh), so the router runs on every rank. The routing and
+migration decisions are the world rank 0's (one broadcast each; a rank
+whose own decision differs raises). A migration snapshot is gathered on
+every rank from the source replica's holders (mesh-blind bytes, see
+``migration.py``) and injected on the target group. Elastic scaling with a
+mesh raises ``ValueError``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -75,12 +83,14 @@ import heapq
 from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bottleneck
 from repro_torch.core.channel import is_mobile, tx_seconds
 from repro_torch.core.orchestrator import (AppRequirement, ModeProfile,
                                            Orchestrator)
+from repro_torch.models import sharding
 from repro_torch.serving.batcher import ContinuousBatchingEngine
 from repro_torch.serving.controller import Autoscaler
 from repro_torch.serving.fleet import SLOAdmission
@@ -121,8 +131,11 @@ class EdgeCluster:
     ``autoscaler`` attaches an :class:`Autoscaler` whose per-step
     decisions drive :meth:`scale_up`/:meth:`scale_down`.
 
-    Every replica lives on the device of ``params``. ``dp`` / ``mp`` /
-    ``devices`` (a serving mesh per replica) raise ``NotImplementedError``.
+    Without ``dp`` / ``mp`` every replica lives on the device of
+    ``params``. With them, each replica is a serving mesh over its own
+    ranks (see the module docstring); ``devices``: each global rank's
+    device (a sequence indexed by rank, or one device for this rank),
+    default ``cuda:<rank>``.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_replicas: int = 2,
@@ -146,11 +159,10 @@ class EdgeCluster:
                 f"handover must be one of {HANDOVER_POLICIES}")
         if n_replicas < 1:
             raise ValueError("need at least one replica")
+        self._meshes = None
         if dp is not None or mp is not None or devices is not None:
-            raise NotImplementedError(
-                "repro_torch replicas serve on one device: per-replica "
-                "serving meshes (dp/mp/devices) are not ported yet (ROADMAP "
-                "Queue 1 item 7)")
+            self._meshes = self._build_meshes(n_replicas, dp or 1, mp or 1,
+                                              devices, autoscaler)
         self.cfg = cfg
         self.placement = placement
         self.handover = handover
@@ -220,8 +232,40 @@ class EdgeCluster:
         self._obs_finished = 0
         self._obs_late = 0
 
+    @staticmethod
+    def _build_meshes(n_replicas: int, dp: int, mp: int, devices,
+                      autoscaler):
+        """One serving mesh per replica on disjoint rank groups, each
+        mirrored by every rank of the world."""
+        if autoscaler is not None:
+            raise ValueError("elastic scaling (an autoscaler) cannot add or "
+                             "retire replicas on a fixed set of ranks: "
+                             "serve a mesh without one")
+        rank, size = sharding.world()
+        need = n_replicas * dp * mp
+        if need > size:
+            raise ValueError(
+                f"{n_replicas} replicas of a ({dp} x {mp}) mesh need {need} "
+                f"ranks, one device each, but the world has {size}: start "
+                f"{need} ranks (torchrun --nproc-per-node {need}, or "
+                f"launch.serve --dp/--mp)")
+        if devices is not None and not isinstance(devices, (str,
+                                                            torch.device)):
+            devices = list(devices)[rank]
+        return [sharding.serving_mesh(
+            dp, mp, ranks=range(i * dp * mp, (i + 1) * dp * mp),
+            device=devices, scope_ranks=range(size))
+            for i in range(n_replicas)]
+
+    def _agree(self, values, what: str):
+        """World rank 0's routing decision (one broadcast on a mesh)."""
+        if self._meshes is not None:
+            self._meshes[0].agree(values, what, src=0)
+
     def _new_engine(self, i: int) -> ContinuousBatchingEngine:
         kw = dict(self._engine_kwargs)
+        if self._meshes is not None:
+            kw["mesh"] = self._meshes[i]
         if self._tel is not None:
             kw["telemetry"] = self._tel.for_lane(i + 1, f"replica{i}")
         if self._make_controller is not None:
@@ -346,6 +390,7 @@ class EdgeCluster:
 
     def _route(self, req: Request) -> bool:
         r = self.place(req)
+        self._agree([r], f"placement of request {req.rid!r}")
         if is_mobile(req.channel):
             # the session will be served from replica r's cell until a
             # migration (or drop-and-replay) re-homes it
@@ -364,6 +409,9 @@ class EdgeCluster:
         else append a new replica built from the constructor's stored
         state — a new pool over the same weight tensors. Returns the
         replica index now in service."""
+        if self._meshes is not None:
+            raise ValueError("a cluster on serving meshes has a fixed set "
+                             "of replicas")
         for i in sorted(self.retired):
             if self._load(self.replicas[i]) == 0:
                 self.retired.discard(i)
@@ -548,6 +596,8 @@ class EdgeCluster:
         return acted
 
     def _migrate(self, eng, r: int, sess: Session, target: int):
+        self._agree([r, target, sess.slot],
+                    f"migration of request {sess.request.rid!r}")
         snap = extract_session(eng, sess.request.rid,
                                bits=self.snapshot_bits, source_replica=r)
         t = tx_seconds(snap.nbytes, self.backhaul_bps)

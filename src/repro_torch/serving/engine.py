@@ -13,6 +13,14 @@ boundary.
 The decode state lives on the parameters' device and updates in place.
 The steps are eager (the reference jits them), cached per mode; the tokens
 of a decode run stay on the device until it ends.
+
+``mesh=`` (a ``models.sharding.serving_mesh``): the batch over dp and the
+layers over mp. Every rank runs the whole batch, as one device does (a
+GEMM's sums on the card depend on its row count: ``sharding``), and its
+dense state holds every row; each row's tokens are taken from the dp rank
+that holds it, through one exchange at the end of a decode run, so the
+mesh gives the one-device tokens. The orchestrator's per-token mode is the
+leader's (one broadcast a token).
 """
 from __future__ import annotations
 
@@ -26,28 +34,30 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bottleneck
 from repro_torch.core import split as SP
 from repro_torch.core.orchestrator import Orchestrator
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.serving.telemetry import Telemetry, block, now as _now
 
 
 def make_serve_step(cfg: ModelConfig, *, mode: Optional[int] = None,
-                    return_tokens: bool = False):
+                    return_tokens: bool = False, plan=None):
     """serve_step(params, token, states, cur_pos) -> (logits, states).
 
     mode None: the monolithic model; mode int: the split model with
     bottleneck mode m crossing the simulated link. With ``return_tokens``
     the decode tail returns argmax int32 tokens shaped like ``token``
-    ([B, 1], or [B, K, 1] audio) instead of the logits."""
+    ([B, 1], or [B, K, 1] audio) instead of the logits. ``plan``: a serving
+    mesh's ``RankPlan`` (``cfg`` the rank's config)."""
     if mode is None:
         def step(params, token, states, cur_pos):
             return T.decode_step(params, token, states, cur_pos, cfg,
-                                 return_tokens=return_tokens)
+                                 return_tokens=return_tokens, plan=plan)
         return step
 
     def step(params, token, states, cur_pos):
         out, states, _ = SP.split_decode_step(
             params, token, states, cur_pos, cfg, mode=mode,
-            return_tokens=return_tokens)
+            return_tokens=return_tokens, plan=plan)
         return out, states
     return step
 
@@ -64,38 +74,55 @@ class ServingEngine:
     ``params`` (``T.prepare_params``). ``telemetry=`` observes the
     reference's ``engine_sync.*`` histograms and counters (each decode
     step then waits for its token, so the inter-token time is the
-    device's); ``mesh=`` is not ported yet and raises."""
+    device's); ``mesh=``: the batch over dp, the layers over mp (see the
+    module docstring)."""
 
     def __init__(self, params, cfg: ModelConfig, *, cache_len: int = 512,
                  batch: int = 1,
                  orchestrator: Optional[Orchestrator] = None,
                  mesh=None, telemetry: Optional[Telemetry] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "repro_torch serves on one device: the serving mesh "
-                "(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
         self._tel = telemetry
-        self.params = T.prepare_params(params, cfg)
+        self.mesh = mesh
         self.cfg = cfg
+        self.run_cfg = cfg
+        self.plan = None
+        self.device = params["embed"]["table"].device
+        if mesh is not None:
+            mesh.check_model(cfg)
+            self.run_cfg = mesh.local_cfg(cfg)
+            self.device = mesh.device
+            self.plan = mesh.rank_plan(cfg)
+            params = T.tree_map(lambda a: a.to(self.device),
+                                sharding.shard_params(params, mesh, cfg=cfg))
+        self.params = T.prepare_params(params, self.run_cfg)
         self.cache_len = cache_len
         self.batch = batch
         self.orch = orchestrator
-        self.device = params["embed"]["table"].device
         self._steps: Dict[Tuple[Optional[int], bool], Callable] = {}
         self.reset()
 
     def _step(self, mode: Optional[int], return_tokens: bool = False):
         key = (mode, return_tokens)
         if key not in self._steps:
-            self._steps[key] = make_serve_step(self.cfg, mode=mode,
-                                               return_tokens=return_tokens)
+            self._steps[key] = make_serve_step(self.run_cfg, mode=mode,
+                                               return_tokens=return_tokens,
+                                               plan=self.plan)
         return self._steps[key]
 
     def reset(self):
-        self.states = T.init_decode_state(self.cfg, self.batch,
+        self.states = T.init_decode_state(self.run_cfg, self.batch,
                                           self.cache_len, device=self.device)
         self.pos = 0
         self.stats = GenStats()
+
+    def _gather(self, t):
+        """Every row of an int32 batch tensor, each from the dp rank that
+        holds it, on every rank (one exchange); as it is without a mesh."""
+        if self.mesh is None:
+            return t
+        lo, hi = self.mesh.slot_rows(self.batch)
+        return self.mesh.exchange(t[lo:hi].to(torch.int32), self.batch,
+                                  axis=0)
 
     def prefill(self, tokens) -> torch.Tensor:
         """tokens: [B, S] ([B, K, S] audio). Returns the last position's
@@ -110,8 +137,9 @@ class ServingEngine:
                                what="prompt")
         if self.pos == 0:
             t0 = _now()
-            logits, self.states = T.prefill(self.params, tokens, self.cfg,
-                                            self.states)
+            logits, self.states = T.prefill(self.params, tokens,
+                                            self.run_cfg, self.states,
+                                            plan=self.plan)
             if self._tel is not None:
                 block(logits)
                 self._tel.observe("engine_sync.prefill_s", _now() - t0)
@@ -142,6 +170,8 @@ class ServingEngine:
                 if capacity_bps_fn is not None:
                     self.orch.observe_capacity(capacity_bps_fn())
                 mode = self.orch.choose_mode()
+                if self.mesh is not None:      # the leader's mode
+                    self.mesh.agree([mode], "decode mode")
             # argmax is fused into the step's tail; wire bytes are host-side
             # static accounting
             tok, self.states = self._step(mode, True)(
@@ -163,4 +193,24 @@ class ServingEngine:
                 self._tel.inc("engine_sync.decode_wire_bytes", int(pb))
                 self._tel.inc("engine_sync.decode_tokens", tok.numel())
                 t0 = t1
-        return torch.cat(out, dim=-1).cpu().numpy()
+        return self._gather(torch.cat(out, dim=-1)).cpu().numpy()
+
+    def decode_static(self, first_token, n_steps: int, mode: int
+                      ) -> Tuple[np.ndarray, int]:
+        """Generate ``n_steps`` tokens per row on one bottleneck ``mode``
+        through the logits + argmax chain (the static policies). Returns
+        (int32 [B, n_steps] ([B, K, n_steps] audio), wire bytes)."""
+        T.check_cache_capacity(self.cfg, self.pos, n_steps, self.cache_len,
+                               what="decode")
+        tok = torch.as_tensor(first_token, device=self.device)
+        out, wire = [], 0
+        for _ in range(n_steps):
+            logits, self.states, _ = SP.split_decode_step(
+                self.params, tok, self.states, self.pos, self.run_cfg,
+                mode=mode, plan=self.plan)
+            self.pos += 1
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+            wire += int(bottleneck.mode_payload_bytes(self.cfg, self.batch,
+                                                      1, mode))
+        return self._gather(torch.cat(out, dim=-1)).cpu().numpy(), wire

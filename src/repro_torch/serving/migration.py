@@ -60,6 +60,14 @@ bit-exact across the migration: the target's pool rows and the page
 contents in logical order are the source's, and the decode kernels' sums
 do not depend on the slot index, the other rows or the page ids.
 
+On a serving mesh (``engine.mesh``) the snapshot is mesh-blind:
+``read_rows`` / ``read_pages`` gather the slot's rows (every KV head)
+from the ranks that hold them onto every rank of the engine's scope (an
+integer sum of zero-padded parts, so the bytes are exact), every rank
+encodes the same bytes, and injection writes each target rank's own rows
+and heads. A snapshot from a sharded engine is byte-identical to the
+unsharded engine's at the same tick.
+
 The engine-facing functions are free functions over
 ``ContinuousBatchingEngine`` internals rather than engine methods — the
 cluster router (``serving/cluster.py``) is their only intended caller, and
@@ -328,7 +336,7 @@ def inject_session(eng: ContinuousBatchingEngine,
     else:
         state = _decode_state(snap, dev)
         slot = eng.pool.acquire()
-        eng.pool.write_rows(state, [slot], [snap.position])
+        eng.pool.write_rows(state, [slot], [snap.position], full_heads=True)
     if eng.host_loop:
         eng.cur_tokens[slot] = snap.cur_token
     else:

@@ -9,8 +9,9 @@ times must agree: the JSON keys of every section, and every non-timing
 value (finished, rejected and replayed requests, wire bytes, modes,
 ticks, migrations and their bytes, scale events, trace event counts).
 The reference's runs go in one subprocess, in parallel with the port's.
-Without a card ``--device cuda`` raises, as do the serving mesh's
-``--dp`` / ``--mp`` and ``--slot-scaling``.
+Without a card ``--device cuda`` raises; the serving mesh's ``--dp`` /
+``--mp`` and ``--slot-scaling`` raise where the backend cannot run the
+layout (their runs are in ``tests/test_torch_sharded_serving.py``).
 """
 import json
 import os
@@ -195,19 +196,30 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--mp", "2"]])
 def test_serving_mesh_raises(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        serve.main(SERVE["cluster"] + ["--device", "cpu"] + flag)
+    """The serving mesh raises where its backend cannot run the layout
+    (NCCL takes no CPU ranks; it is never swapped for gloo), and for an
+    axis under 1."""
+    with pytest.raises(ValueError, match="nccl"):
+        serve.main(SERVE["cluster"] + ["--device", "cpu", "--dist-backend",
+                                       "nccl"] + flag)
+    with pytest.raises(ValueError, match="axes"):
+        serve.main(SERVE["cluster"] + ["--device", "cpu"]
+                   + [flag[0], "0"])
 
 
 def test_slot_scaling_and_replica_meshes_raise():
+    """``--slot-scaling`` refuses a backend that cannot run its ranks, and
+    a cluster's replica meshes need ranks this process (no process group)
+    does not have."""
     from repro_torch.configs import get_reduced
     from repro_torch.core import split as SP
     from repro_torch.serving import EdgeCluster
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="nccl"):
         bench_serving.main(["--reduced", "--device", "cpu",
-                            "--slot-scaling", "1,2"])
+                            "--slot-scaling", "1,2", "--dist-backend",
+                            "nccl"])
     cfg = get_reduced("qwen2.5-3b")
     params = SP.init_split_params(torch.Generator().manual_seed(0), cfg)
     for kw in ({"dp": 2}, {"mp": 2}, {"devices": ["cpu"]}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(ValueError, match="device"):
             EdgeCluster(params, cfg, **kw)

@@ -223,8 +223,9 @@ def test_serve_sync_matches_jax_run_sync(policy):
 
 def test_serve_main_defaults_to_sync_and_refuses_mesh():
     """``--engine`` defaults to sync (as in the reference); the generated
-    tokens come back in the summary; ``mesh=`` raises (``telemetry=`` is
-    ported: the same tokens, with the reference's histograms)."""
+    tokens come back in the summary; a serving mesh needs ranks this
+    process does not have (``telemetry=`` is ported: the same tokens,
+    with the reference's histograms)."""
     argv = ["--arch", "recurrentgemma-2b", "--reduced", "--device", "cpu",
             "--requests", "2", "--gen", "4", "--policy", "static0"]
     out = tserve.main(argv)
@@ -235,8 +236,9 @@ def test_serve_main_defaults_to_sync_and_refuses_mesh():
     assert traced["latency"]["engine_sync.prefill_s"]["count"] == 1
     cfg = _cfg(t_reduced, "qwen2.5-3b", ())
     params = TSP.init_split_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TEngine(params, cfg, mesh=object())
+    from repro_torch.models import sharding
+    with pytest.raises(ValueError, match="ranks"):
+        TEngine(params, cfg, mesh=sharding.serving_mesh(2))
     with pytest.raises(ValueError, match="exceeds cache_len"):
         TEngine(params, cfg, cache_len=4).prefill(np.ones((1, 5), np.int32))
 
