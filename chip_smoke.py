@@ -159,6 +159,26 @@ Phases, each printing one JSON line; any failure exits nonzero:
     finishes, dp 2 at least ``SHARD_FLOOR`` of dp 1's tok/s). dp runs
     decode the one-device runs' tokens (phases 7, 9 and a one-device
     cluster); each rank's launches are summed by layout.
+17. training and MoE across ranks: the kernels at phi3.5-moe's (1, 2) rank
+    shapes (paged attention at 4 KV heads, group 4, hd 128; the boundary and
+    the tail at 4 rows), then two gloo ranks on cuda:0 (``p17_rank``): (a)
+    ``launch.train --cascade --mp 2`` and (b) ``--dp 2`` on qwen2.5-3b at full
+    width cut to ``P17_TRAIN_LAYERS``, each logged loss within
+    ``TOL["train_mp_loss_rel"]`` of the one-device run's (a run with the update
+    off must part by more), the replicated leaves bit-identical across the
+    ranks, the checkpoint (gathered, written by rank 0) restored and evaluated
+    on one device; (c) ``moe_apply_ep`` at ep 2 on phi3.5-moe's layer at full
+    width against ``moe_apply`` (capacity 8: rows and the token path's gradient
+    within ``TOL["moe_ep_row_rel"]`` / ``["moe_ep_grad_rel"]``; the default
+    capacity: the drops of each rank's block as its plain routing's) and a
+    train step with ``moe_ep=True``; (d) ``qtp_forward`` on granite-8b against
+    ``T.forward`` (``TOL["qtp"]``); (e) the pod pipeline on stablelm-3b against
+    ``T.forward`` and ``split_forward`` (``TOL["pipe"]``), its gradients on
+    both stages and heads, the int8 backward, the wire counter; (f) phi3.5-moe
+    continuous at (1, 2), cut to ``P17_SERVE_LAYERS``, against one device (the
+    mp rule, the routes pinned to one device's; a free run's routing
+    differences reported) and fused, launching the boundary, the tail and paged
+    attention. The training paths launch none of the six kernels.
 
 Kernel times come from ``torch.profiler`` traces. A trace can lose
 events: a lost one counts as its kernel's mean traced event (a call
@@ -185,6 +205,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2330,10 +2351,10 @@ def phase_main_path(cfg, smi: str, params=None):
 
 #: the dense (homogeneous) archs' profiles, cut in depth to fit the
 #: script's time (PERF.md section 4): continuous at 4 of the main path's 8
-#: requests, both engines at 8 of its 16 generated tokens; the recurrent
+#: requests and 4 of its 16 generated tokens, sync at 8 of 16; the recurrent
 #: archs keep the main path's arguments, their launches a step are held
 #: against a ceiling
-PROFILE_CUT = {"continuous": ["--requests", "4", "--gen", "8"],
+PROFILE_CUT = {"continuous": ["--requests", "4", "--gen", "4"],
                "sync": ["--gen", "8"]}
 
 
@@ -3804,15 +3825,21 @@ def routes(tape: list, replay: bool = False):
     """``models.moe.route`` while the block runs: each call's result is
     appended to ``tape``, or with ``replay`` the calls return ``tape``'s
     results in order instead of routing (the recorded run's experts,
-    slots and gates)."""
+    slots and gates), each for a call on the same tokens' shape, and the
+    block must make as many calls as the tape holds."""
     from repro_torch.models import moe
     orig = moe.route
     played = iter(tape) if replay else None
 
-    def route(*args):
+    def route(router_w, xg, *args):
         if played is not None:
-            return next(played)
-        out = orig(*args)
+            out = next(played, None)
+            check(out is not None and out[1].shape[:2] == xg.shape[:2],
+                  f"routes: a call on tokens {tuple(xg.shape[:2])} where "
+                  f"the tape holds "
+                  f"{None if out is None else tuple(out[1].shape[:2])}")
+            return out
+        out = orig(router_w, xg, *args)
         tape.append(out)
         return out
 
@@ -3821,6 +3848,10 @@ def routes(tape: list, replay: bool = False):
         yield tape
     finally:
         moe.route = orig
+    if played is not None:
+        check(next(played, None) is None,
+              "routes: the block made fewer routing calls than the tape "
+              "holds")
 
 
 def int8_cache(params, cfg, dev, seed: int) -> dict:
@@ -4366,9 +4397,9 @@ def mesh_rank(rank: int, world: int, port: int, queue) -> None:
         queue.put((rank, {"error": traceback.format_exc()}))
 
 
-def start_mesh(world: int):
-    """Start ``world`` gloo ranks of ``mesh_rank``; (processes, queue)
-    for ``collect_mesh``."""
+def start_mesh(world: int, target=None):
+    """Start ``world`` gloo ranks of ``target`` (default ``mesh_rank``);
+    (processes, queue) for ``collect_mesh``."""
     import multiprocessing
     import socket
     with socket.socket() as sock:
@@ -4376,7 +4407,8 @@ def start_mesh(world: int):
         port = sock.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=mesh_rank, args=(r, world, port, queue))
+    procs = [ctx.Process(target=target or mesh_rank,
+                         args=(r, world, port, queue))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -4404,14 +4436,18 @@ def collect_mesh(procs, queue) -> dict:
     return results
 
 
-def mesh_kernels(dev, seed: int, iters: int) -> dict:
-    """The kernels at the per-rank shapes of the mesh's main path
-    (qwen2.5-3b, random inputs of its widths): paged attention at mp 2
-    (one KV head a rank, group 8, hd 128; 4 slots at positions 16 to 31)
-    in both forms bf16 bit for bit against the plain version, timed beside
-    it, SDPA and the bound; the boundary on a dp rank's 2 rows of 4, bit
-    for bit the rows of the whole batch, timed at 2 rows; the tail at 2
-    rows against the plain logits, timed."""
+def mesh_kernels(dev, seed: int, iters: int, arch: str = "qwen2.5-3b",
+                 rows: int = 2) -> dict:
+    """The kernels at the per-rank shapes of a mesh's main path (``arch``
+    at mp 2, random inputs of its widths; qwen2.5-3b at (2, 2) for phase
+    16, phi3.5-moe at (1, 2) for phase 17): paged attention with the
+    rank's KV heads (n_kv / 2; qwen2.5-3b one a rank, group 8, hd 128; 4
+    slots at positions 16 to 31) in both forms bf16 bit for bit against
+    the plain version, timed beside it, SDPA and the bound; the boundary
+    on a rank's ``rows`` of 4, bit for bit those rows of the whole batch
+    (at 4 rows, the whole batch: against its plain version,
+    ``check_boundary``), timed at ``rows``; the tail at ``rows`` rows
+    against the plain logits, timed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import bottleneck
@@ -4419,24 +4455,28 @@ def mesh_kernels(dev, seed: int, iters: int) -> dict:
     from repro_torch.kernels.boundary_mixed import (boundary_mixed_grouped,
                                                     decode_tail_grouped)
     from repro_torch.kernels.paged_attention import paged_attention
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(seed + 16)
     flush = l2_flusher(dev)
     bf = torch.bfloat16
     # paged attention at the mp-2 rank's heads
     hd, g, plen = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads, 8
+    kv = cfg.n_kv_heads // 2
     n_pages = 4 * 16 + 1
-    kp = torch.randn((n_pages, plen, 1, hd), generator=gen, device=dev).to(bf)
-    vp = torch.randn((n_pages, plen, 1, hd), generator=gen, device=dev).to(bf)
+    kp = torch.randn((n_pages, plen, kv, hd), generator=gen,
+                     device=dev).to(bf)
+    vp = torch.randn((n_pages, plen, kv, hd), generator=gen,
+                     device=dev).to(bf)
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
     bt = perm[:16].reshape(4, 4).to(torch.int32).contiguous()
     pos = torch.tensor([16, 20, 24, 31], dtype=torch.int32, device=dev)
-    q = torch.randn((4, g, hd), generator=gen, device=dev).to(bf)
+    q = torch.randn((4, kv * g, hd), generator=gen, device=dev).to(bf)
     cases = [check_paged(q, kp, vp, bt, pos, pps, f"mp2 rank {form}",
                          oracle=True)
              for pps, form in ((4, "one range"), (1, "split 1"))]
-    paged = {"timed_shape": {"B": 4, "positions": [16, 20, 24, 31], "nq": g,
-                             "n_kv": 1, "hd": hd, "page_len": plen},
+    paged = {"timed_shape": {"B": 4, "positions": [16, 20, 24, 31],
+                             "nq": kv * g, "n_kv": kv, "hd": hd,
+                             "page_len": plen},
              "cases": cases,
              "ms": time_ms(lambda: paged_attention(q, kp, vp, bt, pos),
                            iters, flush),
@@ -4450,39 +4490,51 @@ def mesh_kernels(dev, seed: int, iters: int) -> dict:
     d, w = cfg.d_model, int(bank["width"][0])
     x = torch.randn((4, 1, d), generator=gen, device=dev).to(bf)
     modes = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
-    full = ops.boundary_mixed_op(bank, x, modes, dtype=bf)
-    member = type("Rank", (), {"member": True})()
-    for lo in (0, 2):
-        part = ops.boundary_mixed_sharded(bank, x[lo:lo + 2],
-                                          modes[lo:lo + 2], member, dtype=bf)
-        check(same_bits(part, full[lo:lo + 2]),
-              f"boundary: rows {lo}..{lo + 1} alone differ from their rows "
-              f"in the 4-row batch")
-    x2, m2 = x[2:].reshape(2, d), modes[2:]
-    boundary = {"timed_shape": {"rows": 2, "d": d, "width": w,
-                                "modes": [0, 1]},
-                "rows_bit_identical": True,
+    if rows < 4:
+        # a dp rank's rows alone, bit for bit those rows of the batch
+        full = ops.boundary_mixed_op(bank, x, modes, dtype=bf)
+        member = type("Rank", (), {"member": True})()
+        for lo in range(0, 4, rows):
+            part = ops.boundary_mixed_sharded(bank, x[lo:lo + rows],
+                                              modes[lo:lo + rows], member,
+                                              dtype=bf)
+            check(same_bits(part, full[lo:lo + rows]),
+                  f"boundary: rows {lo}..{lo + rows - 1} alone differ from "
+                  f"their rows in the 4-row batch")
+        held = {"rows_bit_identical": True}
+    else:
+        # the rank holds the whole batch: the kernel against its plain
+        # version as the kernel phase does (mode-0 rows bit for bit,
+        # quantized rows inside the envelope, each row alone as in the
+        # batch)
+        err, ratio, _ = check_boundary(bank, x, modes, f"{arch} rank rows")
+        held = {"max_abs_err": err, "envelope_ratio": ratio}
+    x2, m2 = x[4 - rows:].reshape(rows, d), modes[4 - rows:]
+    boundary = {"timed_shape": {"rows": rows, "d": d, "width": w,
+                                "modes": sorted(set(m2.tolist()))},
+                **held,
                 "ms": time_ms(lambda: boundary_mixed_grouped(
                     x2, m2, 1, bank, dtype=bf), iters, flush),
                 "plain_ms": time_ms(lambda: ref.boundary_mixed_rows_ref(
                     x2, m2, bank, bf), max(iters // 5, 3), flush)}
+    n_quant = int((m2 > 0).sum())        # mode-0 rows are copied
     boundary["bound_ms"], boundary["bound_by"] = bound(
-        2 * (2 * 2 * d + 2 * d * w + d), 2 * 2 * d * w, "bfloat16")
-    # the tail at 2 rows, on a random head of the model's width
+        2 * (2 * rows * d + 2 * d * w + d), 4 * n_quant * d * w, "bfloat16")
+    # the tail at the rank's rows, on a random head of the model's width
     head = (torch.randn((1, d, cfg.vocab_size), generator=gen, device=dev)
             / math.sqrt(d)).to(bf)
     scale = torch.ones(d, dtype=bf, device=dev)
-    xt = torch.randn((2, 1, d), generator=gen, device=dev).to(bf)
-    differ, _ = check_tail(xt, scale, head, "2 rows")
+    xt = torch.randn((rows, 1, d), generator=gen, device=dev).to(bf)
+    differ, _ = check_tail(xt, scale, head, f"{rows} rows")
     V = cfg.vocab_size
-    tail = {"timed_shape": {"rows": 2, "d": d, "V": V},
+    tail = {"timed_shape": {"rows": rows, "d": d, "V": V},
             "tokens_differing": differ,
             "ms": time_ms(lambda: decode_tail_grouped(
                 xt[:, 0], head, scale, None, block_r=16), iters),
             "plain_ms": time_ms(lambda: ref.decode_tail_ref(
                 xt, scale, None, head), iters)}
     tail["bound_ms"], tail["bound_by"] = bound(
-        2 * (V * d + 2 * d + d) + 4 * 2, 2 * 2 * d * V, "bfloat16")
+        2 * (V * d + rows * d + d) + 4 * rows, 2 * rows * d * V, "bfloat16")
     return {"paged_attention": paged, "boundary_mixed_grouped": boundary,
             "decode_tail_grouped": tail}
 
@@ -4633,6 +4685,665 @@ def phase_mesh(dev, seed: int, iters: int, smi: str) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training and MoE across ranks
+# ---------------------------------------------------------------------------
+
+#: (a) and (b): launch.train's Algorithm 1 on qwen2.5-3b at full width,
+#: [4, 128], two steps a phase, cut in depth by the model axis: (a) at mp
+#: 2 to 12 of 36 layers (time: each layer adds six host-staged all_reduces
+#: a step and its slices to the checkpoint gathered over gloo and written
+#: by rank 0, and the one-device reference and its control run at the
+#: same depth; all 36 would add about 90 s, past the phase's room); (b) at
+#: dp 2 to 4 layers (time: dp 2 averages every gradient in float32 through
+#: the host each step, 5.0 GB at 8 layers, 7.5 s a step; and memory: two
+#: whole replicas with their AdamW state share the card). The one-device
+#: run at the same depth and arguments is the reference (rank 0 alone,
+#: before the mesh runs)
+P17_TRAIN = ["--arch", "qwen2.5-3b", "--cascade", "--steps", "2", "--batch",
+             "4", "--seq", "128"]
+P17_TRAIN_LAYERS = {2: 12, 1: 4}
+#: each logged loss of a mesh run within this share of the one-device
+#: run's: the mp run rounds each row-split output's two bf16 partial
+#: products where one device rounds one GEMM, and dp sums the gradients in
+#: another order (on an H100 80GB HBM3 at 700 W: 1.8e-4 at mp 2, 12
+#: layers; 4.4e-5 at dp 2, 4 layers). A control run on one device with the update off
+#: (``--lr 0``, the state left unchanged) must part from the reference by
+#: more, or the limit could not tell a run that does not train
+TOL["train_mp_loss_rel"] = 1e-3
+#: (c): phi3.5-moe at full width, 2 layers (split at 1), the layer-0 MoE
+#: on x [2, 256, 4096]; its train step on a [4, 128] batch
+P17_EP = {"layers": 2, "split_at": 1, "x": (2, 256), "train": (4, 128)}
+#: moe_apply_ep against moe_apply, bf16: each output element within this
+#: share of its row's largest |y| (the two sides' expert GEMMs run at
+#: other row counts, so each rounds its bf16 products on its own, and ep
+#: sums a token's two gate-weighted rows in bf16 where one device sums in
+#: float32 and rounds once: about four bf16 roundings at the row's
+#: scale); the token path's gradient within this relative L2 norm
+TOL["moe_ep_row_rel"] = 2.0 ** -6
+TOL["moe_ep_grad_rel"] = 2.0 ** -6
+#: (d): granite-8b at full width and depth, [2, 512]; the reference test's
+#: bounds (tests/test_qtp.py), bits 0's absolute bound scaled to the
+#: logits above it as tests/test_torch_qtp.py does
+P17_QTP = {"arch": "granite-8b", "tokens": (2, 512)}
+TOL["qtp"] = {"bits0_atol": 0.1, "bits0_scale": 2.0 ** -9,
+              "bits8_rel": 0.05}
+#: (e): stablelm-3b at full width and depth, (pod 2), [8, 128], n_micro 4;
+#: the reference test's bounds (tests/test_pipeline_pods.py), scaled as
+#: bits 0's above
+P17_PIPE = {"arch": "stablelm-3b", "tokens": (8, 128), "n_micro": 4}
+TOL["pipe"] = {"mode0_atol": 0.15, "mode1_atol": 0.25, "scale": 2.0 ** -9,
+               "bwd_rel": 0.2, "wire_ratio": 0.35}
+#: (f): phi3.5-moe continuous on the paged pool at (dp, mp) = (1, 2), cut
+#: to this depth (each rank makes the whole model before it keeps its
+#: experts' half: two models of 2.6 GB a layer on the card at once)
+P17_SERVE_LAYERS = 8
+#: seconds a phase 17 rank waits in a collective before it gives up
+P17_TIMEOUT = 600
+#: the one device every phase 17 rank runs on
+P17_DEVICE = "cuda:0"
+
+
+def cut_config(name: str, layers: int = 0, split_at: int = 0):
+    """The arch's full config, cut to ``layers`` (0: all) with its split
+    at ``split_at`` (0: as configured)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if split_at:
+        cfg = dataclasses.replace(cfg, split=dataclasses.replace(
+            cfg.split, split_at=split_at))
+    return cfg
+
+
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    orig = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def replicated_same(local, mesh, cfg, stages: bool = False) -> int:
+    """Check that every leaf this rank holds whole (``split_axes`` None)
+    has rank 0's bits on every rank (one broadcast a leaf); returns how
+    many were held."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import sharding
+    split = sharding.split_axes(local, mesh, cfg=cfg, stages=stages)
+    n, bad = 0, []
+    for (path, a), (_, s) in zip(sharding._path_leaves(local),
+                                 sharding._path_leaves(split)):
+        if s is not None:
+            continue
+        mine = a.detach().contiguous()
+        theirs = mine.clone()
+        dist.broadcast(theirs, 0)
+        if not same_bits(mine, theirs):
+            bad.append(path)
+        n += 1
+    flag = torch.tensor([len(bad)], dtype=torch.int64)
+    dist.all_reduce(flag)
+    check(int(flag) == 0, f"rank {dist.get_rank()}: replicated leaves "
+                          f"differ from rank 0's: {bad[:5]}")
+    return n
+
+
+def logged_losses(hist) -> list:
+    """Each phase's logged losses of a launch.train --cascade history."""
+    return [[r["loss"] for r in p["log"]] for p in hist["phases"]]
+
+
+def p17_train(rank: int, mp: int) -> dict:
+    """(a) at ``mp`` 2, (b) at mp 1 (data 2): ``launch.train.main`` on
+    the cut config (``P17_TRAIN_LAYERS[mp]``) against the one-device run
+    at that depth (rank 0 alone): each logged loss within
+    ``TOL["train_mp_loss_rel"]``, which the one-device control run at
+    ``--lr 0`` must exceed; the replicated leaves bit-identical across the
+    ranks at the end; the checkpoint (written once, by rank 0) restored on
+    one device and evaluated."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import split as SP
+    from repro_torch.data import tokens
+    from repro_torch.launch import train as TLaunch
+    from repro_torch.models import sharding
+    from repro_torch.training import checkpoint
+    from repro_torch.training import loop as L
+    cfg = cut_config("qwen2.5-3b", P17_TRAIN_LAYERS[mp])
+    dev = torch.device(P17_DEVICE)
+    argv = P17_TRAIN + ["--device", P17_DEVICE, "--dist-backend", "gloo"]
+    base = ROOT / "build" / "p17"
+    tol = TOL["train_mp_loss_rel"]
+    ref = {}
+    with patched(TLaunch, "get_config", lambda name: cfg):
+        if rank == 0:
+            runs = {}
+            for label, lr in (("one_device", []), ("lr0", ["--lr", "0"])):
+                args = TLaunch.parser().parse_args(
+                    argv + lr + ["--ckpt-dir", str(base / "one")])
+                with patched(checkpoint, "save", lambda *a, **kw: None):
+                    runs[label] = TLaunch._train(args, dev, None)
+                free_cuda()
+            one = runs["one_device"]
+            ref = {"logs": logged_losses(one),
+                   "ms_per_step": one["ms_per_step"],
+                   "peak": one.get("peak_memory_bytes"),
+                   "lr0_logs": logged_losses(runs["lr0"])}
+            ref["lr0_worst_rel"] = max(
+                abs(a - b) / abs(b) for la, lb in zip(ref["lr0_logs"],
+                                                      ref["logs"])
+                for a, b in zip(la, lb))
+            check(ref["lr0_worst_rel"] > tol,
+                  f"train mp {mp}: the one-device run with the update off "
+                  f"parts from the reference by {ref['lr0_worst_rel']:.3g}, "
+                  f"not more than the limit {tol}")
+            del runs, one
+        dist.barrier()
+        held: dict = {}
+        orig = sharding.gather_train_params
+
+        def gather(local, mesh, **kw):
+            held.update(local=local, mesh=mesh)
+            return orig(local, mesh, **kw)
+
+        layout = ["--mp", "2"] if mp == 2 else ["--dp", "2"]
+        ck_dir = base / f"mesh{mp}"
+        t0 = time.perf_counter()
+        with patched(sharding, "gather_train_params", gather):
+            hist = TLaunch.main(argv + layout + ["--ckpt-dir", str(ck_dir)])
+        wall = time.perf_counter() - t0
+    n_rep = replicated_same(held.pop("local"), held.pop("mesh"), cfg)
+    free_cuda()
+    out = {"n_layers": cfg.n_layers, "wall_s": wall,
+           "ms_per_step": hist["ms_per_step"],
+           "peak_memory_bytes_by_rank": hist.get("peak_memory_bytes_by_rank"),
+           "collectives_per_step": hist["mesh"]["collectives_per_step"],
+           "collective_bytes_per_step":
+               hist["mesh"]["collective_bytes_per_step"],
+           "logged_losses": logged_losses(hist),
+           "replicated_leaves_held": n_rep}
+    if rank == 0:
+        got = out["logged_losses"]
+        worst = max(abs(a - b) / abs(b) for la, lb in zip(got, ref["logs"])
+                    for a, b in zip(la, lb))
+        check([len(x) for x in got] == [len(x) for x in ref["logs"]]
+              and worst <= tol,
+              f"train mp {mp}: losses {got} part from one device's "
+              f"{ref['logs']} (worst {worst:.3g}, limit {tol})")
+        # the checkpoint on one device: restored into a template of other
+        # weights, its phase-2 eval loss the mesh run's
+        template = SP.init_split_params(
+            torch.Generator(device=dev).manual_seed(1), cfg)
+        path = ck_dir / "qwen2_5-3b.npz"
+        restored = checkpoint.restore(str(path), template)
+        del template
+        batch = L.device_batch(tokens.MarkovTokenSource(cfg, seed=0).batch(
+            4, 128, 10_001), dev)
+        ev = float(L.make_eval_step(cfg, mode=1)(restored, batch)["loss"])
+        want = hist["phases"][-1]["eval"]["loss"]
+        check(math.isfinite(ev) and abs(ev - want) <= tol * abs(want),
+              f"train mp {mp}: the checkpoint's eval loss on one device "
+              f"{ev} != the mesh run's {want}")
+        del restored
+        out.update(one_device=ref, worst_loss_rel=worst,
+                   loss_rel_limit=tol,
+                   checkpoint_bytes=path.stat().st_size,
+                   restored_eval_loss=ev, mesh_eval_loss=want)
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def p17_ep(rank: int) -> dict:
+    """(c): ``moe_apply_ep`` at ep 2 against the one-device ``moe_apply``
+    on phi3.5-moe's layer 0 at full width: capacity 8 (forward by rows,
+    the token path's gradient), the default capacity against the plain
+    routing of this rank's block (the same drops), then one train step of
+    the 2-layer model with ``moe_ep=True``."""
+    import torch
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import split as SP
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.models import moe, moe_ep, sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.training import loop as L
+    from repro_torch.training import optimizer as opt
+    cfg = cut_config(PHI, P17_EP["layers"], P17_EP["split_at"])
+    dev = torch.device(P17_DEVICE)
+    k = cfg.experts_per_tok
+    mesh = sharding.train_mesh(2, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = SP.init_split_params(gen, cfg)
+    B, S = P17_EP["x"]
+    x = torch.randn((B, S, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    p = T.layer_slice(params["layers"], 0)["mlp"]
+    local = sharding.shard_train_params(params, mesh, cfg=cfg)
+    pl = T.layer_slice(local["layers"], 0)["mlp"]
+
+    def rows_rel(a, b):
+        a, b = a.float().reshape(-1, a.shape[-1]), b.float().reshape(
+            -1, b.shape[-1])
+        scale = b.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+        return float(((a - b).abs() / scale).max())
+
+    def run(fn, p_, cf):
+        xr = x.clone().requires_grad_(True)
+        y, aux = fn(p_, xr, k=k, act=cfg.act, capacity_factor=cf)
+        (g,) = torch.autograd.grad(torch.sum(y.float() ** 2), xr)
+        return y.detach(), float(aux.detach()), g
+
+    y_ref, aux_ref, g_ref = run(moe.moe_apply, p, 8.0)
+    y_ep, aux_ep, g_ep = run(
+        lambda *a, **kw: moe_ep.moe_apply_ep(*a, mesh=mesh, **kw), pl, 8.0)
+    fwd = rows_rel(y_ep, y_ref)
+    grad = float((g_ep.float() - g_ref.float()).norm()
+                 / g_ref.float().norm())
+    check(fwd <= TOL["moe_ep_row_rel"],
+          f"moe_ep: rows differ by {fwd:.4g} of their largest |y|")
+    check(grad <= TOL["moe_ep_grad_rel"],
+          f"moe_ep: the token path's gradient differs by {grad:.4g}")
+    # the default capacity: this rank's block routed as one group
+    s_loc = S // 2
+    lo = mesh.coords["model"] * s_loc
+    with torch.no_grad():
+        y_d, _ = moe_ep.moe_apply_ep(pl, x, k=k, act=cfg.act, mesh=mesh)
+        block = x[:, lo:lo + s_loc].reshape(1, B * s_loc, cfg.d_model)
+        y_b, _ = moe.moe_apply(p, block, k=k, act=cfg.act)
+        cap = max(int(1.25 * k * B * s_loc / cfg.n_experts), 1)
+        keep = moe.route(p["router"]["w"], block, k, cap)[4]
+    drops = int((~keep).sum())
+    blk = rows_rel(y_d[:, lo:lo + s_loc].reshape(1, -1, cfg.d_model), y_b)
+    check(blk <= TOL["moe_ep_row_rel"],
+          f"moe_ep: the default capacity's rows differ from the block's "
+          f"plain routing by {blk:.4g}")
+    check(drops > 0, "moe_ep: no choice dropped at the default capacity")
+    zero = (y_d[:, lo:lo + s_loc].reshape(-1, cfg.d_model) == 0).all(-1)
+    check(torch.equal(zero.cpu(), (~keep[0].any(-1)).cpu()),
+          "moe_ep: the zero rows are not the tokens that lost every choice")
+    del params, p, y_ref, g_ref, y_ep, g_ep, x
+    free_cuda()
+    # one train step with moe_ep=True
+    bt, st = P17_EP["train"]
+    step = L.make_train_step(cfg, TrainConfig(), mesh=mesh, moe_ep=True)
+    batch = L.device_batch(MarkovTokenSource(cfg, seed=0).batch(bt, st, 0),
+                           dev)
+    calls: dict = {}
+    state = opt.init(local)
+    sync(dev)
+    t0 = time.perf_counter()
+    with counting(T, "moe_apply_ep", calls):
+        local, state, m = step(local, state, batch)
+    sync(dev)
+    step_s = time.perf_counter() - t0
+    loss = float(m["loss"])
+    check(math.isfinite(loss), f"moe_ep train step: loss {loss}")
+    check(calls.get("moe_apply_ep") == 2 * cfg.n_layers,
+          f"moe_ep train step: moe_apply_ep ran {calls}")
+    n_rep = replicated_same(local, mesh, cfg)
+    del local, state
+    free_cuda()
+    return {"x": [B, S, cfg.d_model], "forward_rows_rel": fwd,
+            "grad_rel": grad, "aux": [aux_ep, aux_ref],
+            "default_capacity": cap, "dropped_choices": drops,
+            "block_rows_rel": blk, "train_loss": loss,
+            "train_aux": float(m["aux_loss"]), "train_step_s": step_s,
+            "moe_apply_ep_calls": calls.get("moe_apply_ep"),
+            "replicated_leaves_held": n_rep,
+            "tolerance": {"row_rel": TOL["moe_ep_row_rel"],
+                          "grad_rel": TOL["moe_ep_grad_rel"]}}
+
+
+def logits_err(got, want, atol: float, scale: float):
+    """(max |got - want|, its limit: ``atol`` or ``scale`` of the largest
+    |want|, whichever is larger)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, max(atol, scale * float(want.float().abs().max()))
+
+
+def p17_qtp(rank: int) -> dict:
+    """(d): ``qtp_forward`` at (data 1, model 2) against the one-device
+    ``T.forward`` on granite-8b (rank 0 holds the reference)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import qtp
+    from repro_torch.core import split as SP
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    cfg = cut_config(P17_QTP["arch"])
+    dev = torch.device(P17_DEVICE)
+    mesh = sharding.train_mesh(2, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = SP.init_split_params(gen, cfg)
+    tok = torch.randint(0, cfg.vocab_size, P17_QTP["tokens"], generator=gen,
+                        device=dev)
+    check(qtp.qtp_supported(cfg, mesh, tok.shape[1]), "qtp: not supported")
+    ref = None
+    if rank == 0:
+        with torch.no_grad():
+            ref = T.forward(params, tok, cfg)[0]
+    local = sharding.shard_train_params(params, mesh, cfg=cfg)
+    del params
+    free_cuda()
+    out = {"tokens": list(tok.shape), "ms": {}}
+    lg = {}
+    for bits in (0, 8):
+        sync(dev)
+        t0 = time.perf_counter()
+        lg[bits] = qtp.qtp_forward(local, tok, cfg, mesh=mesh, bits=bits)
+        sync(dev)
+        out["ms"][bits] = 1e3 * (time.perf_counter() - t0)
+        theirs = lg[bits].clone()
+        dist.broadcast(theirs, 0)
+        check(same_bits(theirs, lg[bits]),
+              f"qtp bits {bits}: the ranks' logits differ")
+    if rank == 0:
+        t = TOL["qtp"]
+        err0, lim0 = logits_err(lg[0], ref, t["bits0_atol"],
+                                t["bits0_scale"])
+        rel8 = float((lg[8].float() - ref).norm() / ref.float().norm())
+        diff = float((lg[8].float() - lg[0].float()).abs().max())
+        check(err0 <= lim0, f"qtp bits 0: {err0:.4g} off (limit {lim0:.4g})")
+        check(rel8 < t["bits8_rel"], f"qtp bits 8: relative {rel8:.4g}")
+        check(diff > 1e-6, "qtp: bits 8 gave bits 0's logits")
+        out.update(bits0_err=err0, bits0_limit=lim0, bits8_rel=rel8,
+                   bits8_vs_bits0=diff,
+                   max_abs_logit=float(ref.abs().max()))
+    del local, lg, ref
+    free_cuda()
+    return out
+
+
+def p17_pipeline(rank: int) -> dict:
+    """(e): ``pipeline_forward`` at (pod 2) on stablelm-3b against the
+    one-device ``T.forward`` (mode 0) and ``split_forward`` (mode 1), the
+    mode-1 gradients (both stages, both heads; the int8 backward wire
+    against the float one) and the wire counter."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import cascade as C
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core import split as SP
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    cfg = cut_config(P17_PIPE["arch"])
+    dev = torch.device(P17_DEVICE)
+    mesh = sharding.train_mesh(1, pod=2, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = SP.init_split_params(gen, cfg)
+    tok = torch.randint(0, cfg.vocab_size, P17_PIPE["tokens"], generator=gen,
+                        device=dev)
+    refs = {}
+    if rank == 0:
+        with torch.no_grad():
+            refs[0] = T.forward(params, tok, cfg)[0]
+            refs[1] = SP.split_forward(params, tok, cfg, 1)[0]
+    local = sharding.shard_train_params(params, mesh, cfg=cfg, stages=True)
+    del params
+    free_cuda()
+    n_micro = P17_PIPE["n_micro"]
+    out = {"tokens": list(tok.shape), "n_micro": n_micro, "wire": {},
+           "ms": {}}
+    t = TOL["pipe"]
+    for mode, atol in ((0, t["mode0_atol"]), (1, t["mode1_atol"])):
+        PL.reset_wire_bytes()
+        sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, _ = PL.pipeline_forward(local, tok, cfg, mesh=mesh,
+                                        n_micro=n_micro, mode=mode)
+        sync(dev)
+        out["ms"][f"mode{mode}"] = 1e3 * (time.perf_counter() - t0)
+        out["wire"][f"mode{mode}"] = dict(PL.WIRE_BYTES)
+        if rank == 0:
+            err, lim = logits_err(lg, refs[mode], atol, t["scale"])
+            check(err <= lim, f"pipeline mode {mode}: {err:.4g} off "
+                              f"(limit {lim:.4g})")
+            out[f"mode{mode}_err"], out[f"mode{mode}_limit"] = err, lim
+        del lg
+    del refs
+    l1 = {}
+    for bwd_bits in (0, 8):
+        def loss(p, b, _):
+            lg, aux = PL.pipeline_forward(p, b, cfg, mesh=mesh,
+                                          n_micro=n_micro, mode=1,
+                                          train=True, bwd_bits=bwd_bits)
+            return T.lm_loss(lg, b) + 0.01 * aux, {}
+        PL.reset_wire_bytes()
+        _, grads = C.value_and_grad(loss, local, tok, 1)
+        head = grads["bneck_modes"][0]
+        vals = torch.stack([
+            sum(torch.sum(torch.abs(g.float())) for g in
+                T.tree_leaves(grads["layers"])),
+            torch.sum(torch.abs(head["down"]["w"].float())),
+            torch.sum(torch.abs(head["up"]["w"].float()))]).cpu()
+        check(bool((vals > 0).all()),
+              f"pipeline bwd_bits {bwd_bits}: stage {mesh.coords['pod']}'s "
+              f"gradients do not reach its layers or heads: {vals.tolist()}")
+        total = vals[:1].clone()
+        dist.all_reduce(total)
+        l1[bwd_bits] = float(total)
+        out["wire"][f"bwd_bits{bwd_bits}"] = dict(PL.WIRE_BYTES)
+        del grads, head
+    rel = abs(l1[0] - l1[8]) / l1[0]
+    check(rel < t["bwd_rel"], f"pipeline: the int8 backward's layer "
+                              f"gradient L1 is {rel:.4g} off the float one's")
+    sent = torch.tensor([out["wire"]["mode0"]["fwd"],
+                         out["wire"]["mode1"]["fwd"]], dtype=torch.int64)
+    dist.all_reduce(sent)
+    check(int(sent[1]) < t["wire_ratio"] * int(sent[0]),
+          f"pipeline: mode 1 moves {int(sent[1])} bytes, mode 0 "
+          f"{int(sent[0])}")
+    out.update(layers_grad_l1=l1, bwd_rel=rel,
+               wire_fwd_bytes={"mode0": int(sent[0]), "mode1": int(sent[1])})
+    del local
+    free_cuda()
+    return out
+
+
+def route_differences(one: list, free: list) -> dict:
+    """How a free (unpinned) run's routing differs from one device's,
+    call by call on ``routes`` tapes, the free run's last ``len(one)``
+    calls (a launcher's run warms its engine up first): the tokens routed
+    to another set of experts, and at the first call with any, one
+    device's k-th minus (k+1)-th router probability of those tokens (up
+    to 8). Reported, not held."""
+    import torch
+    n = min(len(one), len(free))
+    flips, first = 0, None
+    for call, (a, b) in enumerate(zip(one[:n], free[len(free) - n:])):
+        if a[2].shape != b[2].shape:
+            break
+        ea, eb = (torch.sort(x[2], dim=-1).values for x in (a, b))
+        diff = (ea != eb).any(-1)
+        flips += int(diff.sum())
+        if flips and first is None:
+            k = a[2].shape[-1]
+            top = torch.topk(a[0], k + 1, dim=-1).values
+            gap = top[..., k - 1] - top[..., k]
+            first = {"call": call, "one_device_gaps": gap[diff].tolist()[:8]}
+    return {"calls": (len(one), len(free)), "calls_compared": n,
+            "routing_decisions": sum(int(x[2][..., 0].numel())
+                                     for x in one[:n]),
+            "routing_differences": flips, "first_difference": first}
+
+
+def p17_serve(rank: int) -> dict:
+    """(f): phi3.5-moe continuous at (1, 2) against the one-device engine
+    at the same depth (``P17_SERVE_LAYERS``; rank 0 alone, taped and
+    unfused, its routes recorded and sent to both ranks). The mesh's
+    taped unfused run replays those routes (``routes``: the router's
+    discrete choice at a near tie would otherwise swap a token's whole
+    MLP output) and is held to phase 16's mp rule as it stands
+    (``mp_against_one_device``). The fused run, whose launches the path's
+    kernels must show, routes freely; how its routes differ from one
+    device's is reported (``route_differences``), not held."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as S
+    cfg = cut_config(PHI, P17_SERVE_LAYERS, P17_SERVE_LAYERS // 2)
+    argv = SERVE[PHI]
+    one, gloo = ["--device", P17_DEVICE], ["--dist-backend", "gloo",
+                                           "--device", P17_DEVICE]
+    dev = torch.device(P17_DEVICE)
+    Taped = taped_engine()
+    base, tape, free = None, [None], []
+    with patched(S, "get_config", lambda name: cfg):
+        if rank == 0:
+            ref_routes = []
+            with serve_engine(Taped, fused_tail=False), routes(ref_routes):
+                S.main(argv + one)
+            # keep its sessions, tape and routes, not its weights
+            base = types.SimpleNamespace(finished=Taped.last.finished,
+                                         tape=Taped.last.tape)
+            Taped.last = None
+            tape = [[tuple(t.cpu() for t in r) for r in ref_routes]]
+            free_cuda()
+        dist.broadcast_object_list(tape, src=0)
+        pinned = [tuple(t.to(dev) for t in r) for r in tape[0]]
+        zero_counts()
+        with serve_engine(Taped, fused_tail=False), \
+                routes(pinned, replay=True):
+            taped = S.main(argv + ["--mp", "2", *gloo])
+        got = types.SimpleNamespace(finished=Taped.last.finished,
+                                    tape=Taped.last.tape)
+        Taped.last = None
+        del pinned
+        free_cuda()
+        with routes(free):
+            fused = S.main(argv + ["--mp", "2", *gloo])
+    out = {"n_layers": cfg.n_layers,
+           "taped": {k: taped.get(k) for k in ("requests_finished",
+                                               "decode_tok_per_s")},
+           "fused": {k: fused.get(k) for k in ("requests_finished",
+                                               "decode_tok_per_s",
+                                               "mode_counts", "wire_bytes")},
+           "launches_by_rank_sum": fused["mesh"]["launches"]}
+    check(fused["requests_finished"] == 8 and taped["requests_finished"] == 8,
+          f"moe serve mp 2: {fused['requests_finished']} / "
+          f"{taped['requests_finished']} requests finished")
+    if rank == 0:
+        out["against_one_device"] = mp_against_one_device(base, got)
+        out["against_one_device"]["routes_pinned"] = len(tape[0])
+        out["free_run_routes"] = route_differences(
+            tape[0], [tuple(t.cpu() for t in r) for r in free])
+    del free
+    free_cuda()
+    return out
+
+
+def p17_runs():
+    """Phase 17's runs on the two ranks, in order: (label, function of the
+    rank, the kernels its path must launch)."""
+    return (
+        ("train mp2 (a)", lambda r: p17_train(r, 2), ()),
+        ("train dp2 (b)", lambda r: p17_train(r, 1), ()),
+        ("moe ep2 (c)", p17_ep, ()),
+        ("qtp mp2 (d)", p17_qtp, ()),
+        ("pipeline pod2 (e)", p17_pipeline, ()),
+        ("moe serve mp2 (f)", p17_serve, ("boundary_mixed_grouped",
+                                          "decode_tail_grouped",
+                                          "paged_attention")),
+    )
+
+
+def p17_rank(rank: int, world: int, port: int, queue) -> None:
+    """One gloo rank of phase 17 on cuda:0: every run of ``p17_runs`` with
+    the launch counters at 0 just before and read just after, its seconds
+    and peak memory; its results (or its error) to the parent."""
+    import datetime
+    import traceback
+    out = {}
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(P17_DEVICE)
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=P17_TIMEOUT))
+        for label, run, _ in p17_runs():
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            fns = zero_counts()
+            t0 = time.perf_counter()
+            res = run(rank)
+            sync(dev)
+            res["seconds"] = time.perf_counter() - t0
+            res["launches"] = {k: f.launches for k, f in fns.items()}
+            res["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else None)
+            if rank == 0:
+                print(json.dumps({"p17_run": label,
+                                  "seconds": res["seconds"],
+                                  "peak_gb": res["peak_gb"]}), flush=True)
+            out[label] = res
+            free_cuda()
+            dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def phase_train_mesh(dev, seed: int, iters: int, smi: str) -> dict:
+    """Phase 17: training and MoE across ranks on the one card. The
+    kernels at phi3.5-moe's (1, 2) rank shapes (``mesh_kernels``); then
+    two gloo ranks on cuda:0 run ``p17_runs``: (a) launch.train --cascade
+    --mp 2 and (b) --dp 2 on qwen2.5-3b against one device, (c) expert
+    parallelism on phi3.5-moe, (d) the quantized tensor-parallel prefill
+    on granite-8b, (e) the pod pipeline on stablelm-3b, (f) phi3.5-moe
+    served over mp 2. The training paths launch none of the six kernels
+    (as in the reference); (f) must launch its three. Ranks sharing one
+    card measure correctness, launches, collectives and memory, not mesh
+    speed. Returns the launches of each path."""
+    t0 = time.perf_counter()
+    kernels = mesh_kernels(dev, seed, iters, arch=PHI, rows=4)
+    free_cuda()
+    procs, queue = start_mesh(2, target=p17_rank)
+    ranks = collect_mesh(procs, queue)
+    by_path, runs = {}, {}
+    for label, _, need in p17_runs():
+        per = [ranks[r][label] for r in sorted(ranks)]
+        launches = {k: sum(p["launches"][k] for p in per)
+                    for k in per[0]["launches"]}
+        by_path[f"phase 17 {label}"] = launches
+        for k in need:
+            check(launches[k] > 0, f"phase 17 {label}: kernel {k} never "
+                                   f"launched")
+        if not need:
+            check(not any(launches.values()),
+                  f"phase 17 {label}: the training path launched "
+                  f"{launches}")
+        runs[label] = {"by_rank": per}
+    emit({"phase": "train_mesh", "card": smi,
+          "note": "two gloo ranks on the one card: correctness, launches, "
+                  "collectives and memory, not mesh speed",
+          "kernels_at_rank_shapes": kernels, "runs": runs,
+          "seconds": time.perf_counter() - t0})
+    return by_path
+
+
 SOURCES = {
     "boundary_mixed_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
     "decode_tail_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
@@ -4749,6 +5460,8 @@ def main(argv=None) -> int:
     by_path.update(phase_moe(dev, args.seed, args.iters, smi))
     free_cuda()
     by_path.update(phase_mesh(dev, args.seed, args.iters, smi))
+    free_cuda()
+    by_path.update(phase_train_mesh(dev, args.seed, args.iters, smi))
 
     emit({"phase": "untraced", "measurements": UNTRACED})
     print(smi, flush=True)

@@ -12,9 +12,19 @@ serves the paper's LSTM (``repro_torch.models.lstm``) and a split
 transformer's parameter tree alike. A step is eager: autograd through plain
 tensor ops, then the masked AdamW; metrics stay on the device and are read
 to the host only on a logged step.
+
+On a training mesh (``mesh_run``, a ``training.loop.MeshRun``) each step
+takes the rank's slice of the batch, runs the loss under the mesh's
+activation rules, averages the gradients and metrics over the dp axes
+and clips by the global norm over the split leaves. Every rank runs the
+same ops in the same order in every phase, the frozen backbone's too: a
+phase mask only decides which leaves the update writes, and the gradient
+of every leaf is taken, so each layer's recomputation (and its
+collectives) runs on every rank alike.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -62,15 +72,25 @@ def value_and_grad(loss_fn: Callable, params, batch, mode: int):
 
 
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig, *,
-                    donate: bool = False):
+                    donate: bool = False, mesh_run=None):
     """loss_fn(params, batch, mode) -> (loss, metrics). The step returns
     (params, opt_state, metrics), its metrics 0-d device tensors; with
     ``donate`` it updates the parameters and the optimizer state passed
-    in (``opt.apply_updates(donate=True)``)."""
+    in (``opt.apply_updates(donate=True)``). ``mesh_run``: the step's
+    part on a training mesh (see the module's docstring)."""
     def step(params, opt_state, batch, mask, *, mode: int):
-        (loss, metrics), grads = value_and_grad(loss_fn, params, batch, mode)
+        ctx = contextlib.nullcontext()
+        if mesh_run is not None:
+            batch, ctx = mesh_run.local(batch)
+        with ctx:
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch,
+                                                    mode)
+        norm = {}
+        if mesh_run is not None:
+            loss, metrics = mesh_run.reduce(grads, loss, metrics)
+            norm = mesh_run.norm_split(params)
         params, opt_state, info = opt.apply_updates(
-            params, grads, opt_state, tcfg, mask, donate=donate)
+            params, grads, opt_state, tcfg, mask, donate=donate, **norm)
         metrics = dict(metrics, loss=loss, **info)
         return params, opt_state, metrics
     return step
@@ -109,16 +129,19 @@ def train_cascade(params,
                   log_every: int = 50,
                   verbose: bool = True,
                   donate: bool = False,
-                  step_times: Optional[Dict] = None) -> Tuple[Any, Dict]:
+                  step_times: Optional[Dict] = None,
+                  mesh_run=None) -> Tuple[Any, Dict]:
     """Run Algorithm 1 over ``n_modes`` modes (phases 1..n_modes).
 
     ``data_iter(step)`` yields a batch; ``loss_fn(params, batch, mode)``.
     ``eval_fn(params, mode)`` -> dict with 'loss'/'acc' for the Ensure check.
     ``donate``: every step updates the parameters in place (those passed
     in too). ``step_times``: a dict that gets each step's seconds, the
-    device synchronized, under its mode. Returns (params, history).
+    device synchronized, under its mode. ``mesh_run``: the steps' part on
+    a training mesh (``make_train_step``). Returns (params, history).
     """
-    step_fn = make_train_step(loss_fn, tcfg, donate=donate)
+    step_fn = make_train_step(loss_fn, tcfg, donate=donate,
+                              mesh_run=mesh_run)
     dev = opt.leaves(params)[0].device
     opt_state = opt.init(params)
     history: Dict[str, Any] = {"phases": []}

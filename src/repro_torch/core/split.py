@@ -60,20 +60,21 @@ def _split_states(states, cfg: ModelConfig, s: int):
 # ---------------------------------------------------------------------------
 
 def encoder_apply(params, tokens, cfg: ModelConfig, mode: int, *,
-                  train: bool = False, embeddings=None):
+                  train: bool = False, embeddings=None, plan=None):
     """UE side. Returns (payload, aux, info); the payload crosses the link:
     mode 0 the raw boundary activation and None; mode m the int codes and
     f32 scales of head m (under ``train``, its straight-through
     fake-quantized code and None). ``embeddings``: a vision prefix,
     embedded before the text as in ``T.forward``. ``info``: the positions
-    and the wire bytes (of the embedded sequence, prefix included)."""
+    and the wire bytes (of the embedded sequence, prefix included).
+    ``plan``: a mesh's ``RankPlan`` (``cfg`` the rank's config)."""
     s = cfg.split.split_at
     x = T.embed_tokens(params, tokens, cfg, embeddings)
     B, S = x.shape[:2]
     positions = T.seq_positions(x)
     enc, _ = slice_layers(params["layers"], cfg, s)
     x, aux = T.run_layers(enc, x, positions, cfg, train=train,
-                          kinds=_kinds(cfg)[:s])
+                          kinds=_kinds(cfg)[:s], plan=plan)
     if mode == 0:
         payload = (x, None)
     else:
@@ -86,7 +87,7 @@ def encoder_apply(params, tokens, cfg: ModelConfig, mode: int, *,
 
 
 def decoder_apply(params, payload, positions, cfg: ModelConfig, mode: int, *,
-                  train: bool = False):
+                  train: bool = False, plan=None):
     """Edge side: the adapter (mode >= 1), the remaining layers and the
     head. Returns (logits float32, aux)."""
     s = cfg.split.split_at
@@ -99,19 +100,21 @@ def decoder_apply(params, payload, positions, cfg: ModelConfig, mode: int, *,
                               bits, dtype=T.model_dtype(cfg))
     _, dec = slice_layers(params["layers"], cfg, s)
     x, aux = T.run_layers(dec, x, positions, cfg, train=train,
-                          kinds=_kinds(cfg)[s:])
+                          kinds=_kinds(cfg)[s:], plan=plan)
     x = T.norm_apply_final(params, x, cfg)
     return T.lm_logits(params, x, cfg), aux
 
 
 def split_forward(params, tokens, cfg: ModelConfig, mode: int = 0, *,
-                  train: bool = False, embeddings=None):
+                  train: bool = False, embeddings=None, plan=None):
     """End-to-end split forward (the wire is identity on the payload's
-    values; its bytes are in ``info``). Returns (logits, aux, info)."""
+    values; its bytes are in ``info``). ``plan``: a mesh's ``RankPlan``.
+    Returns (logits, aux, info)."""
     payload, aux1, info = encoder_apply(params, tokens, cfg, mode,
-                                        train=train, embeddings=embeddings)
+                                        train=train, embeddings=embeddings,
+                                        plan=plan)
     logits, aux2 = decoder_apply(params, payload, info["positions"], cfg,
-                                 mode, train=train)
+                                 mode, train=train, plan=plan)
     return logits, aux1 + aux2, info
 
 

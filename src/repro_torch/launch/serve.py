@@ -60,7 +60,7 @@ inter-token latency percentiles (``latency``, ms).
 
 ``--dp`` / ``--mp`` serve on a mesh of ``dp * mp`` ranks (``--replicas``
 times that for the cluster), one process a rank: the slots over dp, the
-dense attention archs' attention and MLP layers over mp. Under
+attention archs' attention, MLP and MoE expert layers over mp. Under
 ``torchrun`` the launcher takes its environment; otherwise it starts the
 ranks itself (``torch.multiprocessing``, spawn) and rank 0 prints.
 ``--dist-backend`` is nccl with ``--device cuda`` and gloo with ``--device
@@ -705,8 +705,9 @@ def parser() -> argparse.ArgumentParser:
                     help="serving mesh: data-parallel axis (slots over dp "
                          "ranks)")
     ap.add_argument("--mp", type=int, default=None,
-                    help="serving mesh: tensor-parallel axis (the dense "
-                         "attention archs' heads and d_ff over mp ranks)")
+                    help="serving mesh: tensor-parallel axis (the "
+                         "attention archs' heads, d_ff and experts over mp "
+                         "ranks)")
     ap.add_argument("--dist-backend", default=None,
                     choices=["nccl", "gloo"],
                     help="torch.distributed backend of a --dp / --mp run "

@@ -1,10 +1,9 @@
-"""Training launcher of the port, on one device (mirrors
-``repro.launch.train`` without the mesh): random split parameters from
-``--seed``, the Markov token stream (``[B, K, S]`` codebooks for audio;
-for a vision arch ``--seq`` less the prefix of text after a vision prefix
-drawn by ``data.tokens.make_batch``), the (optionally split) training loop
-or Algorithm 1's cascade, then a checkpoint in the reference's ``.npz``
-layout and its ``_history.json``.
+"""Training launcher of the port (mirrors ``repro.launch.train``): random
+split parameters from ``--seed``, the Markov token stream (``[B, K, S]``
+codebooks for audio; for a vision arch ``--seq`` less the prefix of text
+after a vision prefix drawn by ``data.tokens.make_batch``), the
+(optionally split) training loop or Algorithm 1's cascade, then a
+checkpoint in the reference's ``.npz`` layout and its ``_history.json``.
 
     # on the card at full width
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
@@ -12,12 +11,26 @@ layout and its ``_history.json``.
     # the plain PyTorch path on the CPU, reduced shapes
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
         --reduced --device cpu --steps 4 --batch 2 --seq 32
+    # a (data, model) = (1, 2) mesh: two gloo ranks started here
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
+        --reduced --device cpu --mp 2 --steps 4 --batch 2 --seq 32
+
+``--mp`` takes the reference's meaning: the mesh is (data, model) with
+data = ranks / mp (``ValueError`` where mp does not divide them). The
+ranks are ``torchrun``'s (its environment), or ``--dp`` x ``--mp`` ranks
+started here over ``--dist-backend`` (default nccl on cuda, gloo on the
+CPU), one process a rank, rank r on ``cuda:r`` unless ``--device`` names
+one device for all (``--device cuda:0 --dist-backend gloo`` shares one
+card). Each rank holds its slices of the weights and their AdamW state
+(``sharding.shard_train_params``); rank 0 prints, and writes the
+checkpoint gathered from every rank's slices. ``--resume`` restores the
+whole tree and shards it.
 
 Each step donates (the parameters and AdamW state are updated in place).
 Prints ms a train step (the median after the first, the device
-synchronized around each step) and, on the card, the peak device memory.
-Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
-raises.
+synchronized around each step), on the card the peak device memory (a
+rank's), and on a mesh the collectives a step. Runs on ``cuda`` unless
+``--device cpu`` is given; without a card it raises.
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ import argparse
 import json
 import os
 import statistics
+import sys
 
 import torch
 
@@ -33,7 +47,10 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import cascade as CC
 from repro_torch.core import split as SP
 from repro_torch.data import tokens
-from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.serve import (rank_device, resolve_device,
+                                      run_on_ranks)
+from repro_torch.models import collectives as CL
+from repro_torch.models import sharding
 from repro_torch.training import checkpoint
 from repro_torch.training import loop as L
 
@@ -58,27 +75,86 @@ def parser() -> argparse.ArgumentParser:
                     help="run Algorithm 1: phase-1 (mode 0) then phase-2 "
                          "(frozen backbone, train bottleneck head)")
     ap.add_argument("--mp", type=int, default=1,
-                    help="model-parallel size (only 1: one device)")
+                    help="model-parallel size (the mesh's data axis is the "
+                         "ranks over mp)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default="results/ckpt")
     ap.add_argument("--resume", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default; raises without a card) or cpu")
+                    help="cuda (default; raises without a card; rank r of "
+                         "a mesh on cuda:r), cuda:N or cpu")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="ranks to start over the data axis (with --mp; "
+                         "under torchrun its world sets them)")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="torch.distributed backend of the ranks (default "
+                         "nccl on cuda, gloo on the CPU)")
     return ap
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.mp != 1:
-        raise NotImplementedError(
-            "repro_torch trains on one device (--mp 1); model parallelism "
-            "is ROADMAP Queue 1 item 7")
-    dev = resolve_device(args.device)
+    if args.mp < 1 or (args.dp is not None and args.dp < 1):
+        raise ValueError(f"mesh axes must be >= 1, got --dp {args.dp} "
+                         f"--mp {args.mp}")
+    if sharding.world()[1] > 1:
+        world = sharding.world()[1]
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+    else:
+        world = (args.dp or 1) * args.mp
+    check_mesh(args, world)
+    if world > 1:
+        return run_on_ranks(main, args,
+                            sys.argv[1:] if argv is None else argv, world,
+                            lambda: train_rank(args))
+    return _train(args, resolve_device(args.device), None)
+
+
+def check_mesh(args, world: int) -> None:
+    """Raise ``ValueError`` where --mp does not divide ``world`` ranks or
+    --dp x --mp is not it."""
+    if world % args.mp:
+        raise ValueError(f"{world} ranks not divisible by mp={args.mp}")
+    if args.dp is not None and args.dp * args.mp != world:
+        raise ValueError(f"--dp {args.dp} --mp {args.mp} needs "
+                         f"{args.dp * args.mp} ranks, the group has {world}")
+
+
+def train_rank(args) -> dict:
+    """This rank's part of a mesh run (the process group is up): the
+    (data, model) mesh over the group's ranks, its device, the run."""
+    rank, world = sharding.world()
+    check_mesh(args, world)
+    dev = rank_device(args, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:                   # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = sharding.train_mesh(args.mp, device=dev)
+    return _train(args, dev, mesh)
+
+
+def _gather_peaks(dev, mesh) -> list:
+    """Each rank's peak device memory (bytes), on every rank."""
+    peak = torch.tensor([torch.cuda.max_memory_allocated(dev)],
+                        dtype=torch.int64)
+    if mesh is None:
+        return peak.tolist()
+    return CL.gather_raw(peak.to(dev if mesh.backend == "nccl" else "cpu"),
+                         mesh.group(mesh.axes), 0).tolist()
+
+
+def _train(args, dev, mesh):
+    lead = mesh is None or mesh.rank == 0
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    print(f"== repro_torch.launch.train {args.arch} "
-          f"({'reduced' if args.reduced else 'FULL'}) on {dev} — "
-          f"{cfg.param_count() / 1e6:.1f}M params ==", flush=True)
+    if lead:
+        print(f"== repro_torch.launch.train {args.arch} "
+              f"({'reduced' if args.reduced else 'FULL'}) on {dev}"
+              + (f" mesh {mesh.shape}" if mesh is not None else "")
+              + f" — {cfg.param_count() / 1e6:.1f}M params ==", flush=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -86,7 +162,10 @@ def main(argv=None):
     params = SP.init_split_params(gen, cfg)
     if args.resume:
         params = checkpoint.restore(args.resume, params)
-        print(f"resumed from {args.resume}")
+        if lead:
+            print(f"resumed from {args.resume}")
+    if mesh is not None:
+        params = sharding.shard_train_params(params, mesh, cfg=cfg)
 
     tcfg = TrainConfig(learning_rate=args.lr,
                        warmup_steps=max(args.steps // 10, 1),
@@ -103,49 +182,72 @@ def main(argv=None):
                 seed=args.seed)["embeddings"]
         return batch
 
-    os.makedirs(args.ckpt_dir, exist_ok=True)
+    if lead:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
     history: dict = {}
     step_times: dict = {}
+    CL.reset_counts()
     if args.cascade:
         # Algorithm 1 over all configured modes
         def loss_fn(p, batch, mode):
-            return L.make_loss_fn(cfg, mode=mode)(p, batch)
+            return L.make_loss_fn(cfg, mode=mode, mesh=mesh)(p, batch)
 
         eval_batch = L.device_batch(data_fn(10_001), dev)
 
         def eval_fn(p, mode):
-            return L.make_eval_step(cfg, mode=mode)(p, eval_batch)
+            return L.make_eval_step(cfg, mode=mode, mesh=mesh)(p, eval_batch)
 
         params, hist = CC.train_cascade(
             params, loss_fn, lambda s: L.device_batch(data_fn(s), dev),
             tcfg, n_modes=cfg.split.n_modes, steps_per_phase=args.steps,
             eval_fn=eval_fn, log_every=max(args.steps // 4, 1),
-            donate=True, step_times=step_times)
+            donate=True, step_times=step_times, verbose=lead,
+            mesh_run=None if mesh is None else L.MeshRun(cfg, mesh))
         history["cascade"] = hist["ensure"]
         history["phases"] = hist["phases"]
-        print(f"[cascade] mode losses {hist['ensure']['losses']} "
-              f"ordered={hist['ensure']['ordered']}")
+        if lead:
+            print(f"[cascade] mode losses {hist['ensure']['losses']} "
+                  f"ordered={hist['ensure']['ordered']}")
     else:
         params, h = L.train_loop(params, cfg, tcfg, data_fn,
                                  steps=args.steps, mode=args.mode,
-                                 log_every=10, step_times=step_times)
+                                 log_every=10, step_times=step_times,
+                                 mesh=mesh, verbose=lead)
         history["phase1"] = h
 
     history["ms_per_step"] = {f"phase{i + 1}": ms for i, ms in
                               enumerate(ms_per_step(step_times).values())}
+    if mesh is not None:
+        n_steps = sum(len(t) for t in step_times.values())
+        history["mesh"] = {
+            "shape": mesh.shape, "backend": mesh.backend,
+            "collectives_per_step": {k: v / n_steps for k, v in
+                                     CL.COUNTS["calls"].items()},
+            "collective_bytes_per_step": {k: v / n_steps for k, v in
+                                          CL.COUNTS["bytes"].items()}}
     if dev.type == "cuda":
-        history["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
-    print(f"[launch.train] ms a step {history['ms_per_step']}"
-          + (f", peak device memory "
-             f"{history['peak_memory_bytes'] / 2**30:.2f} GiB"
-             if dev.type == "cuda" else ""), flush=True)
+        peaks = _gather_peaks(dev, mesh)
+        history["peak_memory_bytes"] = peaks[0]
+        if mesh is not None:
+            history["peak_memory_bytes_by_rank"] = peaks
+    if lead:
+        print(f"[launch.train] ms a step {history['ms_per_step']}"
+              + (f", peak device memory "
+                 f"{history['peak_memory_bytes'] / 2**30:.2f} GiB"
+                 if dev.type == "cuda" else "")
+              + (f", collectives a step "
+                 f"{history['mesh']['collectives_per_step']}"
+                 if mesh is not None else ""), flush=True)
 
+    if mesh is not None:
+        params = sharding.gather_train_params(params, mesh, cfg=cfg)
     ck = os.path.join(args.ckpt_dir, f"{args.arch.replace('.', '_')}.npz")
-    checkpoint.save(ck, params, {"arch": args.arch, "steps": args.steps,
-                                 "reduced": args.reduced})
-    with open(ck.replace(".npz", "_history.json"), "w") as f:
-        json.dump(history, f, indent=1)
-    print(f"checkpoint -> {ck}")
+    if lead:
+        checkpoint.save(ck, params, {"arch": args.arch, "steps": args.steps,
+                                     "reduced": args.reduced})
+        with open(ck.replace(".npz", "_history.json"), "w") as f:
+            json.dump(history, f, indent=1)
+        print(f"checkpoint -> {ck}")
     return history
 
 

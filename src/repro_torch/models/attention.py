@@ -9,10 +9,12 @@ float32 scale per position and head; the paged arena has no int8 form,
 as in the reference).
 
 Caches and arenas are updated in place (the reference returns new ones);
-callers pass per-layer views of the pool's state. ``group`` (serving
-mesh, mp > 1): the heads are this rank's (``n_q`` / ``n_kv`` local
+callers pass per-layer views of the pool's state. ``group`` (a mesh's
+model ranks): the heads are this rank's (``n_q`` / ``n_kv`` local
 counts, the weights' column and row slices) and the output projection's
-partial products are summed over the group (``row_parallel_sum``).
+partial products are summed over the group (``row_parallel_sum``); the
+full-sequence forward also sums its input's gradient over the group
+(``collectives.copy_to``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import math
 import torch
 
 from repro_torch.core import quant as Q
+from repro_torch.models import collectives as CL
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        row_parallel_sum)
 from repro_torch.models.scan_utils import recording, remat
@@ -147,15 +150,16 @@ def _attend(q, k, v, positions, hd, window: int = 0):
 
 
 def full_attention(p, x, positions, *, n_q: int, n_kv: int, hd: int,
-                   rope_theta: float, window: int = 0):
+                   rope_theta: float, window: int = 0, group=None):
     """Train / full-sequence path: causal (optionally sliding-window)
     attention over the whole sequence, no cache. x: [B, S, d]; positions:
     [B, S] absolute token positions. Returns [B, S, d]."""
+    x = CL.copy_to(x, group)
     q, k, v = _project_qkv(p, x, n_q, n_kv, hd)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     out = _attend(q, k, v, positions, hd, window)
-    return out.to(x.dtype) @ p["wo"]["w"]
+    return row_parallel_sum(out.to(x.dtype) @ p["wo"]["w"], group)
 
 
 def paged_prefill_attention(p, x, positions, arena, block_table, *,

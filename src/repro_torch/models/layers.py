@@ -11,8 +11,9 @@ import math
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.models import collectives as CL
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -104,17 +105,16 @@ def _act(x, kind: str):
 def row_parallel_sum(y, group=None):
     """The sum over an mp ``group`` of the partial products of a row-split
     matrix (``wo``, ``w_down``): one ``all_reduce`` in float32, rounded once
-    to ``y``'s dtype. No group: ``y`` as it is."""
-    if group is None:
-        return y
-    acc = y.float()
-    dist.all_reduce(acc, group=group)
-    return acc.to(y.dtype)
+    to ``y``'s dtype, whose backward is identity (``collectives.
+    reduce_from``). No group: ``y`` as it is."""
+    return CL.reduce_from(y, group)
 
 
 def mlp_apply(p, x, act: str = "silu", group=None):
     """Gated MLP; ``group``: the mp group over which ``w_gate`` / ``w_up``
-    are split by columns and ``w_down`` by rows (``row_parallel_sum``)."""
+    are split by columns (their input's gradient summed over it,
+    ``collectives.copy_to``) and ``w_down`` by rows (``row_parallel_sum``)."""
+    x = CL.copy_to(x, group)
     g = _act(dense_apply(p["w_gate"], x), act)
     u = dense_apply(p["w_up"], x)
     return row_parallel_sum(dense_apply(p["w_down"], g * u), group)

@@ -5,9 +5,16 @@
 embeddings with one LM head a codebook, LLaVA's vision prefix
 concatenated before the text) and heterogeneous block patterns
 (RecurrentGemma's RG-LRU and local-attention blocks, xLSTM's alternating
-mLSTM and sLSTM blocks). The reference's expert-parallel MoE
-(``moe_ep``, reached only under a device mesh) is not ported: with no
-mesh it is not on any path.
+mLSTM and sLSTM blocks). Under a training mesh's ``moe_ep`` flag
+(``sharding.activation_rules``) a MoE block runs the expert-parallel
+schedule (``models.moe_ep``), as the reference's does.
+
+Every runner takes a mesh's ``RankPlan`` (``plan``: the model group of
+each sharded block; ``cfg`` then holds the rank's head counts): the
+attention, MLP and MoE blocks run Megatron's tensor-parallel split, their
+input's gradient summed over the group and their output summed in float32
+(``models.collectives``). Under ``train`` a layer's recomputation replays
+its collectives, in the same order on every rank.
 
 Homogeneous archs keep stacked ``[L, ...]`` layer leaves, and the layer
 runners loop over per-layer slices (views, no copies) where the reference
@@ -39,7 +46,9 @@ from repro_torch.models.attention import (attn_init, decode_attention,
 from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
                                        embed_logits, mlp_apply, mlp_init,
                                        norm_apply, norm_init)
+from repro_torch.models import sharding
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe_ep import moe_apply_ep, moe_supports_ep
 from repro_torch.models.rglru import (rglru_full, rglru_init, rglru_prefill,
                                       rglru_prepare, rglru_state_init,
                                       rglru_step)
@@ -179,13 +188,21 @@ def block_init(gen, cfg: ModelConfig, kind: str = "attn"):
 def _mlp_residual(p, x, cfg: ModelConfig, group=None):
     """The block's MLP (dense, or the MoE layer) on its residual: (x, aux
     loss), the aux MoE's 0-d float32 load-balance loss, None without
-    experts. ``group``: the mp group a dense MLP is split over."""
+    experts. ``group``: the model group the MLP (or the experts) split
+    over. Under the ``moe_ep`` flag with a training mesh whose layout
+    takes it (``moe_supports_ep``), a MoE layer runs ``moe_apply_ep``."""
     aux = None
     if "mlp" in p:
         h = norm_apply(p["norm2"], x, cfg.norm)
-        if cfg.is_moe:
+        mesh = sharding.ctx_mesh()
+        if cfg.is_moe and sharding.ctx_flag("moe_ep") and moe_supports_ep(
+                cfg.n_experts, mesh, sharding.ctx_rule("batch", h.shape[0]),
+                h.shape[1]):
+            m, aux = moe_apply_ep(p["mlp"], h, k=cfg.experts_per_tok,
+                                  act=cfg.act, mesh=mesh)
+        elif cfg.is_moe:
             m, aux = moe_apply(p["mlp"], h, k=cfg.experts_per_tok,
-                               act=cfg.act)
+                               act=cfg.act, group=group)
         else:
             m = mlp_apply(p["mlp"], h, cfg.act, group)
         x = x + m
@@ -198,16 +215,18 @@ def _attn_dims(cfg: ModelConfig):
 
 
 def block_apply_full(p, x, positions, cfg: ModelConfig, kind: str = "attn",
-                     train: bool = False):
+                     train: bool = False, plan=None):
     """Full-sequence block, no decode state. Returns (x, aux_loss), the
     aux loss MoE's load-balance loss (a 0-d float32 zero without
     experts). ``train`` keeps the recurrent families on their cell scans
     (the CUDA scan has no backward); eval routes RG-LRU and the mLSTM
-    normalizer through ``ops.rglru_scan_op``."""
+    normalizer through ``ops.rglru_scan_op``. ``plan``: a mesh's
+    ``RankPlan`` (``cfg`` the rank's config)."""
+    attn_g, mlp_g = plan if plan is not None else (None, None)
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn":
         mix = full_attention(p["mix"], h, positions, window=_attn_window(cfg),
-                             **_attn_dims(cfg))
+                             group=attn_g, **_attn_dims(cfg))
     elif kind == "rglru":
         mix = rglru_full(p["mix"], h, train=train)
     elif kind == "mlstm":
@@ -216,7 +235,7 @@ def block_apply_full(p, x, positions, cfg: ModelConfig, kind: str = "attn",
         mix = slstm_full(p["mix"], h, cfg.n_heads)
     else:
         raise ValueError(kind)
-    x, aux = _mlp_residual(p, x + mix, cfg)
+    x, aux = _mlp_residual(p, x + mix, cfg, mlp_g)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -458,13 +477,14 @@ def seq_positions(x):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, train: bool = False,
-            embeddings=None):
+            embeddings=None, plan=None):
     """Full-sequence forward. tokens: [B, S] int ([B, K, S] audio);
-    ``embeddings``: a vision prefix [B, Nv, d]. Returns (logits [B, Nv +
-    S, V] float32 ([B, K, S, V] audio), aux_loss)."""
+    ``embeddings``: a vision prefix [B, Nv, d]; ``plan``: a mesh's
+    ``RankPlan``. Returns (logits [B, Nv + S, V] float32 ([B, K, S, V]
+    audio), aux_loss)."""
     x = embed_tokens(params, tokens, cfg, embeddings)
     x, aux = run_layers(params["layers"], x, seq_positions(x), cfg,
-                        train=train)
+                        train=train, plan=plan)
     x = norm_apply_final(params, x, cfg)
     return lm_logits(params, x, cfg), aux
 
@@ -534,11 +554,12 @@ def decode_step(params, token, states, cur_pos, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def run_layers(layers, x, positions, cfg: ModelConfig, *, train: bool,
-               kinds: Optional[Tuple[str, ...]] = None):
+               kinds: Optional[Tuple[str, ...]] = None, plan=None):
     """Full-sequence pass through a group of layers: ``layers`` stacked
     ``[L, ...]`` (homogeneous) or a tuple of per-layer trees. Under
-    ``train`` each layer is recomputed in the backward. Returns (x,
-    aux_loss_sum), the sum a 0-d float32 tensor on x's device."""
+    ``train`` each layer is recomputed in the backward. ``plan``: a mesh's
+    ``RankPlan`` (``cfg`` the rank's config). Returns (x, aux_loss_sum),
+    the sum a 0-d float32 tensor on x's device."""
     if cfg.homogeneous:
         per_layer = unstack_layers(layers)
         kinds = ("attn",) * len(per_layer)
@@ -548,9 +569,10 @@ def run_layers(layers, x, positions, cfg: ModelConfig, *, train: bool,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, kind in zip(per_layer, kinds):
         if train:
-            x, a = remat(block_apply_full, lp, x, positions, cfg, kind, True)
+            x, a = remat(block_apply_full, lp, x, positions, cfg, kind, True,
+                         plan)
         else:
-            x, a = block_apply_full(lp, x, positions, cfg, kind)
+            x, a = block_apply_full(lp, x, positions, cfg, kind, plan=plan)
         aux = aux + a
     return x, aux
 

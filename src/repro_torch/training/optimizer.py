@@ -12,6 +12,12 @@ gradient leaf may be None (a leaf outside the loss's graph, as the phase-2
 bottleneck is in mode 0): it counts as zeros. The schedule, the bias
 corrections and the update are float32 tensor arithmetic on the
 parameters' device, and nothing is read to the host.
+
+On a training mesh a rank holds slices of some leaves (``split``: the
+mesh axes each leaf is split over, ``sharding.split_axes``): the clip's
+global norm sums those leaves' squares over their groups once, and counts
+each replicated leaf once, so every rank clips by the one scale one
+device would.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any, Iterator, List, NamedTuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.models import collectives as CL
 
 
 class AdamState(NamedTuple):
@@ -86,21 +93,34 @@ def lr_schedule(cfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
-def _global_norm(gs, max_norm: float):
+def _global_norm(gs, max_norm: float, split=None, group_of=None):
     """(the global norm of the gradient leaves ``gs``, the clip's scale
-    factor). None leaves add nothing."""
+    factor). None leaves add nothing. ``split``: each leaf's mesh axes
+    (None: replicated) in ``gs``'s order, and ``group_of(axes)`` their
+    group: the squares of the leaves split over the same axes are summed
+    over that group (one all_reduce a set of axes, in first-seen order),
+    then added to the replicated leaves' sum."""
+    split = split if split is not None else [None] * len(gs)
     sq = [torch.sum(torch.square(g.to(torch.float32)))
-          for g in gs if g is not None]
+          for g, a in zip(gs, split) if g is not None and a is None]
+    parts: dict = {}
+    for g, a in zip(gs, split):
+        if g is not None and a is not None:
+            parts.setdefault(a, []).append(
+                torch.sum(torch.square(g.to(torch.float32))))
+    for a, terms in parts.items():
+        sq.append(CL.all_reduce_f32(sum(terms[1:], terms[0]), group_of(a)))
     gn = torch.sqrt(sum(sq[1:], sq[0]))
     return gn, torch.clamp(_f32(max_norm, gn) / torch.clamp(gn, min=1e-9),
                            max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, split=None, group_of=None):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
-    before). None leaves stay None and add nothing to the norm."""
+    before). None leaves stay None and add nothing to the norm. ``split``,
+    ``group_of``: as in ``apply_updates``."""
     gs = leaves(grads)
-    gn, scale = _global_norm(gs, max_norm)
+    gn, scale = _global_norm(gs, max_norm, _split_leaves(split), group_of)
     return unflatten(grads, [None if g is None else g * scale.to(g.dtype)
                              for g in gs]), gn
 
@@ -120,12 +140,28 @@ def _row_blocks(p: torch.Tensor):
     return [slice(i, i + per) for i in range(0, p.shape[0], per)]
 
 
+def _split_leaves(split):
+    """The leaves of a ``split`` tree in ``leaves`` order (axis tuples
+    stay whole), or None without one."""
+    def flat(node):
+        if isinstance(node, dict):
+            return [x for k in sorted(node) for x in flat(node[k])]
+        if isinstance(node, list) or (isinstance(node, tuple) and node
+                                      and not isinstance(node[0], str)):
+            return [x for v in node for x in flat(v)]
+        return [node]
+    return None if split is None else flat(split)
+
+
 def apply_updates(params, grads, state: AdamState, cfg: TrainConfig,
-                  mask=None, *, donate: bool = False):
+                  mask=None, *, donate: bool = False, split=None,
+                  group_of=None):
     """One AdamW step. ``mask``: the parameter tree with a bool at each
     leaf, True = trainable (None: all). The global norm takes every
     gradient, frozen leaves' too; a frozen leaf, its m and its v are
-    returned as they were (the same tensors).
+    returned as they were (the same tensors). ``split``: on a mesh, the
+    parameter tree with each leaf's split axes (a tuple of axis names, or
+    None: replicated), and ``group_of(axes)`` the group over those axes.
 
     ``donate=True`` (the reference launcher's ``donate_argnums``): each
     trainable leaf's new p, m and v are written into the tensors passed
@@ -136,9 +172,11 @@ def apply_updates(params, grads, state: AdamState, cfg: TrainConfig,
     of ``donate=False``, so are the bits."""
     gs = leaves(grads)
     if donate:
-        gnorm, scale = _global_norm(gs, cfg.grad_clip)
+        gnorm, scale = _global_norm(gs, cfg.grad_clip, _split_leaves(split),
+                                    group_of)
     else:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, split,
+                                           group_of)
         gs = leaves(grads)
     step = state.step + 1
     lr = lr_schedule(cfg, step)

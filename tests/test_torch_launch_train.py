@@ -111,10 +111,16 @@ def test_train_launcher_resume(tmp_path):
     assert l0[1] < l0[0]                   # trained weights, same batch 0
 
 
-def test_train_launcher_refuses():
-    with pytest.raises(NotImplementedError, match="one device"):
-        train_launch.main(["--arch", "qwen2.5-3b", "--reduced", "--mp", "2",
-                           "--device", "cpu"])
+def test_train_launcher_refuses(monkeypatch):
+    """--mp must divide the ranks (here torchrun's three): ``ValueError``
+    before any process group starts; so must --dp x --mp be them."""
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    base = ["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu"]
+    with pytest.raises(ValueError, match="not divisible by mp=2"):
+        train_launch.main(base + ["--mp", "2"])
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        train_launch.main(base + ["--dp", "2", "--mp", "1"])
 
 
 def test_train_launcher_refuses_cuda_without_a_card(monkeypatch):

@@ -20,6 +20,7 @@ A leaf outside the loss's graph (the bank in modes None and 0) has the
 gradient None, which counts as the reference's zeros.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -228,8 +229,11 @@ def test_eval_step_and_train_loop():
 
 
 def test_mesh_and_pipeline_raise():
+    """The pod pipeline needs a mesh with a pod axis: ``ValueError``
+    without a mesh and on a (data, model) mesh."""
     cfg = t_reduced("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TL.make_loss_fn(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TL.make_train_step(cfg, TrainConfig(), use_pipeline=True)
+    with pytest.raises(ValueError, match="'pod' axis"):
+        TL.make_loss_fn(cfg, use_pipeline=True)
+    flat = types.SimpleNamespace(shape={"data": 2, "model": 1})
+    with pytest.raises(ValueError, match="'pod' axis"):
+        TL.make_train_step(cfg, TrainConfig(), use_pipeline=True, mesh=flat)

@@ -1,0 +1,505 @@
+"""The port's training mesh (``sharding.TrainMesh``, ``loop.make_train_step
+(mesh=)``, ``launch.train --mp``) on gloo ranks, against the port's
+one-device runs and the JAX package's (``make_train_step``,
+``train_cascade`` and the continuous engine).
+
+Reduced configs in float32 (the JAX init carried across), batches from
+``MarkovTokenSource``. Four ranks:
+
+- two steps of qwen2.5-3b at (data 2, model 2) and (data 4, model 1):
+  each step's loss within ``LOSS_REL`` of both one-device runs', the
+  clipped global norm within ``GRAD_REL`` (the mesh sums the squares of
+  the model-split leaves over the model group, the replicated ones once),
+  the ranks' slices (``shard_train_params``) gathered back to the
+  converted tree bit for bit (``gather_train_params``), the first step's
+  parameters gathered from the ranks within the update rule of
+  ``tests/test_torch_train_loop.py`` of the one-device step's (an element
+  whose gradient is under ``SMALL_G`` of its leaf's largest may move by
+  up to 2 lr: Adam's first update is about lr sign(g)), and every
+  replicated leaf bit-identical on every rank after each step;
+- Algorithm 1 (``cascade.train_cascade`` with a ``MeshRun``) at (data 2,
+  model 2), two steps a phase: every logged loss within ``LOSS_REL`` of
+  the port's one-device cascade's and the JAX package's ``train_cascade``
+  on the same weights and batches (phase 2 freezes the backbone, and
+  every rank still recomputes and reduces the same layers);
+- the collectives' all_reduce forms (what gloo runs on CUDA tensors) give
+  the native forms' bits: gathers, all_to_all and ppermute of float32
+  (``-0.0`` and NaN included), bf16 and int8 tensors; scatter-sums of
+  integer-valued floats; and the backward of each differentiable pair is
+  its transpose.
+
+Two ranks:
+
+- phi3.5-moe at (data 1, model 2) without ``moe_ep``: each rank holds two
+  of the four experts; two steps as above (losses and norms against both
+  one-device runs, parameters, replicated leaves);
+- the continuous engine serving phi3.5-moe over mp 2 decodes the
+  one-device engines' tokens, the port's and the JAX package's (the
+  router's k = 2 choices land on one rank or two, and each kept row is
+  summed once, so the float32 logits part only by the attention's two
+  partial sums);
+- ``launch.train --mp 2`` on the ranks: the one-device launcher's losses
+  within ``LAUNCH_LOSS_REL`` (bf16) and a checkpoint, written once by
+  rank 0 from the gathered slices, that ``repro.training.checkpoint.
+  restore`` reads into the JAX template.
+"""
+import dataclasses
+import importlib
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import torch_ranks
+from repro_torch.configs import get_reduced
+from repro_torch import serving as TS
+from repro_torch.configs.base import TrainConfig
+from repro_torch.convert import flat_from_params, params_from_flat
+from repro_torch.core import cascade as TC
+from repro_torch.models import collectives as CL
+from repro_torch.models import sharding
+from repro_torch.training import loop as TL
+from repro_torch.training import optimizer as TO
+
+QWEN, PHI = "qwen2.5-3b", "phi3.5-moe-42b-a6.6b"
+LOSS_REL = 1e-5
+GRAD_REL = 1e-4
+STEP_REL = 1e-5
+SMALL_G = 1e-3
+LAUNCH_LOSS_REL = 1e-2
+TCFG = dict(learning_rate=1e-3, warmup_steps=2, total_steps=100)
+LAYOUTS = {"data2 model2": 2, "data4": 1}     # model axis
+LAUNCH = ["--arch", QWEN, "--reduced", "--device", "cpu", "--steps", "2",
+          "--batch", "2", "--seq", "16", "--lr", "3e-3"]
+
+
+def _cfg(arch):
+    return dataclasses.replace(get_reduced(arch), dtype="float32")
+
+
+def _batches(arch, n=2):
+    src = __import__("repro_torch.data.tokens", fromlist=["x"])
+    source = src.MarkovTokenSource(_cfg(arch), seed=0)
+    return [source.batch(4, 16, s) for s in range(n)]
+
+
+def _bits(a):
+    return (a.view(torch.int16) if a.dtype == torch.bfloat16 else a).numpy()
+
+
+def _replicated(params, mesh, cfg):
+    split = sharding.split_axes(params, mesh, cfg=cfg)
+    return {path: _bits(a).tobytes() for (path, a), (_, s) in zip(
+        sharding._path_leaves(params), sharding._path_leaves(split))
+        if s is None}
+
+
+def _steps(payload, arch, model):
+    """Two steps on the (data, model) mesh: metrics, the gathered first
+    step's parameters, the replicated leaves' bits after each step."""
+    mesh = sharding.train_mesh(model, device="cpu")
+    cfg = _cfg(arch)
+    params = sharding.shard_train_params(
+        params_from_flat(payload[arch], device="cpu"), mesh, cfg=cfg)
+    back = flat_from_params(sharding.gather_train_params(params, mesh,
+                                                         cfg=cfg))
+    step = TL.make_train_step(cfg, TrainConfig(**TCFG), mesh=mesh,
+                              donate=False)
+    state = TO.init(params)
+    out = {"metrics": [], "replicated": [], "roundtrip": sorted(back) ==
+           sorted(payload[arch]) and all(back[k].tobytes() ==
+                                          payload[arch][k].tobytes()
+                                          for k in back)}
+    for s, b in enumerate(payload["batches"][arch]):
+        batch = {k: torch.from_numpy(v) for k, v in b.items()}
+        params, state, m = step(params, state, batch)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["replicated"].append(_replicated(params, mesh, cfg))
+        if s == 0:
+            full = sharding.gather_train_params(params, mesh, cfg=cfg)
+            out["params1"] = flat_from_params(full)
+    return out
+
+
+def _sc_steps(payload, label):
+    return _steps(payload, QWEN, LAYOUTS[label])
+
+
+def _sc_moe(payload):
+    return _steps(payload, PHI, 2)
+
+
+def _cascade(params, cfg, mesh=None):
+    batches = _batches(QWEN, 4)
+    run = TL.MeshRun(cfg, mesh) if mesh is not None else None
+
+    def loss_fn(p, b, mode):
+        return TL.make_loss_fn(cfg, mode=mode, mesh=mesh)(p, b)
+
+    _, hist = TC.train_cascade(
+        params, loss_fn,
+        lambda s: {k: torch.from_numpy(v) for k, v in batches[s].items()},
+        TrainConfig(**TCFG), n_modes=2, steps_per_phase=2, log_every=1,
+        verbose=False, donate=True, mesh_run=run)
+    return [[r["loss"] for r in ph["log"]] for ph in hist["phases"]]
+
+
+def _sc_cascade(payload):
+    mesh = sharding.train_mesh(2, device="cpu")
+    cfg = _cfg(QWEN)
+    params = sharding.shard_train_params(
+        params_from_flat(payload[QWEN], device="cpu"), mesh, cfg=cfg)
+    return _cascade(params, cfg, mesh)
+
+
+def _sc_forms(payload):
+    """Each move in both forms on the world and the model group."""
+    mesh = sharding.train_mesh(2, device="cpu")
+    r = mesh.rank
+    gen = torch.Generator().manual_seed(r)
+    f32 = torch.randn((2, 4, 6), generator=gen)
+    f32[0, 0, 0], f32[0, 0, 1] = -0.0, float("nan")
+    tensors = {"f32": f32, "bf16": f32.to(torch.bfloat16),
+               "int8": (f32.nan_to_num() * 40).to(torch.int8)}
+    same = {}
+    for gname, group in (("world", mesh.group(mesh.axes)),
+                         ("model", mesh.group("model"))):
+        m = CL.size(group)
+        for tname, t in tensors.items():
+            a2a = t.reshape(m, -1)
+            for op, fn in (
+                    ("gather0", lambda f: CL.gather_raw(t, group, 0, form=f)),
+                    ("gather2", lambda f: CL.gather_raw(t, group, 2, form=f)),
+                    ("all_to_all", lambda f: CL.all_to_all_raw(
+                        a2a, group, form=f)),
+                    ("ppermute", lambda f: CL.ppermute_raw(
+                        t, group, [(i, (i + 1) % m) for i in range(m)],
+                        form=f)),
+                    ("ppermute_one", lambda f: CL.ppermute_raw(
+                        t, group, [(0, m - 1)], form=f))):
+                a, b = fn("native"), fn("all_reduce")
+                same[(gname, tname, op)] = _bits(a).tobytes() == \
+                    _bits(b).tobytes()
+        ints = torch.randint(-50, 50, (4 * m, 3), generator=gen).float()
+        same[(gname, "f32", "scatter_sum")] = torch.equal(
+            CL.scatter_sum_raw(ints, group, 0, form="native"),
+            CL.scatter_sum_raw(ints, group, 0, form="all_reduce"))
+    # the differentiable pairs' backwards are their transposes
+    group = mesh.group(mesh.axes)
+    m = CL.size(group)
+    x = torch.arange(6.0).reshape(2, 3) + 10 * r
+    grads = {}
+    for name, fn in (("copy_to", lambda v: CL.copy_to(v, group)),
+                     ("reduce_from", lambda v: CL.reduce_from(v, group)),
+                     ("all_gather", lambda v: CL.all_gather(v, group, 0)),
+                     ("gather_replicated",
+                      lambda v: CL.gather_replicated(v, group, 0)),
+                     ("reduce_scatter",
+                      lambda v: CL.reduce_scatter(v.repeat(m, 1), group, 0)),
+                     ("all_to_all", lambda v: CL.all_to_all(
+                         v.reshape(1, -1).repeat(m, 1), group)),
+                     ("pmean", lambda v: CL.pmean(v.sum(), group))):
+        xr = x.clone().requires_grad_(True)
+        y = fn(xr)
+        w = torch.arange(float(y.numel())).reshape(y.shape) + r
+        (g,) = torch.autograd.grad(torch.sum(y * w), xr)
+        grads[name] = g.numpy()
+    return {"same": same, "grads": grads, "rank": r, "m": m}
+
+
+def _sc_serve(payload):
+    mesh = sharding.serving_mesh(1, 2, device="cpu")
+    cfg = _cfg(PHI)
+    params = params_from_flat(payload[PHI], device="cpu")
+    return _serve(params, cfg, mesh)
+
+
+def _serve(params, cfg, mesh, serving=TS):
+    """Four requests through ``serving``'s continuous engine (the port's,
+    or the JAX package's with ``mesh`` None): each request's tokens, wire
+    bytes and finishing tick."""
+    rng = np.random.default_rng(0)
+    reqs = [serving.Request(rid=i, prompt=rng.integers(
+        1, cfg.vocab_size, (5 + i % 3,)).astype(np.int32), max_new_tokens=8)
+        for i in range(4)]
+    eng = serving.ContinuousBatchingEngine(
+        params, cfg, n_slots=2, cache_len=48,
+        orchestrator=serving.default_orchestrator(cfg),
+        **({} if mesh is None else {"mesh": mesh}))
+    with eng:
+        done = eng.run(reqs)
+    return {s.request.rid: (tuple(int(t) for t in s.tokens), s.wire_bytes,
+                            s.finished_tick) for s in done}
+
+
+def _sc_launch(payload):
+    from repro_torch.launch import train
+    return train.main(LAUNCH + ["--mp", "2", "--ckpt-dir",
+                                payload["ckpt_dir"]])
+
+
+# ---------------------------------------------------------------------------
+# fixtures
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ref():
+    names = {"jax": "jax", "jnp": "jax.numpy", "JSP": "repro.core.split",
+             "JL": "repro.training.loop", "JO": "repro.training.optimizer",
+             "JC": "repro.core.cascade", "JB": "repro.serving.batcher",
+             "JS": "repro.models.sharding", "serving": "repro.serving",
+             "ckpt": "repro.training.checkpoint", "jcfg": "repro.configs",
+             "jbase": "repro.configs.base"}
+    return types.SimpleNamespace(**{k: importlib.import_module(v)
+                                    for k, v in names.items()})
+
+
+@pytest.fixture(scope="module")
+def jparams(ref):
+    out = {}
+    for arch in (QWEN, PHI):
+        jcfg = dataclasses.replace(ref.jcfg.get_reduced(arch),
+                                   dtype="float32")
+        out[arch] = ref.JSP.init_split_params(ref.jax.random.PRNGKey(0),
+                                              jcfg)
+    return out
+
+
+@pytest.fixture(scope="module")
+def payload(ref, jparams, tmp_path_factory):
+    out = {a: {k: np.asarray(v) for k, v in ref.ckpt._flatten(p).items()}
+           for a, p in jparams.items()}
+    out["batches"] = {a: _batches(a) for a in (QWEN, PHI)}
+    out["ckpt_dir"] = str(tmp_path_factory.mktemp("mesh_ckpt"))
+    return out
+
+
+@pytest.fixture(scope="module")
+def world4(payload):
+    return torch_ranks.spawn(4, __name__, payload, (
+        *((label, "_sc_steps", (label,)) for label in LAYOUTS),
+        ("cascade", "_sc_cascade", ()), ("forms", "_sc_forms", ())))
+
+
+@pytest.fixture(scope="module")
+def world2(payload):
+    return torch_ranks.spawn(2, __name__, payload, (
+        ("moe", "_sc_moe", ()), ("serve", "_sc_serve", ()),
+        ("launch", "_sc_launch", ())))
+
+
+def _one_device(payload, arch):
+    """The port's two one-device steps: metrics, the first step's
+    parameters and gradients."""
+    cfg = _cfg(arch)
+    params = params_from_flat(payload[arch], device="cpu")
+    step = TL.make_train_step(cfg, TrainConfig(**TCFG), donate=False)
+    loss = TL.make_loss_fn(cfg)
+    state = TO.init(params)
+    out = {"metrics": []}
+    for s, b in enumerate(payload["batches"][arch]):
+        batch = {k: torch.from_numpy(v) for k, v in b.items()}
+        if s == 0:
+            out["grads"] = flat_from_params(TC.value_and_grad(
+                lambda p, bb, _: loss(p, bb), params, batch, None)[1])
+            out["params0"] = flat_from_params(params)
+        params, state, m = step(params, state, batch)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if s == 0:
+            out["params1"] = flat_from_params(params)
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_device(payload):
+    return {a: _one_device(payload, a) for a in (QWEN, PHI)}
+
+
+def _jcfg(ref, arch):
+    return dataclasses.replace(ref.jcfg.get_reduced(arch), dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def jax_metrics(ref, jparams, payload):
+    """The JAX package's two one-device steps of each arch."""
+    out = {}
+    for arch in (QWEN, PHI):
+        step = ref.jax.jit(ref.JL.make_train_step(
+            _jcfg(ref, arch), ref.jbase.TrainConfig(**TCFG)))
+        p, s = jparams[arch], ref.JO.init(jparams[arch])
+        out[arch] = []
+        for b in payload["batches"][arch]:
+            p, s, m = step(p, s, {k: ref.jnp.asarray(v)
+                                  for k, v in b.items()})
+            out[arch].append({k: float(v) for k, v in m.items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_cascade(ref, jparams):
+    """The JAX package's ``train_cascade`` on ``_cascade``'s weights,
+    batches and arguments: each phase's logged losses."""
+    jcfg = _jcfg(ref, QWEN)
+    batches = _batches(QWEN, 4)
+    _, hist = ref.JC.train_cascade(
+        jparams[QWEN],
+        lambda p, b, mode: ref.JL.make_loss_fn(jcfg, mode=mode)(p, b),
+        lambda s: {k: ref.jnp.asarray(v) for k, v in batches[s].items()},
+        ref.jbase.TrainConfig(**TCFG), n_modes=2, steps_per_phase=2,
+        log_every=1, verbose=False)
+    return [[r["loss"] for r in ph["log"]] for ph in hist["phases"]]
+
+
+@pytest.fixture(scope="module")
+def jax_serve(ref, jparams):
+    """The JAX package's one-device continuous engine on phi3.5-moe with
+    ``_serve``'s requests. Its paged device loop gets copies of its block
+    tables (ROADMAP Queue 3, as in ``tests/test_torch_sharded_serving.py``)."""
+    def block_table(self):
+        return ref.JS.shard_batch(ref.jnp.asarray(
+            self.block_np[:, :self.table_width()].copy()), self.mesh)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref.JB.PagedPool, "block_table", block_table)
+        return _serve(jparams[PHI], _jcfg(ref, PHI), None, ref.serving)
+
+
+def _close(a, b, rel):
+    return abs(a - b) <= rel * abs(b) + 1e-6
+
+
+def _check_steps(world, key, want, jax_metrics=None):
+    ranks = [world[r][key] for r in sorted(world)]
+    # the ranks' slices gather back to the converted tree bit for bit
+    assert all(res["roundtrip"] for res in ranks)
+    for s in range(2):
+        got = ranks[0]["metrics"][s]
+        for ref_m in [want["metrics"][s]] + (
+                [jax_metrics[s]] if jax_metrics else []):
+            assert _close(got["loss"], ref_m["loss"], LOSS_REL), (s, got)
+            assert _close(got["grad_norm"], ref_m["grad_norm"], GRAD_REL)
+        for res in ranks:
+            assert res["metrics"][s] == got
+            assert res["replicated"][s] == ranks[0]["replicated"][s]
+    lr = ranks[0]["metrics"][0]["lr"]
+    g_all, p0, p1 = want["grads"], want["params0"], want["params1"]
+    got = ranks[0]["params1"]
+    assert sorted(got) == sorted(p1)
+    top = max(float(np.abs(g).max()) for g in g_all.values())
+    for k in p1:
+        g = g_all.get(k, np.zeros_like(p1[k]))
+        big = max(float(np.abs(g).max()), 1e-3 * top)
+        small = np.abs(g) < SMALL_G * big
+        bound = np.where(small, 2 * lr, STEP_REL * (
+            np.abs(p0[k]) + np.abs(p0[k] - p1[k])))
+        assert np.all(np.abs(got[k] - p1[k]) <= bound), k
+        for res in ranks:
+            assert res["params1"][k].tobytes() == got[k].tobytes(), k
+
+
+# ---------------------------------------------------------------------------
+# tests
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("label", list(LAYOUTS))
+def test_mesh_steps_match_one_device(world4, one_device, jax_metrics,
+                                     label):
+    _check_steps(world4, label, one_device[QWEN], jax_metrics[QWEN])
+
+
+def test_moe_over_model_steps_match_one_device(world2, one_device,
+                                               jax_metrics):
+    _check_steps(world2, "moe", one_device[PHI], jax_metrics[PHI])
+
+
+def test_cascade_on_the_mesh(world4, payload, jax_cascade):
+    """Algorithm 1 on the (2, 2) mesh: every logged loss within
+    ``LOSS_REL`` of the port's one-device cascade's and of the JAX
+    package's ``train_cascade``'s."""
+    cfg = _cfg(QWEN)
+    one = _cascade(params_from_flat(payload[QWEN], device="cpu"), cfg)
+    for want in (one, jax_cascade):
+        assert [len(ph) for ph in want] == [2, 2]
+        for r in world4:
+            got = world4[r]["cascade"]
+            assert [len(ph) for ph in got] == [2, 2]
+            for gp, wp in zip(got, want):
+                for a, b in zip(gp, wp):
+                    assert _close(a, b, LOSS_REL), (got, want)
+
+
+def test_collective_forms_bit_for_bit(world4):
+    for r in world4:
+        same = world4[r]["forms"]["same"]
+        bad = [k for k, ok in same.items() if not ok]
+        assert not bad, bad
+        assert len(same) == 2 * (3 * 5 + 1)
+
+
+def test_collective_backwards_are_transposes(world4):
+    """Each rank's ``x`` is arange(6) + 10 r as [2, 3]; the loss is
+    sum(y * w) with w = arange(y.size) + r on rank r."""
+    m = world4[0]["forms"]["m"]
+    ws = {r: lambda n, r=r: np.arange(float(n)) + r for r in range(m)}
+    for r in world4:
+        g = world4[r]["forms"]["grads"]
+        w6 = ws[r](6).reshape(2, 3)
+        # f: identity forward, the gradients summed
+        assert np.array_equal(g["copy_to"], sum(ws[q](6).reshape(2, 3)
+                                                for q in range(m)))
+        # g: the sum forward, the gradient as it is
+        assert np.array_equal(g["reduce_from"], w6)
+        # all_gather <-> reduce_scatter: each rank's slice of sum_q w_q
+        sl = slice(2 * r, 2 * r + 2)
+        assert np.array_equal(g["all_gather"], sum(
+            ws[q](6 * m).reshape(2 * m, 3)[sl] for q in range(m)))
+        # gather_replicated: this rank's slice of its own w
+        assert np.array_equal(g["gather_replicated"],
+                              ws[r](6 * m).reshape(2 * m, 3)[sl])
+        # reduce_scatter <-> all_gather: every rank's w, summed over the
+        # m copies this rank made
+        assert np.array_equal(g["reduce_scatter"], sum(
+            ws[q](6).reshape(2, 3) for q in range(m)))
+        # all_to_all back: row r of each rank q's w, summed over copies
+        assert np.array_equal(g["all_to_all"], sum(
+            ws[q](6 * m).reshape(m, 6)[r] for q in range(m)).reshape(2, 3))
+        # pmean of the sum: 1/m of this rank's weight
+        assert np.allclose(g["pmean"], np.full((2, 3), r / m))
+
+
+def test_moe_serving_over_mp_decodes_one_device_tokens(world2, payload,
+                                                       jax_serve):
+    cfg = _cfg(PHI)
+    want = _serve(params_from_flat(payload[PHI], device="cpu"), cfg, None)
+    assert want == jax_serve
+    for r in world2:
+        assert world2[r]["serve"] == want
+
+
+def test_train_launcher_mp2_checkpoint(world2, payload, ref, tmp_path):
+    from repro_torch.launch import train
+    one = train.main(LAUNCH + ["--ckpt-dir", str(tmp_path)])
+    got = world2[0]["launch"]
+    for a, b in zip(got["phase1"], one["phase1"]):
+        assert _close(a["loss"], b["loss"], LAUNCH_LOSS_REL), (got, one)
+    assert got["mesh"]["shape"] == {"data": 1, "model": 2}
+    assert got["mesh"]["collectives_per_step"]["all_reduce"] > 0
+    path = os.path.join(payload["ckpt_dir"], "qwen2_5-3b.npz")
+    template = ref.JSP.init_split_params(ref.jax.random.PRNGKey(1),
+                                         ref.jcfg.get_reduced(QWEN))
+    restored = ref.ckpt.restore(path, template)
+    flat = ref.ckpt._flatten(restored)
+    mine = ref.ckpt._flatten(ref.ckpt.restore(
+        os.path.join(tmp_path, "qwen2_5-3b.npz"), template))
+    assert sorted(flat) == sorted(mine)
+    for k in flat:
+        assert flat[k].shape == mine[k].shape, k
+        assert np.all(np.isfinite(np.asarray(flat[k], np.float32))), k
+
+
+def test_ranks_load_no_jax(world2, world4):
+    for world in (world2, world4):
+        for r in world:
+            assert world[r]["loaded"] == [], world[r]["loaded"]
