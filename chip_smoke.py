@@ -178,7 +178,30 @@ Phases, each printing one JSON line; any failure exits nonzero:
     continuous at (1, 2), cut to ``P17_SERVE_LAYERS``, against one device (the
     mp rule, the routes pinned to one device's; a free run's routing
     differences reported) and fused, launching the boundary, the tail and paged
-    attention. The training paths launch none of the six kernels.
+    attention. The training paths launch none of the six kernels. (b) runs
+    FSDP (phase 18 (d)): each rank's leaves and AdamW moments have the local
+    shapes of the reference's specs (``sharding.param_pspecs``) on (data 2,
+    model 1), and its bytes are printed beside the layout without FSDP.
+18. the recurrent mixers over mp: (k) ``rglru_scan`` at the rank shapes
+    (recurrentgemma-2b's prefill at [4, 16, 1280], xlstm-125m's normalizer
+    at [4, 16, 768] with h0) bit for bit, timed beside its plain version and
+    its bound; then, on the card, two worlds of two gloo ranks
+    (``P18_WORLDS``) and three one-device helpers, xlstm-125m's started at
+    phase 16 to share its time (``P18_EARLY``): (a) recurrentgemma-2b
+    (26 layers) and (b) xlstm-125m served at full width at (1, 2) on both
+    engines in bf16: fused (its tokens against the main path's reported,
+    launching the scan, the boundary and the tail), then taped and held to
+    the helpers' one-device tapes under phase 16's mp rule (the continuous
+    engine unfused, its boundary in its plain version; the sync engine
+    through the logits chain), the wire's int8 codes pinned to one
+    device's (``codes``, as (f) pins MoE routes); (c) ``launch.train
+    --cascade --mp 2`` in bf16 on xlstm-125m at full depth and
+    recurrentgemma-2b cut to ``P18_TRAIN_LAYERS``, [4, 128], two steps a
+    phase, the straight-through boundary's codes pinned to one device's,
+    each logged loss within
+    ``TOL["train_mp_loss_rel"]`` of the helper's one-device run (which its
+    ``--lr 0`` control must exceed), the whole leaves bit-identical across
+    the ranks, no kernel launched.
 
 Kernel times come from ``torch.profiler`` traces. A trace can lose
 events: a lost one counts as its kernel's mean traced event (a call
@@ -201,6 +224,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2351,11 +2375,11 @@ def phase_main_path(cfg, smi: str, params=None):
 
 #: the dense (homogeneous) archs' profiles, cut in depth to fit the
 #: script's time (PERF.md section 4): continuous at 4 of the main path's 8
-#: requests and 4 of its 16 generated tokens, sync at 8 of 16; the recurrent
+#: requests and 4 of its 16 generated tokens, sync at 4 of 16; the recurrent
 #: archs keep the main path's arguments, their launches a step are held
 #: against a ceiling
 PROFILE_CUT = {"continuous": ["--requests", "4", "--gen", "4"],
-               "sync": ["--gen", "8"]}
+               "sync": ["--gen", "4"]}
 
 
 def phase_profile(cfg, engine: str, params=None):
@@ -2911,8 +2935,9 @@ def phase_cascade(seed: int, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # the launcher's own path at full width: Algorithm 1 on qwen2.5-3b (36
-# layers, d_model 2048, vocab 151936, nothing cut), 10 steps a phase
-TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--cascade", "--steps", "10",
+# layers, d_model 2048, vocab 151936, nothing cut), 6 steps a phase
+# (10 until the script outgrew its time on a slow host)
+TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--cascade", "--steps", "6",
               "--batch", "4", "--seq", "128"]
 # the first step of loop.make_train_step, card against CPU, reduced f32
 TRAIN_REF_CASES = (("qwen2.5-3b", None), ("qwen2.5-3b", 0),
@@ -3217,10 +3242,11 @@ def phase_eval_forwards(seed: int, dev, smi: str) -> dict:
     return by_path
 
 
-# train_100m's batch: the example's, at half its default sequence (its
-# eager time loops with both recomputes take ~25 s a step at 256 on the
-# card, the one part of the script that grows with the sequence)
-TRAIN_100M_ARGV = ["--steps", "2", "--batch", "2", "--seq", "128"]
+# train_100m's batch: the example's, at a quarter of its default sequence
+# (its eager time loops with both recomputes take ~25 s a step at 256 on
+# the card, the one part of the script that grows with the sequence;
+# phase 18 trains the same model at [4, 128] three times)
+TRAIN_100M_ARGV = ["--steps", "2", "--batch", "2", "--seq", "64"]
 
 
 def phase_train_100m(dev, smi: str) -> dict:
@@ -3283,12 +3309,12 @@ FLEET_ARGV = ["--arch", "qwen2.5-3b", "--engine", "fleet", "--requests",
               "--telemetry"]
 # the benches at full width with small arguments, cut to fit the phase's
 # time (PERF.md section 4): the TTFT comparison at a 16-token prompt,
-# 8 tokens a request, the loop and telemetry A/Bs at 4 slots and 6 tokens,
+# 4 requests of 8 tokens a load level, the loop and telemetry A/Bs at 4 slots and 6 tokens,
 # the fade A/B at 8, the handover A/B at 6, the fleet at 16 UEs and the
 # autoscaler A/B at 256 on 4-slot replicas generating 4 tokens each (at
 # 256 UEs the autoscaled arm scales up; at 64 it would compare two equal
 # fixed fleets)
-BENCH_SERVING_ARGV = ["--loads", "8", "--requests", "8", "--channel-trace",
+BENCH_SERVING_ARGV = ["--loads", "8", "--requests", "4", "--channel-trace",
                       "fade", "--overhead-repeats", "1",
                       "--prefill-prompt-len", "16", "--gen", "8",
                       "--compare-slots", "4", "--compare-gen", "6",
@@ -3854,6 +3880,81 @@ def routes(tape: list, replay: bool = False):
               "holds")
 
 
+def pinned_boundary(pin):
+    """``bottleneck.boundary_mixed`` in its plain version (the arithmetic
+    of ``kernels.ref.boundary_mixed_ref``, every row's codes exposed) with
+    the codes passed through ``pin``."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    def boundary(stacked, x, mode_idx, *, dtype=torch.bfloat16, mesh=None):
+        M = stacked["width"].shape[0]
+        hid = torch.clamp(mode_idx.long() - 1, 0, M - 1)
+        h = ref._rms(x.float()) * stacked["norm_scale"][hid][:, None,
+                                                             :].float()
+        z = torch.einsum("bsd,bdw->bsw", h.to(x.dtype),
+                         stacked["down_w"][hid]).float()
+        lane = torch.arange(z.shape[-1], device=x.device)
+        z = torch.where(lane[None, None, :]
+                        < stacked["width"][hid][:, None, None], z, 0.0)
+        bits = stacked["bits"][hid][:, None, None]
+        qm = torch.clamp(torch.bitwise_left_shift(
+            torch.ones_like(bits), torch.clamp(bits, min=1) - 1) - 1,
+            min=1).float()
+        scale = torch.clamp(torch.amax(torch.abs(z), dim=-1, keepdim=True),
+                            min=1e-8) / qm
+        q = pin(torch.maximum(torch.minimum(torch.round(z / scale), qm),
+                              -qm))
+        wired = torch.where(bits == 0, z, q * scale)
+        y = torch.einsum("bsw,bwd->bsd", wired.to(dtype),
+                         stacked["up_w"][hid])
+        return torch.where(mode_idx[:, None, None] == 0, x, y.to(x.dtype))
+
+    return boundary
+
+
+@contextlib.contextmanager
+def codes(tape: list, replay: bool = False):
+    """The wire's integer codes while the block runs: each code tensor the
+    boundary makes (``quant.quantize``: the sync engine's wire, the
+    trainer's straight-through boundary; the continuous engine's boundary
+    in its plain version, ``pinned_boundary``) is appended to ``tape`` as
+    int8, or with ``replay`` replaced by ``tape``'s in order, each for a
+    call of the same shape, the scales staying the run's own. One
+    device's codes replayed on a mesh take out the discrete step a
+    reassociation flips at a rounding edge, as ``routes`` does for MoE
+    routing; the block must make as many calls as the tape holds."""
+    import torch
+
+    from repro_torch.core import bottleneck, quant
+    played = iter(tape) if replay else None
+
+    def pin(q):
+        if played is None:
+            tape.append(q.to(torch.int8, copy=True))
+            return q
+        out = next(played, None)
+        check(out is not None and out.shape == q.shape,
+              f"codes: a call on {tuple(q.shape)} where the tape holds "
+              f"{None if out is None else tuple(out.shape)}")
+        return out.to(q.dtype)
+
+    orig = quant.quantize
+
+    def quantize(x, bits: int = 8):
+        q, scale = orig(x, bits)
+        return (q, scale) if bits == 0 else (pin(q), scale)
+
+    with patched(quant, "quantize", quantize), \
+            patched(bottleneck, "boundary_mixed", pinned_boundary(pin)):
+        yield tape
+    if played is not None:
+        check(next(played, None) is None,
+              "codes: the block made fewer quantizing calls than the tape "
+              "holds")
+
+
 def int8_cache(params, cfg, dev, seed: int) -> dict:
     """The int8 rolling cache at full width (musicgen-large: full MHA, the
     larger state a token of the two frontend archs; mixtral-8x7b, whose
@@ -4213,8 +4314,10 @@ MESH_TIMEOUT = 600
 
 def taped_engine():
     """The continuous engine recording each unfused step's live slots (by
-    request) and the float32 logits of every row it decodes, without
-    warm-up (the check reads values, not times)."""
+    request) and the float32 logits of every row it decodes, and each
+    request's prefill logits (``prefill``, by request), without warm-up
+    (the check reads values, not times)."""
+    from repro_torch.core import split as SP
     from repro_torch.serving import ContinuousBatchingEngine
 
     class Taped(ContinuousBatchingEngine):
@@ -4223,10 +4326,26 @@ def taped_engine():
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.tape = []
+            self.prefill = {}
             Taped.last = self
 
         def warm(self, prompt, gen: int = 2):
             self.reset_counters()
+
+        def _prefill_group(self, blen, group):
+            logits = []
+            orig = SP.split_prefill_mixed
+
+            def prefill(*a, **kw):
+                out = orig(*a, **kw)
+                logits.append(out[0])
+                return out
+
+            with patched(SP, "split_prefill_mixed", prefill):
+                out = super()._prefill_group(blen, group)
+            for i, item in enumerate(group):        # (request, slot, ...)
+                self.prefill[item[0].rid] = logits[0][i, 0].float()
+            return out
 
         def _decode(self, tok, positions, modes, bt, return_tokens):
             out = super()._decode(tok, positions, modes, bt, return_tokens)
@@ -4241,14 +4360,34 @@ def taped_engine():
 
 def mp_against_one_device(base, got) -> dict:
     """The mp rule (``TOL["mp_logit_rel"]``) on two taped engines: the
-    same schedule and accounting, each live row's logits within the
-    tolerance until its request's stream parts, and a stream parting only
-    at a near tie."""
+    same schedule and accounting, each request's prefill logits and each
+    live row's logits within the tolerance until its request's stream
+    parts, and a stream parting only at a near tie: where one device's
+    top-two gap, in the logits that chose the token (the prefill's for
+    the first), is within twice that share, as the sync engine's rule
+    (``mp_sync_against_one_device``) reads its prefill row."""
     want = {s.request.rid: s for s in base.finished}
     have = {s.request.rid: s for s in got.finished}
     check(set(want) == set(have) and len(want) == 8,
           f"mp (1, 2): {len(have)} requests finished, one device {len(want)}")
-    parted = {}
+    tol = TOL["mp_logit_rel"]
+    worst, rows, gaps = 0.0, 0, []
+
+    def near_tie(a, what: str) -> None:
+        top = float(a.abs().max())
+        two = a.topk(2).values
+        gaps.append(float(two[0] - two[1]) / max(top, 1e-30))
+        check(gaps[-1] <= 2 * tol,
+              f"mp (1, 2): {what} where one device's top-two gap is "
+              f"{gaps[-1]:.4g} of the largest logit (limit {2 * tol}; "
+              f"the rows so far within {worst:.4g})")
+
+    for rid in want:
+        a, b = base.prefill[rid], got.prefill[rid]
+        top = float(a.abs().max())
+        worst = max(worst, float((a - b).abs().max()) / max(top, 1e-30))
+        rows += 1
+    parted, at_prefill = {}, 0
     for rid, w in want.items():
         h = have[rid]
         check((h.finished_tick, h.wire_bytes, h.mode_counts, len(h.tokens))
@@ -4258,13 +4397,14 @@ def mp_against_one_device(base, got) -> dict:
         i = next((i for i, (a, b) in enumerate(zip(h.tokens, w.tokens))
                   if a != b), None)
         if i is not None:
-            check(i > 0, f"mp (1, 2): request {rid}'s prefill token differs")
+            if i == 0:
+                near_tie(base.prefill[rid],
+                         f"request {rid} parts at its prefill token")
+                at_prefill += 1
             parted[rid] = w.admitted_tick + i - 1
     check(len(base.tape) == len(got.tape),
           f"mp (1, 2): {len(got.tape)} decode steps, one device "
           f"{len(base.tape)}")
-    tol = TOL["mp_logit_rel"]
-    worst, rows, gaps = 0.0, 0, []
     for t, ((live, a), (glive, b)) in enumerate(zip(base.tape, got.tape)):
         check(live == glive, f"mp (1, 2): step {t} decodes other slots")
         for s, rid in live.items():
@@ -4275,30 +4415,21 @@ def mp_against_one_device(base, got) -> dict:
             worst = max(worst, rel)
             rows += 1
             if t == parted.get(rid):
-                two = a[s].topk(2).values
-                gaps.append(float(two[0] - two[1]) / max(top, 1e-30))
-                check(gaps[-1] <= 2 * tol,
-                      f"mp (1, 2): request {rid} parts at step {t} where "
-                      f"one device's top-two gap is {gaps[-1]:.4g} of the "
-                      f"largest logit (limit {2 * tol})")
+                near_tie(a[s], f"request {rid} parts at step {t}")
     check(worst <= tol, f"mp (1, 2): logits differ by {worst:.4g} of the "
                         f"row's largest |logit| (limit {tol})")
     return {"rows_compared": rows, "worst_logit_rel": worst,
-            "requests_parted": len(parted), "parting_gaps_rel": gaps,
-            "tolerance_rel": tol}
+            "requests_parted": len(parted),
+            "parted_at_prefill_token": at_prefill,
+            "parting_gaps_rel": gaps, "tolerance_rel": tol}
 
 
 def mesh_runs():
     """The gloo runs of phase 16, in order: (label, function of the rank)
     on the two ranks' world (every rank on cuda:0)."""
-    def serve(argv, profiled: bool = False):
-        """``launch.serve.main``; ``profiled``: each rank's measured run
-        under the profiler (``profile_runs``), which slows the host-bound
-        run about 3x (so only qwen2.5-3b's dp layout, for the script's
-        time)."""
+    def serve(argv):
         from repro_torch.launch import serve as S
-        return S.main(argv + (["--profile-dir", str(ROOT / "build")]
-                              if profiled else []))
+        return S.main(argv)
 
     def mp2(rank):
         import torch.distributed as dist
@@ -4326,7 +4457,7 @@ def mesh_runs():
 
     return (
         ("qwen2.5-3b continuous dp2", lambda r: {"summary": serve(
-            SERVE["qwen2.5-3b"] + ["--dp", "2", *MESH_GLOO], True)}),
+            SERVE["qwen2.5-3b"] + ["--dp", "2", *MESH_GLOO])}),
         ("qwen2.5-3b continuous mp2", mp2),
         ("qwen2.5-3b sync dp2", lambda r: {"summary": serve(
             SYNC["qwen2.5-3b"] + ["--dp", "2", *MESH_GLOO])}),
@@ -4336,21 +4467,6 @@ def mesh_runs():
             MESH_CLUSTER + ["--dp", "1", "--mp", "1", *MESH_GLOO])}),
         ("qwen2.5-3b slot-scaling", bench),
     )
-
-
-def profile_runs() -> None:
-    """Make this process's launcher runs (``--profile-dir``) profile the
-    measured run's device kernels only, summarized without a trace file:
-    each rank's busy time and idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.launch import serve as S
-    S.make_profiler = lambda args, dev: (
-        profile(activities=[ProfilerActivity.CUDA]) if args.profile_dir
-        else None)
-    S.profile_extra = lambda args, prof, seconds: (
-        {} if prof is None else {"profile": S.profile_summary(prof,
-                                                              seconds)})
 
 
 def mesh_rank(rank: int, world: int, port: int, queue) -> None:
@@ -4367,7 +4483,6 @@ def mesh_rank(rank: int, world: int, port: int, queue) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.set_device(0)
-        profile_runs()
         dist.init_process_group(
             "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
             world_size=world,
@@ -4382,7 +4497,6 @@ def mesh_rank(rank: int, world: int, port: int, queue) -> None:
             res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             s = res.get("summary")
             if s is not None:               # what the checks read
-                res["profile"] = s.get("profile")
                 res["summary"] = {k: s[k] for k in (
                     "tokens", "generated", "requests_finished",
                     "decode_tok_per_s", "seconds", "mode_counts",
@@ -4579,13 +4693,6 @@ def mesh_checks(ranks: dict, one: dict):
         if per[0].get("summary") is not None:
             runs[label]["tok_per_s_by_rank"] = [
                 p["summary"].get("decode_tok_per_s") for p in per]
-        if per[0].get("profile"):
-            runs[label]["per_rank"] = [
-                {"decode_tok_per_s": p["summary"].get("decode_tok_per_s"),
-                 "device_busy_s": p["profile"]["device_busy_s"],
-                 "device_idle_share": p["profile"]["device_idle_share"],
-                 "kernel_launches": p["profile"]["kernel_launches"]}
-                for p in per]
         s = per[0].get("summary")
         if s is not None:
             runs[label].update(
@@ -4691,18 +4798,20 @@ def phase_mesh(dev, seed: int, iters: int, smi: str) -> dict:
 
 #: (a) and (b): launch.train's Algorithm 1 on qwen2.5-3b at full width,
 #: [4, 128], two steps a phase, cut in depth by the model axis: (a) at mp
-#: 2 to 12 of 36 layers (time: each layer adds six host-staged all_reduces
+#: 2 to 8 of 36 layers (time: each layer adds six host-staged all_reduces
 #: a step and its slices to the checkpoint gathered over gloo and written
 #: by rank 0, and the one-device reference and its control run at the
-#: same depth; all 36 would add about 90 s, past the phase's room); (b) at
-#: dp 2 to 4 layers (time: dp 2 averages every gradient in float32 through
-#: the host each step, 5.0 GB at 8 layers, 7.5 s a step; and memory: two
-#: whole replicas with their AdamW state share the card). The one-device
-#: run at the same depth and arguments is the reference (rank 0 alone,
-#: before the mesh runs)
+#: same depth; 12 layers took 63.5 s of phase 17 on a slow host, whose
+#: script read 1,290 of its 1,200 s); (b) at
+#: dp 2 to 2 layers (time: dp 2 moves every gradient in float32 through
+#: the host each step, 5.0 GB at 8 layers, 7.5 s a step, and under FSDP
+#: also gathers each layer's weights twice a step as int32 buffers of the
+#: whole leaf: 7.8 s a step at 4 layers; phase 18 needed the room). The
+#: one-device run at the same depth and arguments is the reference (rank
+#: 0, while rank 1 runs the control, before the mesh runs)
 P17_TRAIN = ["--arch", "qwen2.5-3b", "--cascade", "--steps", "2", "--batch",
              "4", "--seq", "128"]
-P17_TRAIN_LAYERS = {2: 12, 1: 4}
+P17_TRAIN_LAYERS = {2: 8, 1: 2}
 #: each logged loss of a mesh run within this share of the one-device
 #: run's: the mp run rounds each row-split output's two bf16 partial
 #: products where one device rounds one GEMM, and dp sums the gradients in
@@ -4776,8 +4885,10 @@ def replicated_same(local, mesh, cfg, stages: bool = False) -> int:
     import torch
     import torch.distributed as dist
 
+    from repro_torch.core.split import param_shapes
     from repro_torch.models import sharding
-    split = sharding.split_axes(local, mesh, cfg=cfg, stages=stages)
+    split = sharding.split_axes(local, mesh, cfg=cfg,
+                                shapes=param_shapes(cfg), stages=stages)
     n, bad = 0, []
     for (path, a), (_, s) in zip(sharding._path_leaves(local),
                                  sharding._path_leaves(split)):
@@ -4794,6 +4905,67 @@ def replicated_same(local, mesh, cfg, stages: bool = False) -> int:
     check(int(flag) == 0, f"rank {dist.get_rank()}: replicated leaves "
                           f"differ from rank 0's: {bad[:5]}")
     return n
+
+
+def _tree_pairs(tree, other, prefix: str = ""):
+    """(path, leaf of ``tree``, the node of ``other`` at that path), with
+    ``tree`` driving the walk (a spec tree's tuples are its leaves)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_pairs(v, other[k], f"{prefix}/{k}" if prefix
+                                   else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_pairs(v, other[i], f"{prefix}/{i}" if prefix
+                                   else str(i))
+    else:
+        yield prefix, tree, other
+
+
+def fsdp_layout(local, state, mesh, cfg, hist) -> dict:
+    """Phase 18 (d) on phase 17 (b)'s (data 2, model 1) mesh: each leaf
+    this rank holds, and its AdamW m and v, have the local shape of the
+    spec the reference's rules give (``sharding.param_pspecs``, held to
+    the JAX package's leaf by leaf in ``tests/test_torch_train_sharding.py``)
+    on this mesh, from the whole shapes (the init on fake tensors); this
+    rank's parameter and AdamW bytes, measured, against the layout the
+    launcher reports (``rank_bytes``) and beside the layout without FSDP
+    (weights whole over data)."""
+    from repro_torch.core.split import abstract_split_params
+    from repro_torch.models import sharding
+    whole = abstract_split_params(cfg)
+    specs = sharding.param_pspecs(whole, mesh, stacked_layers=cfg.homogeneous)
+    have = {p: a for p, a in sharding._path_leaves(local)}
+    ms = {p: a for p, a in sharding._path_leaves(state.m)}
+    vs = {p: a for p, a in sharding._path_leaves(state.v)}
+    n_split, bad = 0, []
+    for path, meta, spec in _tree_pairs(whole, specs):
+        want = []
+        for dim, axis in zip(meta.shape, tuple(spec) + (None,) * meta.dim()):
+            axes = axis if isinstance(axis, tuple) else (axis,)
+            n = math.prod(mesh.shape[a] for a in axes if a is not None
+                          and not (a == "model"
+                                   and not path.startswith("layers/")))
+            want.append(dim // n)
+        got = tuple(have[path].shape)
+        n_split += got != tuple(meta.shape)
+        if not got == tuple(ms[path].shape) == tuple(vs[path].shape) \
+                == tuple(want):
+            bad.append((path, got, want))
+    check(not bad, f"fsdp (2, 1): local shapes differ from the reference "
+                   f"specs': {bad[:3]}")
+    check(n_split > 0, "fsdp (2, 1): no leaf split over data")
+    measured = {"params": sum(a.numel() * a.element_size()
+                              for a in have.values()),
+                "adam": sum(a.numel() * a.element_size()
+                            for a in (*ms.values(), *vs.values()))}
+    check(measured == hist["mesh"]["rank_bytes"],
+          f"fsdp (2, 1): measured bytes {measured} != the layout's "
+          f"{hist['mesh']['rank_bytes']}")
+    return {"leaves": len(have), "leaves_split_over_data": n_split,
+            "rank_bytes": measured,
+            "rank_bytes_unsharded_data":
+                hist["mesh"]["rank_bytes_unsharded_data"]}
 
 
 def logged_losses(hist) -> list:
@@ -4820,6 +4992,7 @@ def p17_train(rank: int, mp: int) -> dict:
     from repro_torch.models import sharding
     from repro_torch.training import checkpoint
     from repro_torch.training import loop as L
+    from repro_torch.training import optimizer as O
     cfg = cut_config("qwen2.5-3b", P17_TRAIN_LAYERS[mp])
     dev = torch.device(P17_DEVICE)
     argv = P17_TRAIN + ["--device", P17_DEVICE, "--dist-backend", "gloo"]
@@ -4827,19 +5000,22 @@ def p17_train(rank: int, mp: int) -> dict:
     tol = TOL["train_mp_loss_rel"]
     ref = {}
     with patched(TLaunch, "get_config", lambda name: cfg):
+        # the one-device reference on rank 0 and its update-off control
+        # on rank 1, at once (each alone on the card's memory it needs)
+        lr = ["--lr", "0"] if rank == 1 else []
+        args = TLaunch.parser().parse_args(
+            argv + lr + ["--ckpt-dir", str(base / f"one{rank}")])
+        with patched(checkpoint, "save", lambda *a, **kw: None):
+            run = TLaunch._train(args, dev, None)
+        free_cuda()
+        runs = [None, None]
+        dist.all_gather_object(runs, {
+            "logs": logged_losses(run), "ms_per_step": run["ms_per_step"],
+            "peak": run.get("peak_memory_bytes")})
+        del run
         if rank == 0:
-            runs = {}
-            for label, lr in (("one_device", []), ("lr0", ["--lr", "0"])):
-                args = TLaunch.parser().parse_args(
-                    argv + lr + ["--ckpt-dir", str(base / "one")])
-                with patched(checkpoint, "save", lambda *a, **kw: None):
-                    runs[label] = TLaunch._train(args, dev, None)
-                free_cuda()
-            one = runs["one_device"]
-            ref = {"logs": logged_losses(one),
-                   "ms_per_step": one["ms_per_step"],
-                   "peak": one.get("peak_memory_bytes"),
-                   "lr0_logs": logged_losses(runs["lr0"])}
+            one, lr0 = runs
+            ref = {**one, "lr0_logs": lr0["logs"]}
             ref["lr0_worst_rel"] = max(
                 abs(a - b) / abs(b) for la, lb in zip(ref["lr0_logs"],
                                                       ref["logs"])
@@ -4848,22 +5024,32 @@ def p17_train(rank: int, mp: int) -> dict:
                   f"train mp {mp}: the one-device run with the update off "
                   f"parts from the reference by {ref['lr0_worst_rel']:.3g}, "
                   f"not more than the limit {tol}")
-            del runs, one
         dist.barrier()
         held: dict = {}
         orig = sharding.gather_train_params
+        orig_init = O.init
 
         def gather(local, mesh, **kw):
             held.update(local=local, mesh=mesh)
             return orig(local, mesh, **kw)
 
+        def init(params):
+            held["state"] = orig_init(params)
+            return held["state"]
+
         layout = ["--mp", "2"] if mp == 2 else ["--dp", "2"]
         ck_dir = base / f"mesh{mp}"
         t0 = time.perf_counter()
-        with patched(sharding, "gather_train_params", gather):
+        with patched(sharding, "gather_train_params", gather), \
+                patched(O, "init", init):
             hist = TLaunch.main(argv + layout + ["--ckpt-dir", str(ck_dir)])
         wall = time.perf_counter() - t0
-    n_rep = replicated_same(held.pop("local"), held.pop("mesh"), cfg)
+    local, mesh = held.pop("local"), held.pop("mesh")
+    n_rep = replicated_same(local, mesh, cfg)
+    fsdp = (fsdp_layout(local, held.pop("state"), mesh, cfg, hist)
+            if mp == 1 else None)
+    held.clear()
+    del local
     free_cuda()
     out = {"n_layers": cfg.n_layers, "wall_s": wall,
            "ms_per_step": hist["ms_per_step"],
@@ -4872,7 +5058,7 @@ def p17_train(rank: int, mp: int) -> dict:
            "collective_bytes_per_step":
                hist["mesh"]["collective_bytes_per_step"],
            "logged_losses": logged_losses(hist),
-           "replicated_leaves_held": n_rep}
+           "replicated_leaves_held": n_rep, "fsdp": fsdp}
     if rank == 0:
         got = out["logged_losses"]
         worst = max(abs(a - b) / abs(b) for la, lb in zip(got, ref["logs"])
@@ -5209,7 +5395,8 @@ def p17_serve(rank: int) -> dict:
                 S.main(argv + one)
             # keep its sessions, tape and routes, not its weights
             base = types.SimpleNamespace(finished=Taped.last.finished,
-                                         tape=Taped.last.tape)
+                                         tape=Taped.last.tape,
+                                         prefill=Taped.last.prefill)
             Taped.last = None
             tape = [[tuple(t.cpu() for t in r) for r in ref_routes]]
             free_cuda()
@@ -5220,7 +5407,8 @@ def p17_serve(rank: int) -> dict:
                 routes(pinned, replay=True):
             taped = S.main(argv + ["--mp", "2", *gloo])
         got = types.SimpleNamespace(finished=Taped.last.finished,
-                                    tape=Taped.last.tape)
+                                    tape=Taped.last.tape,
+                                    prefill=Taped.last.prefill)
         Taped.last = None
         del pinned
         free_cuda()
@@ -5261,10 +5449,11 @@ def p17_runs():
     )
 
 
-def p17_rank(rank: int, world: int, port: int, queue) -> None:
-    """One gloo rank of phase 17 on cuda:0: every run of ``p17_runs`` with
-    the launch counters at 0 just before and read just after, its seconds
-    and peak memory; its results (or its error) to the parent."""
+def p17_rank(rank: int, world: int, port: int, queue, runs=None) -> None:
+    """One gloo rank of phase 17 (or of phase 18's ``runs``) on cuda:0:
+    every run of ``p17_runs`` with the launch counters at 0 just before
+    and read just after, its seconds and peak memory; its results (or its
+    error) to the parent."""
     import datetime
     import traceback
     out = {}
@@ -5282,7 +5471,7 @@ def p17_rank(rank: int, world: int, port: int, queue) -> None:
             "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
             world_size=world,
             timeout=datetime.timedelta(seconds=P17_TIMEOUT))
-        for label, run, _ in p17_runs():
+        for label, run, _ in (runs or p17_runs)():
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             fns = zero_counts()
@@ -5294,7 +5483,7 @@ def p17_rank(rank: int, world: int, port: int, queue) -> None:
             res["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                               if cuda else None)
             if rank == 0:
-                print(json.dumps({"p17_run": label,
+                print(json.dumps({"mesh_run": label,
                                   "seconds": res["seconds"],
                                   "peak_gb": res["peak_gb"]}), flush=True)
             out[label] = res
@@ -5344,6 +5533,542 @@ def phase_train_mesh(dev, seed: int, iters: int, smi: str) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the recurrent mixers over mp, FSDP over data
+# ---------------------------------------------------------------------------
+
+RG, XL = "recurrentgemma-2b", "xlstm-125m"
+P18_ARCHS = (RG, XL)
+#: (k): rglru_scan at the rank shapes of (a) and (b): recurrentgemma-2b's
+#: RG-LRU prefill at d_rnn / 2 (the main path's [4, 16]) and xlstm-125m's
+#: mLSTM normalizer at 2 of its 4 heads (768 channels, h0 carried)
+P18_SCANS = {f"{RG} mp2 prefill": ((4, 16, 1280), False),
+             f"{XL} mp2 normalizer": ((4, 16, 768), True)}
+#: (c): launch.train's Algorithm 1 at mp 2 with phase 17 (a)'s arguments
+#: ([4, 128], two steps a phase, the launcher's learning rate), at these
+#: depths (0: all). recurrentgemma-2b cut to 6 of 26 layers, two
+#: of its (rglru, rglru, attn) patterns (time: the one-device reference,
+#: its control and the mesh run share the card and the host with the
+#: serving runs; memory: each makes the 256,000-row embedding, its AdamW
+#: state and [4, 128, 256000] float32 logits)
+P18_TRAIN = ["--cascade", "--steps", "2", "--batch", "4", "--seq", "128"]
+P18_TRAIN_LAYERS = {RG: 6, XL: 0}
+P18_GLOO = ["--dist-backend", "gloo", "--device", P17_DEVICE]
+#: where the helpers leave their one-device wire codes (``codes``) for
+#: the mesh runs to replay: a file a tape, "<job>.pt", or "<job>.err" if
+#: the helper failed first
+P18_TAPES = ROOT / "build" / "p18" / "tapes"
+#: the runs on the mesh, a world of two gloo ranks each line, (arch, run)
+#: in order
+P18_WORLDS = (((RG, "serve"), (RG, "train")),
+              ((XL, "train"), (XL, "serve")))
+#: the one-device references, a helper process each line: the serving
+#: runs' taped engines, the training runs and their update-off controls
+P18_HELPERS = ((f"{RG} serve", f"{RG} train", f"{RG} train lr0"),
+               (f"{XL} train", f"{XL} serve"), (f"{XL} train lr0",))
+#: the worlds and helper lines that start at phase 16 and share its time
+#: (xlstm-125m's: a few GB on the card, the script's longest host-bound
+#: leg, done before phase 17's MoE runs need the card's memory)
+P18_EARLY = {"worlds": (1,), "helpers": (1, 2)}
+#: the kernels each arch's served runs on the mesh must launch
+P18_KERNELS = ("rglru_scan", "boundary_mixed_grouped", "decode_tail_grouped")
+
+
+def p18_scans(dev, seed: int, iters: int) -> dict:
+    """(k): ``rglru_scan`` at ``P18_SCANS``' rank shapes (decays in (0.9,
+    1), random inputs) bit for bit against its plain version, timed beside
+    it and its byte bound (12 bytes a step a channel, plus h0). No single
+    PyTorch call computes the recurrence: no library time."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as RS
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    flush = l2_flusher(dev)
+    out = {}
+    for label, ((B, S, D), with_h0) in P18_SCANS.items():
+        a = 0.9 + 0.1 * torch.rand((B, S, D), generator=gen, device=dev)
+        b = torch.randn((B, S, D), generator=gen, device=dev)
+        h0 = (torch.randn((B, D), generator=gen, device=dev) if with_h0
+              else None)
+        hk = RS.rglru_scan(a, b, h0)
+        hr = ref.rglru_scan_ref(a, b, h0)
+        torch.cuda.synchronize()
+        err = float((hk - hr).abs().max())
+        check(torch.equal(hk, hr) and bool(torch.isfinite(hk).all()),
+              f"rglru_scan {label}: not bit for bit (max error {err})")
+        row = {"timed_shape": [B, S, D], "h0": with_h0, "max_abs_err": err,
+               "plan": RS.rglru_scan.last_plan._asdict(),
+               "ms": time_ms(lambda: RS.rglru_scan(a, b, h0), iters, flush),
+               "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, b, h0),
+                                   max(iters // 5, 3), flush),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = bound(
+            3 * B * S * D * 4 + (B * D * 4 if with_h0 else 0), 2 * B * S * D,
+            "float32")
+        out[label] = row
+    return out
+
+
+def light_sessions(finished) -> list:
+    """Finished sessions as the mp rule reads them, picklable."""
+    return [types.SimpleNamespace(
+        request=types.SimpleNamespace(rid=s.request.rid),
+        tokens=[int(t) for t in s.tokens], finished_tick=s.finished_tick,
+        wire_bytes=s.wire_bytes, mode_counts=dict(s.mode_counts),
+        admitted_tick=s.admitted_tick) for s in finished]
+
+
+def taped_sync_engine():
+    """The sync engine recording the float32 logits of its prefill and of
+    every decode step, each step's tokens their argmax (the logits chain
+    in place of the fused tail)."""
+    import torch
+
+    from repro_torch.serving import ServingEngine
+
+    class TapedSync(ServingEngine):
+        last = None
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.tape = []
+            TapedSync.last = self
+
+        def prefill(self, tokens):
+            logits = super().prefill(tokens)
+            self.tape.append(logits[:, 0].float())
+            return logits
+
+        def _step(self, mode, return_tokens: bool = False):
+            step = super()._step(mode, False)
+            if not return_tokens:
+                return step
+
+            def taped(params, token, states, cur_pos):
+                logits, states = step(params, token, states, cur_pos)
+                self.tape.append(logits[:, 0].float())
+                return torch.argmax(logits, dim=-1).to(torch.int32), states
+            return taped
+
+    return TapedSync
+
+
+def put_tape(job: str, tape) -> None:
+    """A helper's one-device codes for ``job`` (a list of tensors, or an
+    error's text) where the mesh runs wait for them (``P18_TAPES``),
+    written whole before they appear."""
+    import torch
+    P18_TAPES.mkdir(parents=True, exist_ok=True)
+    if isinstance(tape, str):
+        (P18_TAPES / f"{job}.err").write_text(tape)
+        return
+    tmp = P18_TAPES / f"{job}.tmp"
+    torch.save([t.cpu() for t in tape], tmp)
+    os.replace(tmp, P18_TAPES / f"{job}.pt")
+
+
+def get_tape(job: str) -> list:
+    """One device's codes for ``job`` on ``P17_DEVICE``, waiting for the
+    helper that makes them (at most ``MESH_TIMEOUT`` seconds)."""
+    import torch
+    path = P18_TAPES / f"{job}.pt"
+    end = time.monotonic() + MESH_TIMEOUT
+    while not path.exists():
+        err = P18_TAPES / f"{job}.err"
+        check(not err.exists(), f"phase 18 {job}: the one-device run "
+                                f"failed: {err.read_text() if err.exists() else ''}")
+        check(time.monotonic() < end, f"phase 18 {job}: no one-device "
+                                      f"codes after {MESH_TIMEOUT} s")
+        time.sleep(0.2)
+    return [t.to(P17_DEVICE) for t in torch.load(path)]
+
+
+def wire_codes(job: str, pinned):
+    """``codes`` for a held run: on one device (``pinned`` None) taped
+    and left for the mesh (``put_tape``) when the block ends; on the mesh
+    the helper's tape, replayed."""
+    if pinned is not None:
+        return codes(pinned, replay=True)
+
+    @contextlib.contextmanager
+    def taped():
+        with codes([]) as tape:
+            yield tape
+        put_tape(job, tape)
+    return taped()
+
+
+def p18_taped_runs(argv_extra: list, arch: str, pinned=None) -> dict:
+    """The arch's continuous engine, taped and unfused, and its sync
+    engine, taped, through ``launch.serve`` with ``argv_extra``, the
+    wire's codes taped on one device and replayed on the mesh
+    (``wire_codes``; ``pinned``: {"continuous": tape, "sync": tape}):
+    their sessions and tapes on the host (numpy: a tensor would travel to
+    the parent as a shared-memory handle, which dies with its process)."""
+    from repro_torch.launch import serve as S
+    Taped, TapedSync = taped_engine(), taped_sync_engine()
+    pinned = pinned or {}
+    with serve_engine(Taped, fused_tail=False), wire_codes(
+            f"{arch} serve continuous", pinned.get("continuous")):
+        cont = S.main(SERVE[arch] + argv_extra)
+    eng, Taped.last = Taped.last, None
+    out = {"continuous": {
+        "finished": light_sessions(eng.finished),
+        "tape": [(live, x.cpu().numpy()) for live, x in eng.tape],
+        "prefill": {rid: x.cpu().numpy() for rid, x in eng.prefill.items()}},
+        "continuous_summary": {k: cont.get(k) for k in (
+            "requests_finished", "decode_tok_per_s", "mode_counts",
+            "wire_bytes")}}
+    del eng
+    free_cuda()
+    with patched(S, "ServingEngine", TapedSync), wire_codes(
+            f"{arch} serve sync", pinned.get("sync")):
+        sync = S.main(SYNC[arch] + argv_extra)
+    eng, TapedSync.last = TapedSync.last, None
+    out["sync"] = {"tape": [x.cpu().numpy() for x in eng.tape],
+                   "stats": (eng.stats.tokens, eng.stats.wire_bytes,
+                             dict(eng.stats.mode_counts))}
+    out["sync_summary"] = {k: sync.get(k) for k in (
+        "decode_tok_per_s", "wire_bytes", "mode_counts")}
+    del eng
+    free_cuda()
+    return out
+
+
+def p18_serve(rank: int, arch: str) -> dict:
+    """(a) / (b) on a rank of the (1, 2) mesh: the fused continuous
+    engine, which launches the boundary and the tail, then the taped runs
+    on one device's codes (``p18_taped_runs``; rank 0's tapes go to the
+    parent)."""
+    from repro_torch.launch import serve as S
+    fused = S.main(SERVE[arch] + ["--mp", "2", *P18_GLOO])
+    free_cuda()
+    pinned = {run: get_tape(f"{arch} serve {run}")
+              for run in ("continuous", "sync")}
+    out = p18_taped_runs(["--mp", "2", *P18_GLOO], arch, pinned)
+    del pinned
+    if rank != 0:
+        for k in ("continuous", "sync"):
+            out[k].pop("tape")
+        out["continuous"].pop("prefill")
+    out["fused"] = {k: fused.get(k) for k in (
+        "tokens", "requests_finished", "decode_tok_per_s", "mode_counts",
+        "wire_bytes")}
+    return out
+
+
+def p18_launch_train(arch: str, argv_extra: list, hold=None,
+                     wire=contextlib.nullcontext()) -> dict:
+    """``launch.train.main`` on the arch cut to ``P18_TRAIN_LAYERS``, the
+    checkpoint not written (the CPU tests restore one), inside ``wire``
+    (``wire_codes``: the boundary's codes taped or replayed); ``hold``: a
+    dict that gets the rank's slices and mesh (``gather_train_params``'
+    arguments)."""
+    from repro_torch.launch import train as TLaunch
+    from repro_torch.models import sharding
+    from repro_torch.training import checkpoint
+    cfg = cut_config(arch, P18_TRAIN_LAYERS[arch])
+    orig = sharding.gather_train_params
+
+    def gather(local, mesh, **kw):
+        if hold is not None:
+            hold.update(local=local, mesh=mesh)
+        return orig(local, mesh, **kw)
+
+    t0 = time.perf_counter()
+    with patched(TLaunch, "get_config", lambda name: cfg), \
+            patched(sharding, "gather_train_params", gather), \
+            patched(checkpoint, "save", lambda *a, **kw: None), wire:
+        hist = TLaunch.main(["--arch", arch, *P18_TRAIN, *argv_extra,
+                             "--ckpt-dir", str(ROOT / "build" / "p18")])
+    return {"n_layers": cfg.n_layers, "wall_s": time.perf_counter() - t0,
+            "logged_losses": logged_losses(hist),
+            "ms_per_step": hist["ms_per_step"],
+            "peak_memory_bytes": hist.get("peak_memory_bytes"),
+            "mesh": hist.get("mesh")}
+
+
+def p18_train(rank: int, arch: str) -> dict:
+    """(c) on a rank of the (data 1, model 2) mesh: ``launch.train
+    --cascade --mp 2`` on one device's boundary codes; the whole leaves
+    bit-identical across the ranks at the end."""
+    held: dict = {}
+    out = p18_launch_train(arch, ["--mp", "2", *P18_GLOO], held,
+                           wire_codes(f"{arch} train",
+                                      get_tape(f"{arch} train")))
+    out["replicated_leaves_held"] = replicated_same(
+        held.pop("local"), held.pop("mesh"),
+        cut_config(arch, P18_TRAIN_LAYERS[arch]))
+    free_cuda()
+    return out
+
+
+def p18_runs(world: int):
+    """Phase 18's runs on the two ranks of ``P18_WORLDS[world]``, in
+    order: (label, function of the rank, the kernels its path must
+    launch)."""
+    fns = {"serve": (p18_serve, P18_KERNELS), "train": (p18_train, ())}
+    return tuple((f"{arch} {run} mp2",
+                  lambda r, fn=fns[run][0], arch=arch: fn(r, arch),
+                  fns[run][1]) for arch, run in P18_WORLDS[world])
+
+
+def p18_helper(index: int, world: int, port: int, queue,
+               lines=None) -> None:
+    """One process of phase 18's one-device references
+    (``P18_HELPERS[lines[index]]``) on cuda:0; its results (or its error)
+    to the parent."""
+    import traceback
+    out = {}
+    line = lines[index]
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if torch.device(P17_DEVICE).type == "cuda":
+            torch.cuda.set_device(torch.device(P17_DEVICE))
+        for job in P18_HELPERS[line]:
+            arch, kind = job.split(" ", 1)
+            t0 = time.perf_counter()
+            if kind == "serve":
+                res = p18_taped_runs(["--device", P17_DEVICE], arch)
+            elif kind == "train":
+                res = p18_launch_train(arch, ["--device", P17_DEVICE],
+                                       wire=wire_codes(job, None))
+            else:
+                res = p18_launch_train(arch, ["--device", P17_DEVICE,
+                                              "--lr", "0"])
+            res["seconds"] = time.perf_counter() - t0
+            out[job] = res
+            free_cuda()
+        queue.put((line, out))
+    except BaseException:
+        err = traceback.format_exc()
+        for job in P18_HELPERS[line]:       # the mesh runs waiting fail
+            for run in ((" continuous", " sync") if job.endswith("serve")
+                        else ("",)):
+                put_tape(job + run, err)
+        queue.put((line, {"error": err}))
+
+
+def p18_start(early: bool) -> dict:
+    """Start phase 18's worlds and helper processes, ``P18_EARLY``'s
+    (``early``) or the others: {"worlds": {index: started}, "helpers":
+    started} (``start_mesh``'s, for ``collect_mesh``). The early start
+    clears ``P18_TAPES`` first."""
+    import functools
+    import shutil
+    if early:
+        shutil.rmtree(P18_TAPES, ignore_errors=True)
+    ws = [w for w in range(len(P18_WORLDS))
+          if (w in P18_EARLY["worlds"]) == early]
+    hs = tuple(h for h in range(len(P18_HELPERS))
+               if (h in P18_EARLY["helpers"]) == early)
+    return {"worlds": {w: start_mesh(2, functools.partial(
+                p17_rank, runs=functools.partial(p18_runs, w)))
+                for w in ws},
+            "helpers": start_mesh(len(hs), functools.partial(
+                p18_helper, lines=hs))}
+
+
+def p18_stop(started: dict) -> None:
+    """End what is left of the processes of ``p18_start`` (none once phase
+    18 collected them; all when a phase before it failed)."""
+    for procs, _ in (*started["worlds"].values(), started["helpers"]):
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def mp_sync_against_one_device(base: dict, got: dict, label: str) -> dict:
+    """The mp rule on two taped sync engines (``taped_sync_engine``): the
+    same accounting and steps; each row's logits within
+    ``TOL["mp_logit_rel"]`` of one device's until its tokens (the tapes'
+    argmax, the prefill's first) part, and parting only where one
+    device's top-two gap is within twice that share."""
+    tol = TOL["mp_logit_rel"]
+    check(got["stats"] == base["stats"] and len(got["tape"])
+          == len(base["tape"]),
+          f"{label}: the accounting or the steps differ from one device's")
+    a_tok = [t.argmax(-1) for t in base["tape"]]
+    b_tok = [t.argmax(-1) for t in got["tape"]]
+    worst, rows, gaps, parted = 0.0, 0, [], 0
+    for r in range(base["tape"][0].shape[0]):
+        stop = next((t for t in range(len(a_tok))
+                     if a_tok[t][r] != b_tok[t][r]), None)
+        parted += stop is not None
+        for t in range(len(a_tok) if stop is None else stop + 1):
+            a, b = base["tape"][t][r], got["tape"][t][r]
+            top = float(a.abs().max())
+            worst = max(worst, float((a - b).abs().max()) / max(top, 1e-30))
+            rows += 1
+            if t == stop:
+                two = a.topk(2).values
+                gaps.append(float(two[0] - two[1]) / max(top, 1e-30))
+                check(gaps[-1] <= 2 * tol,
+                      f"{label}: row {r} parts at step {t} where one "
+                      f"device's top-two gap is {gaps[-1]:.4g} of the "
+                      f"largest logit (limit {2 * tol})")
+    check(worst <= tol, f"{label}: logits differ by {worst:.4g} of the "
+                        f"row's largest |logit| (limit {tol})")
+    return {"rows_compared": rows, "worst_logit_rel": worst,
+            "rows_parted": parted, "parting_gaps_rel": gaps,
+            "tolerance_rel": tol}
+
+
+def loss_rule(got: list, ref: list, lr0: list, label: str) -> dict:
+    """Each logged loss within ``TOL["train_mp_loss_rel"]`` of one
+    device's, which the update-off control must exceed."""
+    tol = TOL["train_mp_loss_rel"]
+
+    def worst(x, y):
+        check([len(p) for p in x] == [len(p) for p in y],
+              f"{label}: logged {x} against {y}")
+        return max(abs(a - b) / abs(b) for pa, pb in zip(x, y)
+                   for a, b in zip(pa, pb))
+
+    off, w = worst(lr0, ref), worst(got, ref)
+    check(off > tol, f"{label}: the run with the update off parts by "
+                     f"{off:.3g}, not more than the limit {tol}")
+    check(w <= tol, f"{label}: losses {got} part from one device's {ref} "
+                    f"(worst {w:.3g}, limit {tol})")
+    return {"worst_loss_rel": w, "lr0_worst_rel": off, "limit": tol}
+
+
+def phase_mixers_mesh(dev, seed: int, iters: int, smi: str,
+                      early: dict) -> dict:
+    """Phase 18: the RG-LRU and xLSTM mixers over mp, FSDP over data (its
+    check (d) rides phase 17 (b)). (k) the scan at the rank shapes; then,
+    at once on the one card, two worlds of two gloo ranks (``P18_WORLDS``,
+    ``p18_runs``: (a)
+    recurrentgemma-2b and (b) xlstm-125m served at full width on both
+    engines at (1, 2), fused, then taped; (c) ``launch.train --cascade
+    --mp 2``) and the one-device references in helper processes
+    (``P18_HELPERS``), those of ``P18_EARLY`` started at phase 16
+    (``early``, ``p18_start``), whose wire codes the mesh runs replay
+    (``wire_codes``). The taped runs are held to one device's under the
+    mp rule, the training losses under ``TOL["train_mp_loss_rel"]`` with
+    the update-off control. Ranks, helpers and the host share the card:
+    correctness, launches, collectives and memory, not mesh speed.
+    Returns the launches of each path."""
+    import shutil
+
+    import torch
+    t0 = time.perf_counter()
+    kernels = p18_scans(dev, seed, iters)
+    free_cuda()
+    rest = p18_start(early=False)
+    refs = {job: res for started in (early, rest)
+            for part in collect_mesh(*started["helpers"]).values()
+            for job, res in part.items()}
+    by_label = {}                       # label: [rank 0's, rank 1's]
+    need_of = {}
+    worlds = {**early["worlds"], **rest["worlds"]}
+    for w, started in sorted(worlds.items()):
+        ranks = collect_mesh(*started)
+        for label, _, need in p18_runs(w):
+            by_label[label] = [ranks[r][label] for r in sorted(ranks)]
+            need_of[label] = need
+    shutil.rmtree(ROOT / "build" / "p18", ignore_errors=True)
+    by_path, runs, failures = {}, {}, []
+
+    def held(rule, *args):
+        """A rule's record; a failure is kept for after the phase's line
+        (the phase still fails)."""
+        try:
+            return rule(*args)
+        except SmokeFailure as e:
+            failures.append(str(e))
+            return {"failed": str(e)}
+
+    for label, per in by_label.items():
+        launches = {k: sum(p["launches"][k] for p in per)
+                    for k in per[0]["launches"]}
+        by_path[f"phase 18 {label}"] = launches
+        for k in need_of[label]:
+            check(launches[k] > 0, f"phase 18 {label}: kernel {k} never "
+                                   f"launched")
+        if not need_of[label]:
+            check(not any(launches.values()),
+                  f"phase 18 {label}: the training path launched "
+                  f"{launches}")
+    for arch in P18_ARCHS:
+        serves = by_label[f"{arch} serve mp2"]
+        trains = by_label[f"{arch} train mp2"]
+        serve0, serve1 = serves
+        check(serve0["fused"] == {**serve1["fused"], "decode_tok_per_s":
+                                  serve0["fused"]["decode_tok_per_s"]}
+              and serve0["fused"]["requests_finished"] == 8,
+              f"phase 18 {arch}: the fused run's ranks differ or a request "
+              f"did not finish")
+        one = refs[f"{arch} serve"]
+        base, got = (types.SimpleNamespace(
+            finished=r["finished"], tape=[(live, torch.from_numpy(x))
+                                          for live, x in r["tape"]],
+            prefill={k: torch.from_numpy(x) for k, x in r["prefill"].items()})
+            for r in (one["continuous"], serve0["continuous"]))
+        cont = held(mp_against_one_device, base, got)
+        sync = held(mp_sync_against_one_device,
+                    *({**r, "tape": [torch.from_numpy(x) for x in r["tape"]]}
+                      for r in (one["sync"], serve0["sync"])),
+                    f"{arch} sync mp 2")
+        fused = serve0["fused"]["tokens"]
+        main = MAIN_RUNS.get(f"{arch} continuous") or {}
+        train0 = trains[0]
+        train = held(loss_rule, train0["logged_losses"],
+                     refs[f"{arch} train"]["logged_losses"],
+                     refs[f"{arch} train lr0"]["logged_losses"],
+                     f"{arch} train mp 2")
+        runs[arch] = {
+            "serve": {
+                "continuous_against_one_device": cont,
+                "sync_against_one_device": sync,
+                "fused_requests_as_main_path": sum(
+                    fused.get(rid) == t for rid, t in main.items()),
+                "tok_per_s": {
+                    "taped_by_rank": [p["continuous_summary"][
+                        "decode_tok_per_s"] for p in serves],
+                    "fused_by_rank": [p["fused"]["decode_tok_per_s"]
+                                      for p in serves],
+                    "one_device_taped": one["continuous_summary"][
+                        "decode_tok_per_s"]},
+                "seconds_by_rank": [p["seconds"] for p in serves],
+                "peak_gb_by_rank": [p["peak_gb"] for p in serves]},
+            "train": {**train, "n_layers": train0["n_layers"],
+                      "one_device_losses": refs[f"{arch} train"][
+                          "logged_losses"],
+                      "lr0_losses": refs[f"{arch} train lr0"][
+                          "logged_losses"],
+                      "mesh_losses": train0["logged_losses"],
+                      "ms_per_step": train0["ms_per_step"],
+                      "one_device_ms_per_step": refs[f"{arch} train"][
+                          "ms_per_step"],
+                      "one_device_peak_bytes": refs[f"{arch} train"][
+                          "peak_memory_bytes"],
+                      "peak_gb_by_rank": [p["peak_gb"] for p in trains],
+                      "collectives_per_step": train0["mesh"][
+                          "collectives_per_step"],
+                      "collective_bytes_per_step": train0["mesh"][
+                          "collective_bytes_per_step"],
+                      "rank_bytes": train0["mesh"]["rank_bytes"],
+                      "replicated_leaves_held": train0[
+                          "replicated_leaves_held"],
+                      "seconds_by_rank": [p["seconds"] for p in trains]}}
+    emit({"phase": "mixers_mesh", "card": smi,
+          "note": "two worlds of two gloo ranks and three one-device "
+                  "helpers on the one card (xlstm-125m's from phase 16 "
+                  "on): correctness, launches, collectives and memory, not "
+                  "mesh speed",
+          "kernels_at_rank_shapes": kernels, "runs": runs,
+          "helper_seconds": {job: res["seconds"]
+                             for job, res in refs.items()},
+          "failures": failures, "seconds": time.perf_counter() - t0})
+    check(not failures, "phase 18: " + " | ".join(failures))
+    return by_path
+
+
 SOURCES = {
     "boundary_mixed_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
     "decode_tail_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
@@ -5367,7 +6092,7 @@ def main(argv=None) -> int:
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random full-width weights")
-    ap.add_argument("--iters", type=int, default=30,
+    ap.add_argument("--iters", type=int, default=15,
                     help="timed launches per kernel")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
@@ -5459,9 +6184,16 @@ def main(argv=None) -> int:
     free_cuda()
     by_path.update(phase_moe(dev, args.seed, args.iters, smi))
     free_cuda()
-    by_path.update(phase_mesh(dev, args.seed, args.iters, smi))
-    free_cuda()
-    by_path.update(phase_train_mesh(dev, args.seed, args.iters, smi))
+    early = p18_start(early=True)
+    try:
+        by_path.update(phase_mesh(dev, args.seed, args.iters, smi))
+        free_cuda()
+        by_path.update(phase_train_mesh(dev, args.seed, args.iters, smi))
+        free_cuda()
+        by_path.update(phase_mixers_mesh(dev, args.seed, args.iters, smi,
+                                         early))
+    finally:
+        p18_stop(early)
 
     emit({"phase": "untraced", "measurements": UNTRACED})
     print(smi, flush=True)

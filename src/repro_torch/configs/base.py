@@ -33,6 +33,12 @@ class SplitConfig:
         return 1 + (1 if self.d_bottleneck else 0) + len(self.extra_modes)
 
 
+def slstm_up_width(d_model: int) -> int:
+    """The sLSTM block's up / gate width (its post-cell MLP): 4/3 of
+    ``d_model``, truncated, as the reference's ``slstm_init`` makes it."""
+    return int(4.0 / 3.0 * d_model)
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     name: str

@@ -24,7 +24,10 @@ counts the payload bytes it sends each way in :data:`WIRE_BYTES`, the
 counterpart of the reference test's parse of the compiled collectives.
 
 Inside a stage, a mesh with ``model > 1`` runs the layers with the model
-group's tensor-parallel plan (``plan``; ``cfg`` the rank's config). The
+group's tensor-parallel plan (``plan``; ``cfg`` the rank's config), and a
+mesh with ``data > 1`` holds its weights split over data (FSDP, as the
+reference's GSPMD does inside a stage): each layer gathers them at each
+tick, the LM head and the bank once a forward. The
 embedding and the bottleneck head are replicated over the stages but used
 by one of them, so their gradients are summed over the pod group
 (``collectives.copy_to``), as are the batch's data ranks' by the train
@@ -39,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bottleneck, quant
 from repro_torch.models import collectives as CL
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import dense_apply, norm_apply
 
@@ -181,6 +185,7 @@ def pipeline_forward(params, tokens, cfg: ModelConfig, *, mesh,
     parameters (its stage's layers). ``plan``: the
     model group's ``RankPlan`` inside a stage (``cfg`` the rank's config).
     Returns (logits, aux), the same on every pod rank."""
+    params = sharding.fsdp_gather_top(params, plan)
     x = T.embed_tokens(params, tokens, cfg, embeddings)
     positions = T.seq_positions(x)
     modes = params.get("bneck_modes") or ()

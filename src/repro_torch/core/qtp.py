@@ -13,7 +13,9 @@ training mesh's model ranks and quantizes the gathered operand to int8
     the sequence -> + residual
 
 ``bits=0`` gathers the normed rows as they are (the exact-precision
-schedule). The batch shards over the dp axes (``batch_pspec``). It is a
+schedule). The batch shards over the dp axes (``batch_pspec``), and the
+weights over data where it is over 1 (FSDP: each layer gathered whole
+just before use, ``sharding.fsdp_gather_layer``). It is a
 forward only: the hidden states are gathered back (exactly) over the
 sequence and the batch, and every rank computes the same logits.
 
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
+from repro_torch.core import split as SP
 from repro_torch.models import collectives as CL
 from repro_torch.models import sharding
 from repro_torch.models import transformer as T
@@ -92,6 +95,8 @@ def qtp_forward(params, tokens, cfg: ModelConfig, *, mesh, bits: int = 8,
     aux, the same on every rank."""
     m = mesh.shape["model"]
     group = mesh.group("model")
+    plan = mesh.rank_plan(cfg, SP.param_shapes(cfg))
+    params = sharding.fsdp_gather_top(params, plan)
     axes = sharding.batch_pspec(mesh, 2, tokens.shape[0])[0]
     axes = axes if axes and mesh.size(axes) > 1 else None
     batch = mesh.local_batch({"tokens": tokens} if embeddings is None else
@@ -105,6 +110,7 @@ def qtp_forward(params, tokens, cfg: ModelConfig, *, mesh, bits: int = 8,
         lo = mesh.coords["model"] * s_loc
         x_loc = x[:, lo:lo + s_loc]
         for lp in T.unstack_layers(params["layers"]):
+            lp = sharding.fsdp_gather_layer(lp, "attn", plan)
             x_loc = _block(lp, x_loc, pos, cfg, m, bits, group)
         x = CL.gather_raw(x_loc.contiguous(), group, 1)
         if axes is not None:

@@ -17,12 +17,14 @@ concatenates new functional halves, has no counterpart here).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bottleneck
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 
 
@@ -32,6 +34,24 @@ def init_split_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     params["bneck_modes"] = bottleneck.bank_init(gen, cfg,
                                                  dtype=T.model_dtype(cfg))
     return params
+
+
+def abstract_split_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """``init_split_params``' tree for ``cfg`` as fake tensors: the init
+    run without storage, each leaf's shape and dtype only (the reference's
+    ``jax.eval_shape``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return init_split_params(torch.Generator(), cfg)
+
+
+@functools.lru_cache(maxsize=64)
+def param_shapes(cfg: ModelConfig) -> Tuple[Tuple[str, Tuple[int, ...],
+                                                 torch.dtype], ...]:
+    """(path, shape, dtype) of each leaf of ``abstract_split_params(cfg)``:
+    the whole tree a mesh's layout reads (``sharding.rank_specs``) where
+    only a rank's slices are at hand. Cached."""
+    return sharding.tree_shapes(abstract_split_params(cfg))
 
 
 def slice_layers(layers, cfg: ModelConfig, split_at: Optional[int] = None):
@@ -110,6 +130,7 @@ def split_forward(params, tokens, cfg: ModelConfig, mode: int = 0, *,
     """End-to-end split forward (the wire is identity on the payload's
     values; its bytes are in ``info``). ``plan``: a mesh's ``RankPlan``.
     Returns (logits, aux, info)."""
+    params = sharding.fsdp_gather_top(params, plan)
     payload, aux1, info = encoder_apply(params, tokens, cfg, mode,
                                         train=train, embeddings=embeddings,
                                         plan=plan)

@@ -59,8 +59,9 @@ metrics registry and trace recorder: the summary then carries TTFT and
 inter-token latency percentiles (``latency``, ms).
 
 ``--dp`` / ``--mp`` serve on a mesh of ``dp * mp`` ranks (``--replicas``
-times that for the cluster), one process a rank: the slots over dp, the
-attention archs' attention, MLP and MoE expert layers over mp. Under
+times that for the cluster), one process a rank: the slots over dp; the
+attention, MLP, MoE expert, RG-LRU and xLSTM layers over mp (each where
+it divides, else replicated; ``sharding.check_model_parallel``). Under
 ``torchrun`` the launcher takes its environment; otherwise it starts the
 ranks itself (``torch.multiprocessing``, spawn) and rank 0 prints.
 ``--dist-backend`` is nccl with ``--device cuda`` and gloo with ``--device
@@ -71,6 +72,9 @@ NCCL refuses two ranks on one device, and such a layout raises).
     # 4 gloo ranks on the CPU: 2-way dp x 2-way mp
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --reduced --device cpu --engine continuous --dp 2 --mp 2
+    # the RG-LRU mixers over 2 ranks (the dense slot pool)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --reduced --device cpu --mp 2
     # on cards: torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
     #     --arch qwen2.5-3b --engine continuous --dp 2
 
@@ -705,9 +709,9 @@ def parser() -> argparse.ArgumentParser:
                     help="serving mesh: data-parallel axis (slots over dp "
                          "ranks)")
     ap.add_argument("--mp", type=int, default=None,
-                    help="serving mesh: tensor-parallel axis (the "
-                         "attention archs' heads, d_ff and experts over mp "
-                         "ranks)")
+                    help="serving mesh: tensor-parallel axis (heads, "
+                         "d_ff, experts, RG-LRU channels and xLSTM heads "
+                         "over mp ranks)")
     ap.add_argument("--dist-backend", default=None,
                     choices=["nccl", "gloo"],
                     help="torch.distributed backend of a --dp / --mp run "

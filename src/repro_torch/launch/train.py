@@ -14,6 +14,10 @@ checkpoint in the reference's ``.npz`` layout and its ``_history.json``.
     # a (data, model) = (1, 2) mesh: two gloo ranks started here
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --reduced --device cpu --mp 2 --steps 4 --batch 2 --seq 32
+    # (2, 2): FSDP over data, the RG-LRU mixers split over model
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-2b --reduced --device cpu --dp 2 --mp 2 \
+        --steps 4 --batch 4 --seq 32
 
 ``--mp`` takes the reference's meaning: the mesh is (data, model) with
 data = ranks / mp (``ValueError`` where mp does not divide them). The
@@ -22,9 +26,10 @@ started here over ``--dist-backend`` (default nccl on cuda, gloo on the
 CPU), one process a rank, rank r on ``cuda:r`` unless ``--device`` names
 one device for all (``--device cuda:0 --dist-backend gloo`` shares one
 card). Each rank holds its slices of the weights and their AdamW state
-(``sharding.shard_train_params``); rank 0 prints, and writes the
-checkpoint gathered from every rank's slices. ``--resume`` restores the
-whole tree and shards it.
+(``sharding.shard_train_params``: the model split, and where the data
+axis is over 1 the reference's FSDP over it); rank 0 prints, and writes
+the checkpoint gathered from every rank's slices. ``--resume`` restores
+the whole tree and shards it.
 
 Each step donates (the parameters and AdamW state are updated in place).
 Prints ms a train step (the median after the first, the device
@@ -224,7 +229,13 @@ def _train(args, dev, mesh):
             "collectives_per_step": {k: v / n_steps for k, v in
                                      CL.COUNTS["calls"].items()},
             "collective_bytes_per_step": {k: v / n_steps for k, v in
-                                          CL.COUNTS["bytes"].items()}}
+                                          CL.COUNTS["bytes"].items()},
+            # this rank's parameter and AdamW bytes, and the layout
+            # without FSDP (weights whole over data) beside them
+            "rank_bytes": sharding.layout_bytes(
+                cfg, sharding._split_sizes(mesh), SP.param_shapes(cfg)),
+            "rank_bytes_unsharded_data": sharding.layout_bytes(
+                cfg, (("model", mesh.model),), SP.param_shapes(cfg))}
     if dev.type == "cuda":
         peaks = _gather_peaks(dev, mesh)
         history["peak_memory_bytes"] = peaks[0]
@@ -240,7 +251,8 @@ def _train(args, dev, mesh):
                  if mesh is not None else ""), flush=True)
 
     if mesh is not None:
-        params = sharding.gather_train_params(params, mesh, cfg=cfg)
+        params = sharding.gather_train_params(
+            params, mesh, cfg=cfg, shapes=SP.param_shapes(cfg))
     ck = os.path.join(args.ckpt_dir, f"{args.arch.replace('.', '_')}.npz")
     if lead:
         checkpoint.save(ck, params, {"arch": args.arch, "steps": args.steps,

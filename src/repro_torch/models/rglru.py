@@ -17,13 +17,23 @@ against the f32 recurrence input on every call. ``rglru_prepare`` makes
 those float32 forms (and the constant ``-softplus(-Λ)``) once per loaded
 model; the serving engines run on prepared trees (``T.prepare_params``),
 and an unprepared tree makes the same values on each call.
+
+``group`` (a mesh's model group for this mixer) splits the channels:
+``in_gate`` / ``in_rec`` by columns (the input's gradient summed over the
+group, ``collectives.copy_to``), the conv, ``lam``, the gates' outputs,
+the scan and the carry on the rank's channels, and ``out`` by rows (the
+partial products summed over the group, ``layers.row_parallel_sum``). The
+dense ``w_a`` / ``w_x`` [d_rnn, d_rnn] split by columns read the whole
+conv output, gathered over the group (exact), so the arithmetic is one
+device's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _normal, dense_init
+from repro_torch.models import collectives as CL
+from repro_torch.models.layers import _normal, dense_init, row_parallel_sum
 from repro_torch.models.scan_utils import chunked_scan
 
 _C = 8.0          # RG-LRU gate exponent constant
@@ -66,11 +76,13 @@ def rglru_prepare(p):
     return p if "f32" in p else {**p, "f32": _f32_forms(p)}
 
 
-def _gates(f, u):
-    """u: [..., d_rnn] f32; ``f``: the layer's ``_f32_forms`` -> (a, gated
-    input b), both f32."""
-    r = torch.sigmoid(u @ f["w_a"]["w"] + f["w_a"]["b"])
-    i = torch.sigmoid(u @ f["w_x"]["w"] + f["w_x"]["b"])
+def _gates(f, u, group=None):
+    """u: [..., d_rnn] f32 (this rank's channels over ``group``); ``f``:
+    the layer's ``_f32_forms`` -> (a, gated input b), both f32, on the
+    rank's channels. ``w_a`` / ``w_x`` take the whole u."""
+    uf = CL.all_gather(u, group, -1)
+    r = torch.sigmoid(uf @ f["w_a"]["w"] + f["w_a"]["b"])
+    i = torch.sigmoid(uf @ f["w_x"]["w"] + f["w_x"]["b"])
     log_a = _C * r * f["log_a"]
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u)
@@ -118,31 +130,35 @@ def _assoc_scan(a, b):
     return b
 
 
-def rglru_full(p, x, *, use_assoc_scan: bool = False, train: bool = False):
+def rglru_full(p, x, *, use_assoc_scan: bool = False, train: bool = False,
+               group=None):
     """Full-sequence Griffin recurrent block from a zero state.
     x: [B, S, d] -> [B, S, d]. Default (eval) path: ``ops.rglru_scan_op``;
     ``train=True`` keeps the cell scan, as the reference does (the kernel
     has no backward); ``use_assoc_scan``: the log-depth scan of plain ops
-    (``_assoc_scan``), eval or train."""
+    (``_assoc_scan``), eval or train. ``group``: the mixer's model group
+    (see the module's docstring)."""
     from repro_torch.kernels import ops
 
+    x = CL.copy_to(x, group)
     B, S, _ = x.shape
     f = p.get("f32") or _f32_forms(p)
     gate = _gate_branch(p, x)
     u = (x @ p["in_rec"]["w"]).float()
     pad = torch.cat([u.new_zeros((B, _CONV_W - 1, u.shape[2])), u], dim=1)
     u = sum(pad[:, i:i + S, :] * f["conv"][i] for i in range(_CONV_W))
-    a, b = _gates(f, u)
+    a, b = _gates(f, u, group)
     if use_assoc_scan:
         h = _assoc_scan(a, b)
     elif train:
         h = _cell_scan(a, b, a.new_zeros((B, a.shape[2])))
     else:
         h = ops.rglru_scan_op(a, b)
-    return (h.to(x.dtype) * gate) @ p["out"]["w"]
+    return row_parallel_sum((h.to(x.dtype) * gate) @ p["out"]["w"], group)
 
 
-def rglru_prefill(p, x, state, *, lengths=None, use_scan_op: bool = True):
+def rglru_prefill(p, x, state, *, lengths=None, use_scan_op: bool = True,
+                  group=None):
     """Full-sequence pass that leaves behind the decode state of each row.
 
     x: [B, S, d]; ``state``: the carry to continue (fresh zeros for a new
@@ -150,7 +166,8 @@ def rglru_prefill(p, x, state, *, lengths=None, use_scan_op: bool = True):
     right-padded batch — pad steps are identity updates (a=1, b=0), so
     ``h[:, -1]`` is the carry after each row's own last real token.
     ``use_scan_op=False`` steps the cell scan instead of the scan op (the
-    same bits). Returns y [B, S, d]."""
+    same bits). ``group``: the mixer's model group (``state`` then holds
+    the rank's channels). Returns y [B, S, d]."""
     from repro_torch.kernels import ops
 
     B, S, _ = x.shape
@@ -161,7 +178,7 @@ def rglru_prefill(p, x, state, *, lengths=None, use_scan_op: bool = True):
     hist = torch.cat([state["conv"].float(), u_pre], dim=1)
     w = f["conv"]
     u_c = sum(hist[:, i:i + S, :] * w[i] for i in range(_CONV_W))
-    a, b = _gates(f, u_c)
+    a, b = _gates(f, u_c, group)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     lengths = lengths.to(device=x.device, dtype=torch.long)
@@ -171,7 +188,7 @@ def rglru_prefill(p, x, state, *, lengths=None, use_scan_op: bool = True):
     b = torch.where(valid, b, 0.0)
     h = (ops.rglru_scan_op(a, b, state["h"]) if use_scan_op
          else _cell_scan(a, b, state["h"]))
-    y = (h.to(x.dtype) * gate) @ p["out"]["w"]
+    y = row_parallel_sum((h.to(x.dtype) * gate) @ p["out"]["w"], group)
     # conv state after len steps = the last CONV_W-1 rows of
     # [carried history, u_0 .. u_{len-1}] = hist[len : len + CONV_W - 1]
     idx = lengths[:, None] + torch.arange(_CONV_W - 1, device=x.device)
@@ -182,17 +199,18 @@ def rglru_prefill(p, x, state, *, lengths=None, use_scan_op: bool = True):
     return y
 
 
-def rglru_step(p, x, state):
-    """One decode step. x: [B, 1, d]; ``state`` updated in place. Returns
-    y [B, 1, d]."""
+def rglru_step(p, x, state, group=None):
+    """One decode step. x: [B, 1, d]; ``state`` updated in place;
+    ``group`` as in ``rglru_prefill``. Returns y [B, 1, d]."""
     f = p.get("f32") or _f32_forms(p)
     gate = _gate_branch(p, x)                                     # [B,1,dr]
     u = (x @ p["in_rec"]["w"]).float()                            # [B,1,dr]
     hist = torch.cat([state["conv"].float(), u], dim=1)
     u_c = torch.einsum("btd,td->bd", hist, f["conv"])[:, None, :]  # [B,1,dr]
-    a, b = _gates(f, u_c)
+    a, b = _gates(f, u_c, group)
     h = a[:, 0] * state["h"] + b[:, 0]                            # [B,dr]
-    y = (h[:, None, :].to(x.dtype) * gate) @ p["out"]["w"]
+    y = row_parallel_sum((h[:, None, :].to(x.dtype) * gate) @ p["out"]["w"],
+                         group)
     state["h"].copy_(h)
     state["conv"].copy_(hist[:, 1:, :].to(state["conv"].dtype))
     return y

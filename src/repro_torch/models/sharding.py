@@ -14,16 +14,25 @@ tuple of axis names, of tuples of them, or ``None`` (the reference's
 
 Training (:class:`TrainMesh`): the ``model`` entries of a layer leaf's
 spec split it over the model ranks (:func:`shard_train_params`), where its
-block shards (attention where ``n_kv % model == 0``, a dense MLP where
-``d_ff % model == 0``, MoE experts where ``E % model == 0``, else each
-expert's f axis where ``d_ff % model == 0``; otherwise the block runs
-replicated). The ``data`` entries are not applied: weights and AdamW state
-replicate over the dp axes (the reference's FSDP over ``data`` is ROADMAP
-item 7c), and the batch splits by :func:`batch_pspec`. The embedding, the
-final norm, the LM head and the bottleneck bank replicate over model, as
-in serving. The residual replicates over model whatever ``act_policy``
-says (the reference's ``seq`` policy shards it under GSPMD; the quantized
-prefill, ``core/qtp.py``, runs the sequence-parallel schedule itself).
+block shards (:func:`check_model_parallel`, a predicate for each block
+kind: attention where ``n_kv % model == 0``, a dense MLP where ``d_ff %
+model == 0``, MoE experts where ``E % model == 0``, else each expert's f
+axis where ``d_ff % model == 0``, an RG-LRU mixer where ``d_rnn % model ==
+0``, the xLSTM mixers where ``n_heads % model == 0``; otherwise the block
+runs replicated). The ``data`` entries split every leaf that has one over
+the data ranks where its dimension divides (the reference's FSDP, ZeRO-3):
+a layer gathers its weights over the data group just before use
+(:func:`fsdp_gather`, inside the layer's recomputation), and the gradient
+comes back as the reduce-scatter's sum. The embedding table has no data
+entry; the final norm, the LM head and the bottleneck bank replicate over
+model, as in serving. Three kinds of xLSTM leaves the reference
+replicates split with their heads here (``_PORT_RULES``: the sLSTM's
+recurrent ``r_*`` and the gate biases): a storage difference, the same
+numbers. The
+batch splits by :func:`batch_pspec`. The residual replicates over model
+whatever ``act_policy`` says (the reference's ``seq`` policy shards it
+under GSPMD; the quantized prefill, ``core/qtp.py``, runs the
+sequence-parallel schedule itself).
 
 Serving (:class:`ServingMesh`):
 
@@ -50,8 +59,15 @@ Serving (:class:`ServingMesh`):
   their gate-weighted rows are summed by one float32 ``all_reduce``. An
   attention block shards only where ``n_kv % mp == 0`` and an MLP (or MoE
   layer) only where it divides; otherwise that block runs replicated on
-  every rank. RG-LRU and xLSTM mixers raise at mp > 1 (ROADMAP item 7c).
-  The embedding, the final norm, the LM
+  every rank. An RG-LRU mixer splits its channels (``in_gate`` /
+  ``in_rec`` / ``w_a`` / ``w_x`` by columns, the conv, ``lam``, the scan
+  and the carry by channel, ``out`` by rows; the dense ``w_a`` / ``w_x``
+  read the whole conv output, one exact all_gather), the xLSTM mixers
+  their heads (the mLSTM's ``up_l`` by columns, gathered whole for
+  ``wq`` .. ``wf``, its C / n / m by head; the sLSTM's gates and carry by
+  channel at head boundaries, its hidden state gathered whole for the
+  up / gate / down path, split like an MLP); each ends in one
+  ``all_reduce``. The embedding, the final norm, the LM
   head and the bottleneck bank stay replicated over mp (the reference
   shards the table and the head over ``model``), so the boundary and the
   fused decode tail stay single launches on whole rows.
@@ -75,30 +91,46 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import math
 import re
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+import types
+from typing import (Any, Dict, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ModelConfig
-
-#: ROADMAP item that brings mp to the layers the meshes keep whole
-MP_LATER = ("ROADMAP Queue 1 item 7c brings mp to RG-LRU and xLSTM "
-            "mixers")
+from repro_torch.configs.base import ModelConfig, slstm_up_width
+from repro_torch.models import collectives as CL
 
 #: KV-cache leaf names (last path component), sharded over mp by head
 KV_LEAVES = frozenset({"k", "v", "k_s", "v_s"})
 
+#: block kinds a rank plan names, and the field of the plan each reads
+BLOCK_GROUP = {"attn": "attn", "mlp": "mlp", "rglru": "rglru",
+               "mlstm": "xlstm", "slstm": "xlstm"}
+
+
 class RankPlan(NamedTuple):
-    """What a rank's model calls need of the mesh: the mp groups of its
-    blocks, the attention block's and the MLP's (None where that block runs
-    replicated)."""
+    """What a rank's model calls need of the mesh: the model group of each
+    block kind (None where that kind runs replicated), and on a training
+    mesh with ``data > 1`` the data group its weights are gathered over
+    with ``fsdp``, the data dim of each data-split leaf (``{"layers":
+    {kind: {path in the layer: dim}}, "top": {path: dim}}``)."""
     attn: Any = None
     mlp: Any = None
+    rglru: Any = None
+    xlstm: Any = None
+    data: Any = None
+    fsdp: Any = None
+
+    def group(self, kind: str):
+        """The model group of a block kind ("attn", "mlp", "rglru",
+        "mlstm", "slstm")."""
+        return getattr(self, BLOCK_GROUP[kind])
 
 
 def world() -> Tuple[int, int]:
@@ -132,26 +164,14 @@ def _rank_device(rank: int, device) -> torch.device:
 # which blocks shard over the model axis (both meshes)
 # ---------------------------------------------------------------------------
 
-def check_model_parallel(cfg: ModelConfig, m: int) -> None:
-    """Raise ``NotImplementedError`` for a model axis over 1 on an arch
-    with RG-LRU or xLSTM mixers (naming ROADMAP item 7c)."""
-    if m == 1:
-        return
-    kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
-    what = [w for w, bad in (("RG-LRU mixers", "rglru" in kinds),
-                             ("xLSTM mixers", bool(kinds & {"mlstm",
-                                                           "slstm"})))
-            if bad]
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: mp={m} over {', '.join(what)} is not ported: "
-            f"{MP_LATER}")
+def _kinds(cfg: ModelConfig) -> frozenset:
+    return frozenset(cfg.block_kind(i) for i in range(cfg.n_layers))
 
 
 def attn_sharded(cfg: ModelConfig, m: int) -> bool:
     """Attention splits its heads over ``m`` ranks where ``n_kv % m ==
     0``."""
-    return m > 1 and cfg.n_kv_heads % m == 0
+    return m > 1 and "attn" in _kinds(cfg) and cfg.n_kv_heads % m == 0
 
 
 def mlp_sharded(cfg: ModelConfig, m: int) -> bool:
@@ -164,16 +184,54 @@ def mlp_sharded(cfg: ModelConfig, m: int) -> bool:
     return cfg.d_ff % m == 0
 
 
+def rglru_sharded(cfg: ModelConfig, m: int) -> bool:
+    """An RG-LRU mixer splits its channels where ``d_rnn % m == 0``."""
+    return m > 1 and "rglru" in _kinds(cfg) and (
+        cfg.d_rnn or cfg.d_model) % m == 0
+
+
+def xlstm_sharded(cfg: ModelConfig, m: int) -> bool:
+    """The mLSTM and sLSTM mixers split their heads where ``n_heads % m ==
+    0`` (and an sLSTM's up width divides too)."""
+    kinds = _kinds(cfg)
+    if m == 1 or not kinds & {"mlstm", "slstm"}:
+        return False
+    up = slstm_up_width(cfg.d_model) if "slstm" in kinds else 0
+    return cfg.n_heads % m == 0 and up % m == 0
+
+
+def check_model_parallel(cfg: ModelConfig, m: int) -> Dict[str, bool]:
+    """Which block kinds split over ``m`` model ranks: {kind: bool} for
+    "attn", "mlp", "rglru", "mlstm" and "slstm" (False: that block runs
+    replicated, as the reference's ``_fit_spec`` drops a spec that does
+    not divide). Raises ``ValueError`` for ``m < 1``."""
+    if m < 1:
+        raise ValueError(f"model axis must be >= 1, got {m}")
+    xl = xlstm_sharded(cfg, m)
+    return {"attn": attn_sharded(cfg, m), "mlp": mlp_sharded(cfg, m),
+            "rglru": rglru_sharded(cfg, m), "mlstm": xl, "slstm": xl}
+
+
+def _plan(cfg: ModelConfig, m: int, group) -> RankPlan:
+    splits = check_model_parallel(cfg, m)
+    return RankPlan(**{BLOCK_GROUP[k]: group for k, on in splits.items()
+                       if on})
+
+
 def local_cfg(cfg: ModelConfig, m: int) -> ModelConfig:
-    """The rank's config at ``m`` model ranks: head counts and a dense
-    MLP's ``d_ff`` over ``m`` where those blocks shard (a MoE layer reads
-    its sizes from its weights). ``dataclasses.replace`` keeps the full
-    config's ``head_dim`` (a config built anew would derive it from the
-    narrowed head count)."""
+    """The rank's config at ``m`` model ranks: head counts where attention
+    or the xLSTM mixers shard, ``d_rnn`` where the RG-LRU mixers do, and a
+    dense MLP's ``d_ff`` (a MoE layer reads its sizes from its weights).
+    ``dataclasses.replace`` keeps the full config's ``head_dim`` (a config
+    built anew would derive it from the narrowed head count)."""
     kw: Dict[str, int] = {}
     if attn_sharded(cfg, m):
         kw.update(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
                   head_dim=cfg.head_dim)
+    if xlstm_sharded(cfg, m):
+        kw.update(n_heads=cfg.n_heads // m, head_dim=cfg.head_dim)
+    if rglru_sharded(cfg, m):
+        kw["d_rnn"] = (cfg.d_rnn or cfg.d_model) // m
     if mlp_sharded(cfg, m) and not cfg.is_moe:
         kw["d_ff"] = cfg.d_ff // m
     return dataclasses.replace(cfg, **kw) if kw else cfg
@@ -248,25 +306,16 @@ class ServingMesh:
         return self.slot_shards(n_slots) > 1 or self.coords[0] == 0
 
     # -- weights over mp ------------------------------------------------------
-    def check_model(self, cfg: ModelConfig) -> None:
-        """mp > 1 shards attention, dense MLP and MoE layers: RG-LRU and
-        xLSTM mixers raise (``check_model_parallel``)."""
-        check_model_parallel(cfg, self.mp)
-
-    def attn_sharded(self, cfg: ModelConfig) -> bool:
-        return attn_sharded(cfg, self.mp)
-
-    def mlp_sharded(self, cfg: ModelConfig) -> bool:
-        return mlp_sharded(cfg, self.mp)
+    def check_model(self, cfg: ModelConfig) -> Dict[str, bool]:
+        """Which block kinds split over mp (``check_model_parallel``)."""
+        return check_model_parallel(cfg, self.mp)
 
     def rank_plan(self, cfg: ModelConfig) -> Optional[RankPlan]:
         """The ``RankPlan`` of ``T.run_layers_*`` on this rank, or None at
         mp 1."""
         if not self.member or self.mp == 1:
             return None
-        return RankPlan(
-            self.mp_group if self.attn_sharded(cfg) else None,
-            self.mp_group if self.mlp_sharded(cfg) else None)
+        return _plan(cfg, self.mp, self.mp_group)
 
     def local_cfg(self, cfg: ModelConfig) -> ModelConfig:
         return local_cfg(cfg, self.mp)
@@ -369,22 +418,6 @@ def _path_leaves(tree, prefix: str = ""):
         yield prefix, tree
 
 
-def param_rule(path: str):
-    """(axis from the end, block: "attn" or "mlp") of the model entry of a
-    layer leaf's rule (``_PARAM_RULES``, at the leaf's rank without the
-    stacked axis), or None: replicated (every leaf outside ``layers``)."""
-    if not path.startswith("layers/"):
-        return None
-    for pat, spec in _PARAM_RULES:
-        if re.search(pat, path):
-            if isinstance(spec, dict):
-                spec = spec[2]
-            if "model" not in spec:
-                return None
-            return (spec.index("model") - len(spec), _layer_block(path))
-    return None
-
-
 def _map_paths(fn, tree, prefix: str = ""):
     if isinstance(tree, dict):
         return {k: _map_paths(fn, v, f"{prefix}/{k}" if prefix else k)
@@ -398,48 +431,79 @@ def _map_paths(fn, tree, prefix: str = ""):
 
 def shard_params(params, mesh: Optional[ServingMesh], *, cfg: ModelConfig):
     """The rank's parameter tree: each split leaf's slice (a contiguous
-    copy: the columns or rows of this mp rank's heads or ``d_ff`` part, or
-    its experts), every replicated tensor shared with ``params``. Stacked
-    ``[L, ...]`` leaves keep their leading axis. No-op without a mesh or
-    at mp 1."""
+    copy: the columns or rows of this mp rank's heads, channels or ``d_ff``
+    part, or its experts), every replicated tensor shared with ``params``.
+    Stacked ``[L, ...]`` leaves keep their leading axis. No-op without a
+    mesh or at mp 1."""
     if mesh is None or mesh.mp == 1:
         return params
-    mesh.check_model(cfg)
-    return _model_slices(params, cfg, mesh.mp, mesh.coords[1])
+    return _local_slices(params, cfg, (("model", mesh.mp),),
+                         {"model": mesh.coords[1]})
+
+
+def _state_axis(path: str, cfg: ModelConfig, m: int) -> Optional[int]:
+    """The axis (from the end) along which a decode-state leaf splits over
+    ``m`` model ranks, or None: the KV heads where attention shards, an
+    RG-LRU carry's channels (``h`` [B, d_rnn], ``conv`` [B, 3, d_rnn]),
+    an mLSTM's heads (``C`` [B, H, hd, hd], ``n`` [B, H, hd], ``m`` [B,
+    H]) and an sLSTM's channels (``c`` / ``n`` / ``m`` / ``h`` [B, d])
+    where those mixers shard."""
+    parts = path.split("/")
+    leaf = parts[-1]
+    if leaf in KV_LEAVES:
+        return -2 if attn_sharded(cfg, m) else None
+    if cfg.homogeneous or not parts[0].isdigit():
+        return None
+    kind = cfg.block_kind(int(parts[0]))
+    if kind == "rglru" and rglru_sharded(cfg, m):
+        return -1
+    if kind == "slstm" and xlstm_sharded(cfg, m):
+        return -1
+    if kind == "mlstm" and xlstm_sharded(cfg, m):
+        return {"C": -3, "n": -2, "m": -1}[leaf]
+    return None
 
 
 def shard_state(states, mesh: Optional[ServingMesh], cfg: ModelConfig):
-    """This mp rank's head slice of every KV leaf of a full-head decode
-    state (the layout ``T.init_decode_state`` makes for the full config)
-    where attention shards; other leaves as they are."""
-    if mesh is None or not mesh.attn_sharded(cfg) or not mesh.member:
+    """This mp rank's slice (a view) of every split leaf of a whole decode
+    state (the layout ``T.init_decode_state`` makes at mp 1): the KV heads
+    and the recurrent carries' channels or heads (``_state_axis``); other
+    leaves as they are."""
+    if mesh is None or mesh.mp == 1 or not mesh.member:
         return states
-    n = cfg.n_kv_heads // mesh.mp
-    m = mesh.coords[1]
-    return _map_paths(
-        lambda path, a: (a.narrow(a.dim() - 2, m * n, n)
-                         if path.rsplit("/", 1)[-1] in KV_LEAVES else a),
-        states)
+    m, i = mesh.mp, mesh.coords[1]
+
+    def one(path, a):
+        axis = _state_axis(path, cfg, m)
+        if axis is None:
+            return a
+        n = a.shape[axis] // m
+        return a.narrow(a.dim() + axis, i * n, n)
+
+    return _map_paths(one, states)
 
 
 def unshard_state(local, mesh: ServingMesh, cfg: ModelConfig, full_like,
                   holds: bool):
-    """The full-head state on every rank of the scope from its holders'
+    """The whole state on every rank of the scope from its holders'
     parts. ``holds``: this rank writes its part (``local``, ignored
     otherwise): one holder of each slot's shard, every mp rank of it for
-    the head-split KV leaves, mp rank 0 for the rest. ``full_like``: a tree
-    of the full shapes and dtypes (e.g. on the meta device). Exact: each
-    leaf is an integer sum of zero-padded parts."""
-    split = mesh.attn_sharded(cfg)
+    the split leaves (``_state_axis``), mp rank 0 for the rest.
+    ``full_like``: a tree of the whole shapes and dtypes (e.g. on the meta
+    device). Exact: each leaf is an integer sum of zero-padded parts."""
+    m = mesh.mp
     mp_idx = mesh.coords[1] if mesh.member else 0
-    n = cfg.n_kv_heads // mesh.mp if split else 0
     parts = dict(_path_leaves(local)) if holds else {}
 
     def one(path, meta):
-        kv = split and path.rsplit("/", 1)[-1] in KV_LEAVES
+        axis = _state_axis(path, cfg, m) if m > 1 else None
         buf = torch.zeros(meta.shape, dtype=meta.dtype, device=mesh.device)
-        if holds and (kv or mp_idx == 0):
-            dst = buf.narrow(buf.dim() - 2, mp_idx * n, n) if kv else buf
+        if holds and (axis is not None or mp_idx == 0):
+            if axis is not None:
+                n = meta.shape[axis] // m
+                dst = buf.narrow(buf.dim() + axis, mp_idx * n, n)
+            else:
+                dst = buf
             dst.copy_(parts[path])
         return mesh.gather_exact(buf)
 
@@ -552,6 +616,15 @@ _PARAM_RULES = [
     # bottleneck heads (core/bottleneck.py)
     (r"down/w$", ("data", "model")),
     (r"up/w$", ("model", "data")),
+]
+
+#: leaves the reference replicates and the port splits with their heads
+#: over model (a storage difference: each rank uses only its heads' part),
+#: consulted before ``_PARAM_RULES`` by the port's own layout
+_PORT_RULES = [
+    (r"mix/w[if]/b$", ("model",)),           # mLSTM gate biases, a head each
+    (r"mix/w_[ifzo]/b$", ("model",)),        # sLSTM gate biases, by channel
+    (r"mix/r_[ifzo]$", ("model", None, None)),   # sLSTM recurrence, by head
 ]
 
 
@@ -752,16 +825,19 @@ class TrainMesh:
     def model(self) -> int:
         return self.shape.get("model", 1)
 
-    def rank_plan(self, cfg: ModelConfig) -> Optional[RankPlan]:
+    def rank_plan(self, cfg: ModelConfig, shapes) -> Optional[RankPlan]:
         """The ``RankPlan`` of the layer runners on this rank (the model
-        group of each sharded block), or None at model 1."""
-        m = self.model
-        if m == 1:
+        group of each sharded block kind, and with ``data > 1`` the data
+        group and the FSDP dims of the whole tree ``shapes``,
+        :func:`tree_shapes`), or None on a mesh of neither."""
+        m, d = self.model, self.shape.get("data", 1)
+        if m == 1 and d == 1:
             return None
-        check_model_parallel(cfg, m)
-        g = self.group("model")
-        return RankPlan(g if attn_sharded(cfg, m) else None,
-                        g if mlp_sharded(cfg, m) else None)
+        plan = _plan(cfg, m, self.group("model"))
+        if d > 1:
+            plan = plan._replace(data=self.group("data"), fsdp=fsdp_dims(
+                cfg, _split_sizes(self), shapes))
+        return plan
 
     def local_cfg(self, cfg: ModelConfig) -> ModelConfig:
         return local_cfg(cfg, self.model)
@@ -796,48 +872,149 @@ def train_mesh(model: int = 1, *, pod: int = 1, device=None) -> TrainMesh:
     return TrainMesh(shape, _rank_device(rank, device))
 
 
-def _layer_block(path: str) -> str:
-    return "attn" if "mix/" in path else "mlp"
+def _layer_kind(path: str, cfg: ModelConfig) -> str:
+    """The block kind a layer leaf belongs to: "mlp" under ``mlp/``, else
+    its layer's mixer kind."""
+    if "/mlp/" in path:
+        return "mlp"
+    if cfg.homogeneous:
+        return cfg.block_kind(0)
+    return cfg.block_kind(int(path.split("/")[1]))
 
 
-def _model_axis(path: str, ndim: int, cfg: ModelConfig, m: int):
-    """The axis of a layer leaf that the model entry of its rule splits
-    (the spec ``param_pspecs`` gives the whole leaf on a mesh with ``m``
-    model ranks), where its block shards; None otherwise."""
-    if not path.startswith("layers/") or m == 1:
-        return None
-    block = _layer_block(path)
-    if not (attn_sharded(cfg, m) if block == "attn"
-            else mlp_sharded(cfg, m)):
-        return None
-    stacked = cfg.homogeneous
-    base = ndim - (1 if stacked else 0)
-    for pat, spec in _PARAM_RULES:
+def _rank_spec(path: str, shape, cfg: ModelConfig, sizes: Dict[str, int]
+               ) -> tuple:
+    """The port's layout of one leaf of whole shape ``shape`` on a mesh of
+    axis ``sizes``: its rule (``_PORT_RULES``, then ``_PARAM_RULES``, MoE
+    experts on their d / f dims where E does not divide), each model entry
+    kept only in a layer whose block kind splits, each data entry where
+    data > 1, and every entry whose dim the axis does not divide dropped
+    (``_fit_spec``)."""
+    m, d = sizes.get("model", 1), sizes.get("data", 1)
+    stacked = cfg.homogeneous and path.startswith("layers/")
+    base = len(shape) - (1 if stacked else 0)
+    spec: tuple = ()
+    for pat, rule in _PORT_RULES + _PARAM_RULES:
         if re.search(pat, path):
-            if isinstance(spec, dict):
-                spec = spec.get(base, ())
+            spec = rule.get(base, ()) if isinstance(rule, dict) else rule
             if "mlp/w_" in path and not path.endswith("/w") \
                     and cfg.n_experts % m != 0:
                 spec = ((None, "model", "data") if path.endswith("w_down")
                         else (None, "data", "model"))
-            if "model" not in spec:
-                return None
-            return spec.index("model") + (1 if stacked else 0)
-    return None
+            break
+    splits = (path.startswith("layers/") and m > 1
+              and check_model_parallel(cfg, m)[_layer_kind(path, cfg)])
+    spec = tuple(a if (a == "model" and splits) or (a == "data" and d > 1)
+                 else None for a in spec)
+    if stacked:
+        spec = (None, *spec)
+    return _fit_spec(spec, shape, types.SimpleNamespace(shape=sizes))
 
 
-def _model_slices(params, cfg: ModelConfig, m: int, coord: int):
-    """Each layer leaf's ``coord``-th of ``m`` slices along its model axis
-    (``_model_axis``; contiguous copies); every other leaf shared with
-    ``params``."""
+def tree_shapes(tree) -> Tuple[Tuple[str, Tuple[int, ...], Any], ...]:
+    """(path, shape, dtype) of each leaf of a parameter tree: the whole
+    tree's are what a layout is computed from (:func:`rank_specs`;
+    ``core.split.param_shapes`` gives a config's without making it)."""
+    return tuple((path, tuple(a.shape), a.dtype)
+                 for path, a in _path_leaves(tree))
+
+
+@functools.lru_cache(maxsize=64)
+def rank_specs(cfg: ModelConfig, sizes: Tuple[Tuple[str, int], ...],
+               shapes) -> Mapping[str, tuple]:
+    """{path: spec} of every leaf of the whole tree ``shapes``
+    (:func:`tree_shapes`) on a mesh of axis ``sizes`` ((axis, size)
+    pairs): the layout :func:`shard_train_params` and :func:`shard_params`
+    cut. A path not in it replicates. Cached, so read-only."""
+    sz = dict(sizes)
+    return types.MappingProxyType({
+        path: _rank_spec(path, shape, cfg, sz) for path, shape, _ in shapes})
+
+
+def _local_slices(params, cfg: ModelConfig, sizes, coords: Dict[str, int]):
+    """Each leaf of the whole tree ``params`` cut along every axis of its
+    spec (``rank_specs`` on ``sizes``; contiguous copies) at this rank's
+    ``coords``; every other leaf shared with ``params``."""
+    specs = rank_specs(cfg, tuple(sizes), tree_shapes(params))
+    sz = dict(sizes)
+
     def one(path, leaf):
-        axis = _model_axis(path, leaf.dim(), cfg, m)
-        if axis is None:
+        spec = specs.get(path, ())
+        if not any(spec):
             return leaf
-        n = leaf.shape[axis] // m
-        return leaf.narrow(axis, coord * n, n).contiguous()
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                n = leaf.shape[dim] // sz[axis]
+                leaf = leaf.narrow(dim, coords[axis] * n, n)
+        return leaf.contiguous()
 
     return _map_paths(one, params)
+
+
+def fsdp_dims(cfg: ModelConfig, sizes, shapes) -> Dict[str, Dict]:
+    """The data dim of each data-split leaf of the whole tree ``shapes`` on
+    a mesh of axis ``sizes``: ``{"layers": {kind: {path in a layer:
+    dim}}, "top": {path: dim}}`` (one layer's tree a block kind; the
+    stacked axis not counted)."""
+    specs = rank_specs(cfg, tuple(sizes), shapes)
+    layers: Dict[str, Dict[str, int]] = {}
+    top: Dict[str, int] = {}
+    for path, spec in specs.items():
+        if "data" not in spec:
+            continue
+        dim = spec.index("data")
+        if not path.startswith("layers/"):
+            top[path] = dim
+            continue
+        parts = path.split("/")
+        if cfg.homogeneous:
+            kind, rel, dim = cfg.block_kind(0), "/".join(parts[1:]), dim - 1
+        else:
+            kind, rel = cfg.block_kind(int(parts[1])), "/".join(parts[2:])
+        layers.setdefault(kind, {})[rel] = dim
+    return {"layers": layers, "top": top}
+
+
+def layout_bytes(cfg: ModelConfig, sizes, shapes) -> Dict[str, int]:
+    """A rank's bytes of the whole tree ``shapes``' parameters ("params")
+    and of their AdamW moments ("adam": float32 m and v) under the layout
+    of ``rank_specs(cfg, sizes, shapes)``."""
+    sz = dict(sizes)
+    specs = rank_specs(cfg, tuple(sizes), shapes)
+    out = {"params": 0, "adam": 0}
+    for path, shape, dtype in shapes:
+        n = math.prod(shape) // math.prod(sz[x] for x in specs[path] if x)
+        out["params"] += n * dtype.itemsize
+        out["adam"] += 8 * n
+    return out
+
+
+def fsdp_gather(tree, dims: Dict[str, int], group):
+    """``tree`` with each leaf at a path of ``dims`` gathered whole over
+    ``group`` along its dim (``collectives.all_gather``, exact; its
+    backward the reduce-scatter of the gradient)."""
+    return _map_paths(lambda path, a: a if path not in dims
+                      else CL.all_gather(a, group, dims[path]), tree)
+
+
+def fsdp_gather_layer(p, kind: str, plan: Optional[RankPlan]):
+    """A layer's tree ``p`` (of block kind ``kind``) with its data-split
+    weights gathered over the plan's data group; as it is without one."""
+    if plan is None or plan.data is None:
+        return p
+    return fsdp_gather(p, plan.fsdp["layers"].get(kind, {}), plan.data)
+
+
+def fsdp_gather_top(params, plan: Optional[RankPlan]):
+    """``params`` with the data-split leaves outside ``layers`` (an untied
+    LM head, the bottleneck bank) gathered over the plan's data group; as
+    it is without one. The layers gather theirs one at a time
+    (``T.block_apply_full``)."""
+    if plan is None or plan.data is None or not plan.fsdp["top"]:
+        return params
+    rest = fsdp_gather({k: v for k, v in params.items() if k != "layers"},
+                       plan.fsdp["top"], plan.data)
+    return {**params, **rest}
 
 
 def _stage_slices(params, cfg: ModelConfig, n_stages: int, stage: int):
@@ -855,36 +1032,40 @@ def _stage_slices(params, cfg: ModelConfig, n_stages: int, stage: int):
 
 def shard_train_params(params, mesh: TrainMesh, *, cfg: ModelConfig,
                        stages: bool = False):
-    """The rank's parameter tree: each layer leaf's slice along the model
-    entry of its spec (``param_pspecs``) where its block shards, and with
-    ``stages`` (the pod pipeline) only this pod rank's contiguous half of
-    the layers. Replicated leaves are shared with ``params``."""
+    """The rank's parameter tree: each leaf's slice along the model entry
+    of its spec where its block shards and along its data entry where
+    data > 1 (``rank_specs``), and with ``stages`` (the pod pipeline) only
+    this pod rank's contiguous part of the layers. Whole leaves are shared
+    with ``params``."""
     if stages:
         params = _stage_slices(params, cfg, mesh.shape["pod"],
                                mesh.coords["pod"])
-    m = mesh.model
-    if m == 1:
+    if mesh.model == 1 and mesh.shape.get("data", 1) == 1:
         return params
-    check_model_parallel(cfg, m)
-    return _model_slices(params, cfg, m, mesh.coords["model"])
+    return _local_slices(params, cfg, _split_sizes(mesh), mesh.coords)
+
+
+def _split_sizes(mesh: TrainMesh) -> Tuple[Tuple[str, int], ...]:
+    return tuple((a, mesh.shape[a]) for a in ("data", "model")
+                 if a in mesh.shape)
 
 
 def gather_train_params(local, mesh: TrainMesh, *, cfg: ModelConfig,
-                        stages: bool = False):
-    """The whole tree on every rank from the ranks' ``shard_train_params``
-    slices, bit for bit (each split leaf gathered exactly over the model
-    group, and with ``stages`` the layers over pod)."""
-    from repro_torch.models import collectives as CL
-    m = mesh.model
-    if m > 1:
-        group = mesh.group("model")
+                        shapes, stages: bool = False):
+    """The whole tree (of :func:`tree_shapes` ``shapes``) on every rank
+    from the ranks' ``shard_train_params`` slices, bit for bit (each split
+    leaf gathered exactly over the model and the data groups, and with
+    ``stages`` the layers over pod)."""
+    specs = rank_specs(cfg, _split_sizes(mesh), shapes)
 
-        def one(path, leaf):
-            axis = _model_axis(path, leaf.dim(), cfg, m)
-            return leaf if axis is None else CL.gather_raw(leaf, group,
-                                                            axis)
+    def one(path, leaf):
+        for dim, axis in enumerate(specs.get(path, ())):
+            if axis is not None:
+                leaf = CL.gather_raw(leaf.contiguous(), mesh.group(axis),
+                                     dim)
+        return leaf
 
-        local = _map_paths(one, local)
+    local = _map_paths(one, local)
     if stages:
         group = mesh.group("pod")
         local = dict(local)
@@ -894,18 +1075,21 @@ def gather_train_params(local, mesh: TrainMesh, *, cfg: ModelConfig,
     return local
 
 
-def split_axes(params, mesh: TrainMesh, *, cfg: ModelConfig,
+def split_axes(params, mesh: TrainMesh, *, cfg: ModelConfig, shapes,
                stages: bool = False):
     """The rank's parameter tree with, at each leaf, the mesh axes its
-    slice is split over (``("model",)``, with ``stages`` ``("pod",)`` or
-    ``("pod", "model")`` for the layers), or None where it is whole: what
-    the clip's global norm sums over (``optimizer.apply_updates``)."""
-    m = mesh.model
+    slice is split over (in the mesh's order: ``("data",)``,
+    ``("model",)``, ``("data", "model")``; with ``stages`` ``"pod"`` first
+    for the layers), or None where it is whole: what the clip's global
+    norm sums over (``optimizer.apply_updates``) and what the train step
+    reduces a gradient over. Reads paths only (a gradient tree with None
+    leaves will do); ``shapes``: the whole tree's (:func:`tree_shapes`)."""
+    specs = rank_specs(cfg, _split_sizes(mesh), shapes)
 
-    def one(path, leaf):
+    def one(path, _):
+        on = set(specs.get(path, ())) - {None}
         axes = ("pod",) if stages and path.startswith("layers/") else ()
-        if _model_axis(path, leaf.dim(), cfg, m) is not None:
-            axes += ("model",)
+        axes += tuple(a for a in mesh.axes if a in on)
         return axes or None
 
     return _map_paths(one, params)

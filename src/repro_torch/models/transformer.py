@@ -10,11 +10,14 @@ mLSTM and sLSTM blocks). Under a training mesh's ``moe_ep`` flag
 schedule (``models.moe_ep``), as the reference's does.
 
 Every runner takes a mesh's ``RankPlan`` (``plan``: the model group of
-each sharded block; ``cfg`` then holds the rank's head counts): the
-attention, MLP and MoE blocks run Megatron's tensor-parallel split, their
-input's gradient summed over the group and their output summed in float32
-(``models.collectives``). Under ``train`` a layer's recomputation replays
-its collectives, in the same order on every rank.
+each sharded block kind; ``cfg`` then holds the rank's head counts and
+widths): the attention, MLP, MoE, RG-LRU and xLSTM blocks run Megatron's
+tensor-parallel split, their input's gradient summed over the group and
+their output summed in float32 (``models.collectives``). On a training
+mesh with a data axis over 1 each layer first gathers its data-split
+weights (``sharding.fsdp_gather``, the reference's FSDP). Under ``train``
+a layer's recomputation replays its collectives (the gathers too), in the
+same order on every rank.
 
 Homogeneous archs keep stacked ``[L, ...]`` layer leaves, and the layer
 runners loop over per-layer slices (views, no copies) where the reference
@@ -60,6 +63,7 @@ from repro_torch.models.xlstm import (mlstm_full, mlstm_init, mlstm_prefill,
                                       slstm_step)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_NO_PLAN = sharding.RankPlan()
 _KINDS = ("attn", "rglru", "mlstm", "slstm")
 
 
@@ -221,21 +225,24 @@ def block_apply_full(p, x, positions, cfg: ModelConfig, kind: str = "attn",
     experts). ``train`` keeps the recurrent families on their cell scans
     (the CUDA scan has no backward); eval routes RG-LRU and the mLSTM
     normalizer through ``ops.rglru_scan_op``. ``plan``: a mesh's
-    ``RankPlan`` (``cfg`` the rank's config)."""
-    attn_g, mlp_g = plan if plan is not None else (None, None)
+    ``RankPlan`` (``cfg`` the rank's config); with a data group the
+    block's data-split weights are gathered whole first."""
+    p = sharding.fsdp_gather_layer(p, kind, plan)
+    plan = plan or _NO_PLAN
+    g = plan.group(kind)
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn":
         mix = full_attention(p["mix"], h, positions, window=_attn_window(cfg),
-                             group=attn_g, **_attn_dims(cfg))
+                             group=g, **_attn_dims(cfg))
     elif kind == "rglru":
-        mix = rglru_full(p["mix"], h, train=train)
+        mix = rglru_full(p["mix"], h, train=train, group=g)
     elif kind == "mlstm":
-        mix = mlstm_full(p["mix"], h, cfg.n_heads, train=train)
+        mix = mlstm_full(p["mix"], h, cfg.n_heads, train=train, group=g)
     elif kind == "slstm":
-        mix = slstm_full(p["mix"], h, cfg.n_heads)
+        mix = slstm_full(p["mix"], h, cfg.n_heads, group=g)
     else:
         raise ValueError(kind)
-    x, aux = _mlp_residual(p, x + mix, cfg, mlp_g)
+    x, aux = _mlp_residual(p, x + mix, cfg, plan.mlp)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -248,25 +255,25 @@ def block_apply_decode(p, x, state, cur_pos, cfg: ModelConfig,
     serving mesh's ``RankPlan`` (its mp groups; ``cfg`` then holds the
     rank's head counts). Returns x (a MoE layer's aux loss is dropped, as
     in the reference)."""
-    attn_g, mlp_g = plan if plan is not None else (None, None)
+    plan = plan or _NO_PLAN
+    g = plan.group(kind)
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn" and block_table is not None:
         mix = paged_decode_attention(p["mix"], h, state, block_table,
-                                     cur_pos, group=attn_g,
-                                     **_attn_dims(cfg))
+                                     cur_pos, group=g, **_attn_dims(cfg))
     elif kind == "attn":
         mix = decode_attention(p["mix"], h, state, cur_pos,
-                               window=_attn_window(cfg), group=attn_g,
+                               window=_attn_window(cfg), group=g,
                                **_attn_dims(cfg))
     elif kind == "rglru":
-        mix = rglru_step(p["mix"], h, state)
+        mix = rglru_step(p["mix"], h, state, group=g)
     elif kind == "mlstm":
-        mix = mlstm_step(p["mix"], h, state, cfg.n_heads)
+        mix = mlstm_step(p["mix"], h, state, cfg.n_heads, group=g)
     elif kind == "slstm":
-        mix = slstm_step(p["mix"], h, state, cfg.n_heads)
+        mix = slstm_step(p["mix"], h, state, cfg.n_heads, group=g)
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, x + mix, cfg, mlp_g)[0]
+    return _mlp_residual(p, x + mix, cfg, plan.mlp)[0]
 
 
 def block_apply_prefill(p, x, positions, state, cfg: ModelConfig,
@@ -276,43 +283,50 @@ def block_apply_prefill(p, x, positions, state, cfg: ModelConfig,
     K/V rows into the arena through ``block_table`` or into the rolling
     cache, or the recurrent carry. ``plan`` as in ``block_apply_decode``.
     Returns x (a MoE layer's aux loss dropped)."""
-    attn_g, mlp_g = plan if plan is not None else (None, None)
+    plan = plan or _NO_PLAN
+    g = plan.group(kind)
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "attn" and block_table is not None:
         mix = paged_prefill_attention(p["mix"], h, positions, state,
                                       block_table, lengths=lengths,
-                                      group=attn_g, **_attn_dims(cfg))
+                                      group=g, **_attn_dims(cfg))
     elif kind == "attn":
         mix = prefill_attention(p["mix"], h, positions, state,
                                 window=_attn_window(cfg), lengths=lengths,
-                                group=attn_g, **_attn_dims(cfg))
+                                group=g, **_attn_dims(cfg))
     elif kind == "rglru":
-        mix = rglru_prefill(p["mix"], h, state, lengths=lengths)
+        mix = rglru_prefill(p["mix"], h, state, lengths=lengths, group=g)
     elif kind == "mlstm":
-        mix = mlstm_prefill(p["mix"], h, state, cfg.n_heads, lengths=lengths)
+        mix = mlstm_prefill(p["mix"], h, state, cfg.n_heads, lengths=lengths,
+                            group=g)
     elif kind == "slstm":
-        mix = slstm_prefill(p["mix"], h, state, cfg.n_heads, lengths=lengths)
+        mix = slstm_prefill(p["mix"], h, state, cfg.n_heads, lengths=lengths,
+                            group=g)
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, x + mix, cfg, mlp_g)[0]
+    return _mlp_residual(p, x + mix, cfg, plan.mlp)[0]
 
 
 def block_state_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
-                     device=None, kv_bits: int = 0):
+                     device=None, kv_bits: int = 0, mp: int = 1):
+    """One block's zero decode state; ``mp``: one rank's share where the
+    block kind splits over ``mp`` model ranks (its KV heads, RG-LRU
+    channels, mLSTM heads or sLSTM channels)."""
     dt = model_dtype(cfg)
+    n = mp if sharding.check_model_parallel(cfg, mp)[kind] else 1
     if kind == "attn":
         w = _attn_window(cfg)
         clen = min(cache_len, w) if w else cache_len
-        return init_cache(batch, cfg.n_kv_heads, cfg.head_dim, clen,
+        return init_cache(batch, cfg.n_kv_heads // n, cfg.head_dim, clen,
                           dtype=dt, kv_bits=kv_bits, device=device)
     if kind == "rglru":
-        return rglru_state_init(batch, cfg.d_rnn or cfg.d_model, dtype=dt,
-                                device=device)
+        return rglru_state_init(batch, (cfg.d_rnn or cfg.d_model) // n,
+                                dtype=dt, device=device)
     if kind == "mlstm":
         return mlstm_state_init(batch, cfg.d_model, cfg.n_heads,
-                                device=device)
+                                device=device, shards=n)
     if kind == "slstm":
-        return slstm_state_init(batch, cfg.d_model, device=device)
+        return slstm_state_init(batch, cfg.d_model // n, device=device)
     raise ValueError(kind)
 
 
@@ -390,19 +404,21 @@ def _stacked(draw, n: int):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      device=None, kv_bits: int = 0):
+                      device=None, kv_bits: int = 0, mp: int = 1):
     """Per-layer decode state: stacked ``{"k","v"}: [L, batch, clen, n_kv,
     hd]`` for homogeneous archs (a paged pool passes (arena pages,
     page_len)), a tuple of per-layer states otherwise. ``kv_bits=8``: the
-    int8 rolling cache (codes and scales), in the attention blocks only."""
+    int8 rolling cache (codes and scales), in the attention blocks only.
+    ``mp``: one rank's share on a mesh of ``mp`` model ranks (``cfg`` the
+    whole config; ``sharding.shard_state`` cuts the same slices)."""
     if cfg.homogeneous:
         one = block_state_init(cfg, "attn", batch, cache_len, "meta",
-                               kv_bits)
+                               kv_bits, mp)
         return tree_map(lambda a: torch.zeros((cfg.n_layers,) + a.shape,
                                               dtype=a.dtype, device=device),
                         one)
     return tuple(block_state_init(cfg, kind, batch, cache_len, device,
-                                  kv_bits if kind == "attn" else 0)
+                                  kv_bits if kind == "attn" else 0, mp)
                  for kind in _kinds(cfg))
 
 
@@ -482,6 +498,7 @@ def forward(params, tokens, cfg: ModelConfig, *, train: bool = False,
     ``embeddings``: a vision prefix [B, Nv, d]; ``plan``: a mesh's
     ``RankPlan``. Returns (logits [B, Nv + S, V] float32 ([B, K, S, V]
     audio), aux_loss)."""
+    params = sharding.fsdp_gather_top(params, plan)
     x = embed_tokens(params, tokens, cfg, embeddings)
     x, aux = run_layers(params["layers"], x, seq_positions(x), cfg,
                         train=train, plan=plan)

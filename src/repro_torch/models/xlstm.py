@@ -20,6 +20,17 @@ promotes the model-dtype weights to f32 on every call. ``slstm_prepare``
 makes those f32 forms once per loaded model (the engines run prepared
 trees, ``T.prepare_params``); an unprepared tree makes the same values on
 each call.
+
+``group`` (a mesh's model group for these mixers; ``n_heads`` then the
+rank's share) splits the heads. mLSTM: ``up_l`` / ``up_r`` by columns
+(the input's gradient summed over the group, ``collectives.copy_to``),
+``up_l``'s output gathered whole (exact) for ``wq`` / ``wk`` / ``wv`` /
+``wi`` / ``wf``, which give the rank's heads; the normalizer scan and C
+run on them, and ``down`` splits by rows (the partial products summed
+over the group, ``layers.row_parallel_sum``). sLSTM: the
+gate weights, biases and recurrent blocks and the carry on the rank's
+channels (whole heads), the hidden state gathered whole for the up / gate
+/ down path, which splits like an MLP, ``down`` by rows as the mLSTM's.
 """
 from __future__ import annotations
 
@@ -28,11 +39,13 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _normal, dense_apply, dense_init
+from repro_torch.configs.base import slstm_up_width
+from repro_torch.models import collectives as CL
+from repro_torch.models.layers import (_normal, dense_apply, dense_init,
+                                       row_parallel_sum)
 from repro_torch.models.scan_utils import chunked_scan
 
 _MLSTM_PF = 2.0    # mLSTM up-projection factor
-_SLSTM_PF = 4.0 / 3.0
 _GATES = ("i", "f", "z", "o")
 
 
@@ -90,11 +103,12 @@ def mlstm_init(gen, d: int, n_heads: int, *, dtype=torch.bfloat16):
     }
 
 
-def _mlstm_qkvif(p, x, n_heads):
-    """x: [B,S,d] -> q,k,v [B,S,H,hd] fp32; i,f preacts [B,S,H] fp32."""
-    xl = dense_apply(p["up_l"], x)
-    B, S, di = xl.shape
-    hd = di // n_heads
+def _mlstm_qkvif(p, x, n_heads, group=None):
+    """x: [B,S,d] -> q,k,v [B,S,H,hd] fp32; i,f preacts [B,S,H] fp32 for
+    the ``n_heads`` heads of this rank over ``group``."""
+    xl = CL.all_gather(dense_apply(p["up_l"], x), group, -1)
+    B, S, _ = xl.shape
+    hd = p["wq"]["w"].shape[-1] // n_heads
     q = (xl @ p["wq"]["w"]).reshape(B, S, n_heads, hd).float()
     k = (xl @ p["wk"]["w"]).reshape(B, S, n_heads, hd).float()
     # a division by a device tensor: correctly rounded on the CPU and the
@@ -107,14 +121,20 @@ def _mlstm_qkvif(p, x, n_heads):
     return xl, q, k, v, i_pre, f_pre
 
 
-def mlstm_state_init(batch: int, d: int, n_heads: int, device=None):
-    di = int(_MLSTM_PF * d)
-    hd = di // n_heads
+def mlstm_state_init(batch: int, d: int, n_heads: int, device=None,
+                     shards: int = 1):
+    """The zero state of ``n_heads`` heads of width ``2 d / n_heads``;
+    ``shards``: one model rank's share of them (``n_heads / shards``)."""
+    hd = int(_MLSTM_PF * d) // n_heads
+    return _mlstm_zeros(batch, n_heads // shards, hd, device)
+
+
+def _mlstm_zeros(batch: int, heads: int, hd: int, device):
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        "C": torch.zeros((batch, n_heads, hd, hd), **f32),
-        "n": torch.zeros((batch, n_heads, hd), **f32),
-        "m": torch.full((batch, n_heads), float("-inf"), **f32),
+        "C": torch.zeros((batch, heads, hd, hd), **f32),
+        "n": torch.zeros((batch, heads, hd), **f32),
+        "m": torch.full((batch, heads), float("-inf"), **f32),
     }
 
 
@@ -204,52 +224,56 @@ def _mlstm_cell_scan(q, k, v, i_pre, f_pre, state, valid):
     return final, hs.swapaxes(0, 1)
 
 
-def _mlstm_output(p, x, hs):
+def _mlstm_output(p, x, hs, group=None):
     B, S = x.shape[:2]
     h = hs.reshape(B, S, -1).to(x.dtype)
     gate = F.silu(dense_apply(p["up_r"], x))
-    return dense_apply(p["down"], h * gate)
+    return row_parallel_sum(dense_apply(p["down"], h * gate), group)
 
 
-def mlstm_full(p, x, n_heads: int, *, train: bool = False):
+def mlstm_full(p, x, n_heads: int, *, train: bool = False, group=None):
     """Full-sequence mLSTM block. x: [B,S,d] -> [B,S,d].
 
     Default (eval) path: the decomposed recurrence of ``_mlstm_scan_op``.
     ``train=True`` keeps the fused-cell scan, as the reference does (the
-    scan kernel has no backward)."""
-    _, q, k, v, i_pre, f_pre = _mlstm_qkvif(p, x, n_heads)
+    scan kernel has no backward). ``group``: the mixer's model group
+    (``n_heads`` the rank's)."""
+    x = CL.copy_to(x, group)
+    _, q, k, v, i_pre, f_pre = _mlstm_qkvif(p, x, n_heads, group)
     B, S = x.shape[:2]
-    state = mlstm_state_init(B, x.shape[-1], n_heads, device=x.device)
+    state = _mlstm_zeros(B, n_heads, q.shape[-1], x.device)
     route = _mlstm_cell_scan if train else _mlstm_scan_op
     _, hs = route(q, k, v, i_pre, f_pre, state, _valid(None, B, S, x.device))
-    return _mlstm_output(p, x, hs)
+    return _mlstm_output(p, x, hs, group)
 
 
 def mlstm_prefill(p, x, state, n_heads: int, lengths=None, *,
-                  use_scan_op: bool = True):
+                  use_scan_op: bool = True, group=None):
     """Full-sequence mLSTM that also leaves behind the final recurrent
     state (in ``state``, in place) — the batched replacement for looping
     ``mlstm_step``. ``lengths``: optional [B] true lengths for right-padded
     batches (pad steps keep the carried state). The normalizer runs
     through ``ops.rglru_scan_op``; ``use_scan_op=False`` keeps the
-    fused-cell scan, which gives the same bits. Returns y [B, S, d]."""
-    _, q, k, v, i_pre, f_pre = _mlstm_qkvif(p, x, n_heads)
+    fused-cell scan, which gives the same bits. ``group``: the mixer's
+    model group (``n_heads`` and ``state`` the rank's). Returns y
+    [B, S, d]."""
+    _, q, k, v, i_pre, f_pre = _mlstm_qkvif(p, x, n_heads, group)
     B, S = x.shape[:2]
     route = _mlstm_scan_op if use_scan_op else _mlstm_cell_scan
     final, hs = route(q, k, v, i_pre, f_pre, state,
                       _valid(lengths, B, S, x.device))
     _write(state, final)
-    return _mlstm_output(p, x, hs)
+    return _mlstm_output(p, x, hs, group)
 
 
-def mlstm_step(p, x, state, n_heads: int):
-    """One decode step. x: [B,1,d]; ``state`` updated in place. Returns
-    y [B,1,d]."""
-    _, q, k, v, i_pre, f_pre = _mlstm_qkvif(p, x, n_heads)
+def mlstm_step(p, x, state, n_heads: int, group=None):
+    """One decode step. x: [B,1,d]; ``state`` updated in place; ``group``
+    as in ``mlstm_prefill``. Returns y [B,1,d]."""
+    _, q, k, v, i_pre, f_pre = _mlstm_qkvif(p, x, n_heads, group)
     new, h = _mlstm_cell(
         state, (q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0]))
     _write(state, new)
-    return _mlstm_output(p, x, h[:, None])
+    return _mlstm_output(p, x, h[:, None], group)
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +284,7 @@ def mlstm_step(p, x, state, n_heads: int):
 
 def slstm_init(gen, d: int, n_heads: int, *, dtype=torch.bfloat16):
     hd = d // n_heads
-    di = int(_SLSTM_PF * d)
+    di = slstm_up_width(d)
     p = {"down": dense_init(gen, di, d, dtype=dtype),
          "up": dense_init(gen, d, di, dtype=dtype),
          "up_gate": dense_init(gen, d, di, dtype=dtype)}
@@ -300,8 +324,9 @@ def slstm_state_init(batch: int, d: int, device=None):
 
 def _slstm_cell(f, state, x_t, n_heads):
     """x_t: [B,d] f32 preact inputs; recurrent connections use h_{t-1};
-    ``f``: the layer's ``_slstm_f32_forms``."""
-    B, d = x_t.shape
+    ``f``: the layer's ``_slstm_f32_forms``; the state holds the channels
+    of ``n_heads`` heads."""
+    B, d = state["h"].shape
     hd = d // n_heads
     h_prev = state["h"].reshape(B, n_heads, hd)
 
@@ -319,13 +344,14 @@ def _slstm_cell(f, state, x_t, n_heads):
     return {"c": c, "n": n, "m": m_new, "h": h}, h
 
 
-def _slstm_output(p, x, hs):
-    """hs: [B, S, d] f32 -> the block's output in ``x.dtype``."""
-    h = hs.to(x.dtype)
+def _slstm_output(p, x, hs, group=None):
+    """hs: [B, S, d] f32 (the rank's channels over ``group``, gathered
+    whole) -> the block's output in ``x.dtype``."""
+    h = CL.all_gather(hs.to(x.dtype), group, -1)
     # jax.nn.gelu is the tanh approximation
     u = F.gelu(dense_apply(p["up"], h), approximate="tanh") \
         * dense_apply(p["up_gate"], h)
-    return dense_apply(p["down"], u)
+    return row_parallel_sum(dense_apply(p["down"], u), group)
 
 
 def _slstm_scan(p, x, state, n_heads, valid):
@@ -340,29 +366,33 @@ def _slstm_scan(p, x, state, n_heads, valid):
     return final, hs.swapaxes(0, 1)
 
 
-def slstm_full(p, x, n_heads: int):
-    """Full-sequence sLSTM block. x: [B,S,d] -> [B,S,d]."""
-    B, S, d = x.shape
-    _, hs = _slstm_scan(p, x, slstm_state_init(B, d, device=x.device),
+def slstm_full(p, x, n_heads: int, group=None):
+    """Full-sequence sLSTM block. x: [B,S,d] -> [B,S,d]. ``group``: the
+    mixer's model group (``n_heads`` the rank's)."""
+    x = CL.copy_to(x, group)
+    B, S, _ = x.shape
+    width = p["w_i"]["w"].shape[-1]              # the rank's channels
+    _, hs = _slstm_scan(p, x, slstm_state_init(B, width, device=x.device),
                         n_heads, _valid(None, B, S, x.device))
-    return _slstm_output(p, x, hs)
+    return _slstm_output(p, x, hs, group)
 
 
-def slstm_prefill(p, x, state, n_heads: int, lengths=None):
+def slstm_prefill(p, x, state, n_heads: int, lengths=None, group=None):
     """Full-sequence sLSTM that leaves behind the final recurrent state (in
-    ``state``, in place). ``lengths`` as in ``mlstm_prefill``. Returns
+    ``state``, in place). ``lengths`` as in ``mlstm_prefill``; ``group``
+    as in ``slstm_full`` (``state`` the rank's channels). Returns
     y [B, S, d]."""
     B, S, _ = x.shape
     final, hs = _slstm_scan(p, x, state, n_heads,
                             _valid(lengths, B, S, x.device))
     _write(state, final)
-    return _slstm_output(p, x, hs)
+    return _slstm_output(p, x, hs, group)
 
 
-def slstm_step(p, x, state, n_heads: int):
-    """One decode step. x: [B,1,d]; ``state`` updated in place. Returns
-    y [B,1,d]."""
+def slstm_step(p, x, state, n_heads: int, group=None):
+    """One decode step. x: [B,1,d]; ``state`` updated in place; ``group``
+    as in ``slstm_prefill``. Returns y [B,1,d]."""
     f = p.get("f32") or _slstm_f32_forms(p)
     new, h = _slstm_cell(f, state, x[:, 0].float(), n_heads)
     _write(state, new)
-    return _slstm_output(p, x, h[:, None])
+    return _slstm_output(p, x, h[:, None], group)

@@ -141,8 +141,9 @@ class _Rows:
         return [i for i, _ in pairs], [r for _, r in pairs]
 
 
-def _pool_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
-    return mesh.local_cfg(cfg) if mesh is not None else cfg
+def _mp(mesh) -> int:
+    """The model ranks a pool's state splits over (1 without a mesh)."""
+    return mesh.mp if mesh is not None else 1
 
 
 class SlotPool:
@@ -165,8 +166,8 @@ class SlotPool:
         self.device = device
         self.mesh = mesh
         self.rows = _Rows(n_slots, mesh)
-        self.states = (T.init_decode_state(_pool_cfg(cfg, mesh), n_slots,
-                                           cache_len, device=device)
+        self.states = (T.init_decode_state(cfg, n_slots, cache_len,
+                                           device=device, mp=_mp(mesh))
                        if self.rows.decodes else None)
         self.positions = np.zeros(n_slots, np.int32)
         self._free = list(range(n_slots - 1, -1, -1))
@@ -286,9 +287,9 @@ class PagedPool:
         #: allocatable pages of each shard (ids 1..shard_pages[j] there)
         self.shard_pages = [base + (j < extra) for j in range(self.n_shards)]
         self.arena_pages = max(self.shard_pages) + 1
-        self.states = (T.init_decode_state(_pool_cfg(cfg, mesh),
-                                           self.arena_pages, page_len,
-                                           device=device)
+        self.states = (T.init_decode_state(cfg, self.arena_pages,
+                                           page_len, device=device,
+                                           mp=_mp(mesh))
                        if self.rows.decodes else None)
         self.positions = np.zeros(n_slots, np.int32)
         self._free = list(range(n_slots - 1, -1, -1))
@@ -560,7 +561,6 @@ class ContinuousBatchingEngine:
         self.device = params["embed"]["table"].device
         member = mesh is None or mesh.member
         if mesh is not None:
-            mesh.check_model(cfg)
             self.run_cfg = mesh.local_cfg(cfg)
             self.plan = mesh.rank_plan(cfg)
             self.device = mesh.device
@@ -861,8 +861,8 @@ class ContinuousBatchingEngine:
             bt = torch.from_numpy(bt_np).to(dev)
             states = self.pool.states
         else:
-            states = T.init_decode_state(self.run_cfg, bp,
-                                         self.pool.cache_len, device=dev)
+            states = T.init_decode_state(self.cfg, bp, self.pool.cache_len,
+                                         device=dev, mp=_mp(self.mesh))
         toks_dev = torch.from_numpy(toks).to(dev)
         lens_dev = torch.from_numpy(lens).to(dev)
         if self.banked:

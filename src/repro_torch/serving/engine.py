@@ -88,7 +88,6 @@ class ServingEngine:
         self.plan = None
         self.device = params["embed"]["table"].device
         if mesh is not None:
-            mesh.check_model(cfg)
             self.run_cfg = mesh.local_cfg(cfg)
             self.device = mesh.device
             self.plan = mesh.rank_plan(cfg)
@@ -110,8 +109,9 @@ class ServingEngine:
         return self._steps[key]
 
     def reset(self):
-        self.states = T.init_decode_state(self.run_cfg, self.batch,
-                                          self.cache_len, device=self.device)
+        self.states = T.init_decode_state(
+            self.cfg, self.batch, self.cache_len, device=self.device,
+            mp=self.mesh.mp if self.mesh is not None else 1)
         self.pos = 0
         self.stats = GenStats()
 

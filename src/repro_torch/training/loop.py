@@ -14,9 +14,13 @@ takes its ``batch_pspec`` slice of the global batch (over the dp axes,
 where the batch does not divide, the axis drops and the batch
 replicates), runs the forward on its slices of the weights
 (``sharding.shard_train_params``) with the model group's tensor-parallel
-plan, averages every gradient over the dp axes (one float32 all_reduce a
-leaf) and the metrics with them, and updates as one device does, the
-clip's norm summed over the split leaves' groups. The replicated leaves
+plan, each data-split weight gathered whole just before its layer (FSDP:
+the reference's ZeRO-3 over ``data``), averages every whole leaf's
+gradient over the dp axes (one float32 all_reduce a leaf) and the metrics
+with them, divides each data-split leaf's gradient, which the gather's
+backward already summed over ``data``, by the ranks it sums over once,
+and updates as one device does, AdamW's moments on the rank's slices and
+the clip's norm summed over the split leaves' groups. The whole leaves
 stay bit-identical across the ranks.
 """
 from __future__ import annotations
@@ -58,7 +62,8 @@ def make_loss_fn(cfg: ModelConfig, *, mode: Optional[int] = None,
     text positions before the loss. On a ``mesh`` the parameters and the
     batch are the rank's."""
     _check_pipeline(mesh, use_pipeline)
-    plan = mesh.rank_plan(cfg) if mesh is not None else None
+    plan = (mesh.rank_plan(cfg, SP.param_shapes(cfg)) if mesh is not None
+            else None)
     run_cfg = mesh.local_cfg(cfg) if mesh is not None else cfg
 
     def loss_fn(params, batch):
@@ -121,11 +126,29 @@ class MeshRun:
 
     def reduce(self, grads, loss, metrics):
         """Average the gradients (in place) and (loss, metrics) over the
-        last batch's axes; returns (loss, metrics)."""
+        last batch's axes; returns (loss, metrics). A data-split leaf's
+        gradient arrives summed over ``data`` (the reduce-scatter of its
+        gather): it is summed over the batch's other axes and divided by
+        the ranks of both, once."""
+        gs = opt.leaves(grads)
+        split = opt._split_leaves(sharding.split_axes(
+            grads, self.mesh, cfg=self.cfg,
+            shapes=SP.param_shapes(self.cfg), stages=self.use_pipeline))
+        fsdp = [g for g, a in zip(gs, split)
+                if g is not None and a and "data" in a]
+        if fsdp:
+            axes = tuple(self._axes or ())
+            rest = self.mesh.group(tuple(a for a in axes if a != "data"))
+            n = torch.full((), float(self.mesh.size(
+                tuple(set(axes) | {"data"}))), dtype=torch.float32,
+                device=fsdp[0].device)
+            for g in fsdp:
+                g.copy_(CL.all_reduce_f32(g, rest) / n)
         if self._axes is None:
             return loss, metrics
         group = self.mesh.group(self._axes)
-        CL.mean_grads_(opt.leaves(grads), group)
+        CL.mean_grads_([g for g, a in zip(gs, split)
+                        if not (a and "data" in a)], group)
         keys = sorted(metrics)
         vals = torch.stack([loss.float()] + [metrics[k].float()
                                              for k in keys])
@@ -137,9 +160,9 @@ class MeshRun:
     def norm_split(self, params) -> dict:
         """``apply_updates``' arguments for the clip's global norm."""
         if self._split is None:
-            self._split = sharding.split_axes(params, self.mesh,
-                                              cfg=self.cfg,
-                                              stages=self.use_pipeline)
+            self._split = sharding.split_axes(
+                params, self.mesh, cfg=self.cfg,
+                shapes=SP.param_shapes(self.cfg), stages=self.use_pipeline)
         return {"split": self._split, "group_of": self.mesh.group}
 
 

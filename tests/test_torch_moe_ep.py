@@ -35,6 +35,7 @@ import torch_ranks
 from repro_torch.configs import get_reduced
 from repro_torch.configs.base import TrainConfig
 from repro_torch.convert import params_from_flat
+from repro_torch.core import split as SP
 from repro_torch.data import tokens as TK
 from repro_torch.models import moe_ep, sharding
 from repro_torch.models import transformer as T
@@ -112,7 +113,8 @@ def _sc_train(payload):
         params, _, m = step(params, TO.init(params), batch)
     finally:
         T.moe_apply_ep = orig
-    split = sharding.split_axes(params, mesh, cfg=cfg)
+    split = sharding.split_axes(params, mesh, cfg=cfg,
+                                shapes=SP.param_shapes(cfg))
     rep = {path: a.numpy() for (path, a), (_, s) in zip(
         sharding._path_leaves(params), sharding._path_leaves(split))
         if s is None}

@@ -22,8 +22,9 @@ data 1, model 2), each pod rank holding its half of the layers
   under the float backward's;
 - one pipelined train step (``make_train_step(use_pipeline=True)``) gives
   the port's one-device loss within ``STEP_LOSS_REL`` (bf16, mode 0 is
-  the monolithic forward) and keeps the replicated leaves bit-identical
-  across every rank.
+  the monolithic forward) and keeps the replicated leaves (those
+  ``split_axes`` leaves whole: on the data-2 layout the LM head and the
+  bank are split over data, FSDP) bit-identical across every rank.
 """
 import importlib
 import types
@@ -77,10 +78,12 @@ def _sc_layout(payload, label):
     cfg = get_reduced(ARCH)
     full = params_from_flat(payload["params"], device="cpu")
     local = sharding.shard_train_params(full, mesh, cfg=cfg, stages=True)
-    back = sharding.gather_train_params(local, mesh, cfg=cfg, stages=True)
+    shapes = sharding.tree_shapes(full)
+    back = sharding.gather_train_params(local, mesh, cfg=cfg, shapes=shapes,
+                                        stages=True)
     roundtrip = all(_bits_of(a) == _bits_of(b) for (_, a), (_, b) in zip(
         sharding._path_leaves(back), sharding._path_leaves(full)))
-    run_cfg, plan = mesh.local_cfg(cfg), mesh.rank_plan(cfg)
+    run_cfg, plan = mesh.local_cfg(cfg), mesh.rank_plan(cfg, shapes)
     axes = ("data",) if mesh.shape["data"] > 1 else None
     tok = mesh.local_batch({"t": torch.from_numpy(payload["tokens"])},
                            axes)["t"]
@@ -94,7 +97,8 @@ def _sc_layout(payload, label):
                                         plan=plan)
             out["logits"][mode] = lg.numpy()
             out["wire"][mode] = dict(PL.WIRE_BYTES)
-    split = sharding.split_axes(local, mesh, cfg=cfg, stages=True)
+    split = sharding.split_axes(local, mesh, cfg=cfg, shapes=shapes,
+                                stages=True)
     for bwd_bits in (0, 8):
         def loss(p, b, _):
             lg, aux = PL.pipeline_forward(p, b, run_cfg, mesh=mesh,
@@ -119,8 +123,9 @@ def _sc_layout(payload, label):
     out["step_loss"] = float(m["loss"])
     out["replicated"] = {
         path: a.view(torch.int16).numpy() if a.dtype == torch.bfloat16
-        else a.numpy() for path, a in sharding._path_leaves(params)
-        if not path.startswith("layers/")}
+        else a.numpy() for (path, a), (_, axes) in zip(
+            sharding._path_leaves(params), sharding._path_leaves(split))
+        if not path.startswith("layers/") and axes is None}
     return out
 
 

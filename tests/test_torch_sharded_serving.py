@@ -1,7 +1,8 @@
 """The port's serving mesh (``repro_torch.models.sharding``) on gloo ranks.
 
 The counterparts of the reference's ``tests/test_sharded_serving.py`` on
-reduced float32 qwen2.5-3b and recurrentgemma-2b, with weights converted
+reduced float32 qwen2.5-3b, recurrentgemma-2b and xlstm-125m, with weights
+converted
 from the JAX package's ``init_split_params``. Each rank is a process of a
 gloo group on the CPU; the ranks of one world size are started once per
 module and run every scenario of that size (``_rank``), importing torch
@@ -19,7 +20,14 @@ reference's and the port's.
   agree with the one-device engine's within ``MP_LOGIT_ATOL``, decided
   before the run from the arithmetic (two partial sums added in float32 at
   ``wo`` and ``w_down``, a few ulps of logits of order 1), and tokens are
-  equal except where the one-device top-two gap is within it.
+  equal except where the one-device top-two gap is within it. The same
+  holds of the RG-LRU and xLSTM mixers over mp 2 (each rank its channels
+  or heads, the recurrent state split with them), whose one-device
+  tokens are the JAX engine's; their sync engine at mp 2 decodes the
+  one-device tokens, and a migration snapshot at mp 2 has the one-device
+  snapshot's layout and bytes count, every leaf gathered whole (its values
+  within ``MP_LOGIT_ATOL`` plus ``MP_STATE_RTOL`` of one device's: mp
+  reassociates the row-split sums).
 - Migration is mesh-blind: a live migration between two dp-2 replicas (4
   ranks) resumes the unmigrated stream; a snapshot from a dp-4 engine
   equals the one-device snapshot byte for byte.
@@ -27,8 +35,8 @@ reference's and the port's.
   place, as one device does), the paged pool's per-shard free lists and
   padded arenas.
 - Validation needs no ranks: axes under 1, too few ranks, an
-  oversubscribed cluster; mp on RG-LRU and xLSTM layers raises naming
-  ROADMAP item 7c (MoE layers split their experts over mp).
+  oversubscribed cluster. On ranks, MoE, RG-LRU and xLSTM layers pass the
+  mesh's check on both engines, each block kind split where it divides.
 
 The JAX package is imported inside the fixtures, not at the top: the
 ranks import this module to find their scenarios and must load no
@@ -62,8 +70,13 @@ from repro_torch.serving import (ContinuousBatchingEngine, EdgeCluster,
 
 ARCHS = ["qwen2.5-3b", "recurrentgemma-2b"]
 QWEN, RG = ARCHS
+XL = "xlstm-125m"
+MIXERS = (RG, XL)
 #: |logit| difference allowed between an mp run and one device (float32)
 MP_LOGIT_ATOL = 1e-4
+#: relative difference allowed between an mp snapshot's state and one
+#: device's (float32, beside ``MP_LOGIT_ATOL``)
+MP_STATE_RTOL = 1e-5
 #: seconds a rank waits in a collective before its group gives up
 RANK_TIMEOUT = 120
 
@@ -255,22 +268,39 @@ def _sc_shard_params(models, mp):
 
 
 def _sc_mp_raises(models, mp):
-    """mp over MoE layers passes the mesh's check; over RG-LRU and xLSTM
-    mixers each engine raises."""
+    """MoE, RG-LRU and xLSTM layers pass the mesh's check on both engines:
+    each engine builds on the rank's slices; returns the block kinds that
+    split and the rank's config's head count and RG-LRU width."""
+    from repro_torch.core.split import init_split_params
     mesh = serving_mesh(1, mp, device="cpu")
-    stub = {"embed": {"table": torch.zeros(1)}}
     out = {}
     for arch in ("mixtral-8x7b", "recurrentgemma-2b", "xlstm-125m"):
+        cfg = get_reduced(arch)
+        params = init_split_params(torch.Generator().manual_seed(0), cfg)
         for cls in (ContinuousBatchingEngine, ServingEngine):
-            try:
-                if get_reduced(arch).is_moe:
-                    mesh.check_model(get_reduced(arch))
-                else:
-                    cls(stub, get_reduced(arch), mesh=mesh)
-                out[(arch, cls.__name__)] = None
-            except NotImplementedError as e:
-                out[(arch, cls.__name__)] = str(e)
+            eng = cls(params, cfg, cache_len=16, mesh=mesh)
+            out[(arch, cls.__name__)] = (mesh.check_model(cfg),
+                                         eng.run_cfg.n_heads,
+                                         eng.run_cfg.d_rnn)
     return out
+
+
+def _sc_sync_mp(models, arch, mp):
+    cfg, params = models[arch]
+    return _sync(cfg, params, serving_mesh(1, mp, device="cpu"))
+
+
+def _snapshot_state(cfg, params, mesh):
+    """The dense snapshot of ``_snapshot_wire``: its layout and leaves."""
+    got = _snapshot_wire(cfg, params, mesh, False)
+    return {"slot": got["slot"], "position": got["position"],
+            "cur_token": got["cur_token"], "nbytes": got["nbytes"],
+            "wire": got["wire"]}
+
+
+def _sc_snapshot_mp(models, arch, mp):
+    cfg, params = models[arch]
+    return _snapshot_state(cfg, params, serving_mesh(1, mp, device="cpu"))
 
 
 SERVE = ["--arch", QWEN, "--reduced", "--device", "cpu", "--requests", "4",
@@ -291,10 +321,21 @@ def _sc_launchers(models):
             "finished": out["requests_finished"], "slot_scaling": sc}
 
 
+def _sc_serve_mp(models, arch):
+    """``launch.serve --mp 2`` of a reduced mixer arch on the group."""
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--requests", "3", "--gen", "4", "--engine",
+                      "continuous", "--mp", "2"])
+    return {"tokens": out["tokens"], "mesh": out["mesh"],
+            "finished": out["requests_finished"]}
+
+
 SCENARIOS = {"run": _sc_run, "sync": _sc_sync, "migrate": _sc_migrate,
              "snapshot": _sc_snapshot, "pools": _sc_pools,
              "shard_params": _sc_shard_params, "mp_raises": _sc_mp_raises,
-             "launchers": _sc_launchers}
+             "launchers": _sc_launchers, "sync_mp": _sc_sync_mp,
+             "snapshot_mp": _sc_snapshot_mp, "serve_mp": _sc_serve_mp}
 
 WORLD2 = (
     ("dp2 host", "run", (QWEN, 2), {"host_loop": True}),
@@ -307,6 +348,11 @@ WORLD2 = (
     ("shard_params", "shard_params", (2,), {}),
     ("mp_raises", "mp_raises", (2,), {}),
     ("launchers", "launchers", (), {}),
+    *((f"{a} mp2 unfused", "run", (a, 1, 2), {"fused_tail": False})
+      for a in MIXERS),
+    *((f"{a} mp2 sync", "sync_mp", (a, 2), {}) for a in MIXERS),
+    *((f"{a} mp2 snapshot", "snapshot_mp", (a, 2), {}) for a in MIXERS),
+    ("serve rg mp2", "serve_mp", (RG,), {}),
 )
 WORLD4 = (
     ("dp4 host", "run", (QWEN, 4), {"host_loop": True}),
@@ -401,7 +447,7 @@ def ref():
 def flats(ref):
     """Each arch's JAX init as the numpy leaves the port converts."""
     out = {}
-    for arch in ARCHS:
+    for arch in ARCHS + [XL]:
         jcfg = dataclasses.replace(ref.jcfg.get_reduced(arch),
                                    dtype="float32")
         jp = ref.JSP.init_split_params(ref.jax.random.PRNGKey(0), jcfg)
@@ -442,8 +488,17 @@ def jax_runs(ref):
                     orchestrator=ref.serving.default_orchestrator(jcfg),
                     host_loop=host_loop)
                 with eng:
-                    done = eng.run(_reqs(jcfg, request_cls=ref.serving.Request))
+                    done = eng.run(_reqs(jcfg,
+                                         request_cls=ref.serving.Request))
                 out[(arch, host_loop)] = _summary(done)
+        jcfg = dataclasses.replace(ref.jcfg.get_reduced(XL), dtype="float32")
+        eng = ref.serving.ContinuousBatchingEngine(
+            ref.JSP.init_split_params(ref.jax.random.PRNGKey(0), jcfg), jcfg,
+            n_slots=4, cache_len=48,
+            orchestrator=ref.serving.default_orchestrator(jcfg))
+        with eng:
+            out[(XL, False)] = _summary(eng.run(_reqs(
+                jcfg, request_cls=ref.serving.Request)))
     return out
 
 
@@ -470,6 +525,11 @@ def one_device(models):
                                        orchestrator=default_orchestrator(cfg))
         with eng:
             out[("mobile", arch)] = _summary(eng.run(_mobile_reqs(cfg)))
+    for arch in MIXERS:
+        cfg, params = models[arch]
+        out[("unfused", arch)] = _run(cfg, params, None, fused_tail=False)
+        out[("sync", arch)] = _sync(cfg, params, None)
+        out[("snapshot", arch)] = _snapshot_state(cfg, params, None)
     return out
 
 
@@ -559,15 +619,19 @@ def _first_divergence(got, base):
     return out
 
 
-@pytest.mark.parametrize("layout", ["mp2 unfused", "dp2 mp2 unfused"])
+@pytest.mark.parametrize("layout", ["mp2 unfused", "dp2 mp2 unfused",
+                                    *(f"{a} mp2 unfused" for a in MIXERS)])
 def test_dp_mp_mesh_completes_same_schedule(layout, world2, world4,
                                             one_device):
     """mp reassociates the row-split sums, so tokens may part only at a
     near tie; every request still finishes on the same tick with the same
     wire bytes and modes, and each live row's logits at each step agree
-    with the one-device engine's within ``MP_LOGIT_ATOL``."""
-    world = world2 if layout == "mp2 unfused" else world4
-    base = one_device["unfused"]
+    with the one-device engine's within ``MP_LOGIT_ATOL``. The mixer
+    archs' layouts split their RG-LRU channels or xLSTM heads (and the
+    recurrent state with them)."""
+    world = world4 if layout == "dp2 mp2 unfused" else world2
+    arch = next((a for a in MIXERS if layout.startswith(a)), None)
+    base = one_device["unfused" if arch is None else ("unfused", arch)]
     by_rank = {r: world[r][layout] for r in world}
     got = by_rank[0]["sessions"]
     assert set(got) == set(base["sessions"])
@@ -689,16 +753,18 @@ def test_shard_params_reassemble_bit_for_bit(world2, models):
     full = {p: a.numpy() for p, a in sharding._path_leaves(params)}
     parts = [world2[r]["shard_params"] for r in sorted(world2)]
     assert [p["coords"] for p in parts] == [(0, 0), (0, 1)]
+    specs = sharding.rank_specs(cfg, (("model", 2),),
+                                sharding.tree_shapes(params))
     n_split = 0
     for path, whole in full.items():
-        rule = sharding.param_rule(path)
+        spec = specs[path]
         got = [p["flat"][path] for p in parts]
-        if rule is None:
+        if "model" not in spec:
             for g in got:
                 assert g.tobytes() == whole.tobytes(), path
             continue
         n_split += 1
-        joined = np.concatenate(got, axis=whole.ndim + rule[0])
+        joined = np.concatenate(got, axis=spec.index("model"))
         assert joined.tobytes() == whole.tobytes(), path
         assert got[0].shape != whole.shape
     assert n_split == 10       # wq, wk, wv (w and b), wo, gate, up, down
@@ -720,18 +786,76 @@ def test_local_config_keeps_head_dim():
 
 
 def test_mp_on_moe_rglru_xlstm_raises(world2):
-    """mp > 1 over MoE expert layers is taken (the experts split over mp);
-    over RG-LRU or xLSTM mixers it raises ``NotImplementedError`` naming
-    ROADMAP item 7c, on both engines."""
+    """mp 2 over MoE expert layers, RG-LRU and xLSTM mixers passes the
+    mesh's check on both engines (none raises): the experts, the RG-LRU
+    channels and the xLSTM heads split, recurrentgemma's MQA attention
+    (one KV head) runs replicated, and the rank's config narrows the
+    split widths only."""
     got = _same_on_every_rank(world2, "mp_raises")
-    for (arch, cls), msg in got.items():
-        if arch == "mixtral-8x7b":
-            assert msg is None, msg
-            continue
-        assert msg is not None, (arch, cls)
-        assert "7c" in msg and arch in msg, msg
-    assert "RG-LRU" in got[("recurrentgemma-2b", "ServingEngine")]
-    assert "xLSTM" in got[("xlstm-125m", "ServingEngine")]
+    assert len(got) == 6
+    for cls in ("ContinuousBatchingEngine", "ServingEngine"):
+        splits, heads, d_rnn = got[("mixtral-8x7b", cls)]
+        assert splits["mlp"] and not splits["rglru"]
+        splits, heads, d_rnn = got[("recurrentgemma-2b", cls)]
+        rg = get_reduced(RG)
+        assert splits == {"attn": False, "mlp": True, "rglru": True,
+                          "mlstm": False, "slstm": False}
+        assert (heads, d_rnn) == (rg.n_heads, rg.d_rnn // 2)
+        splits, heads, d_rnn = got[("xlstm-125m", cls)]
+        assert splits == {"attn": False, "mlp": False, "rglru": False,
+                          "mlstm": True, "slstm": True}
+        assert heads == get_reduced(XL).n_heads // 2
+
+
+@pytest.mark.parametrize("arch", MIXERS)
+def test_mixers_one_device_tokens_are_jax(arch, one_device, jax_runs):
+    """The one-device stream the mixers' mp layouts are held to is the JAX
+    reference engine's: tokens, wire bytes, modes, finished ticks."""
+    assert one_device[("unfused", arch)]["sessions"] == \
+        jax_runs[(arch, False)]
+
+
+@pytest.mark.parametrize("arch", MIXERS)
+def test_mixers_sync_engine_over_mp(arch, world2, one_device):
+    """The sync engine with the mixers split over mp 2 decodes the
+    one-device tokens on the orchestrator's modes and on mode 1, with the
+    same accounting, on both ranks."""
+    assert _same_on_every_rank(world2, f"{arch} mp2 sync") == \
+        one_device[("sync", arch)]
+
+
+@pytest.mark.parametrize("arch", MIXERS)
+def test_mixers_snapshot_over_mp(arch, world2, one_device):
+    """A migration snapshot of an mp-2 engine gathers every recurrent
+    leaf whole: the one-device snapshot's leaves, dtypes, shapes and
+    bytes, the same bytes on both ranks, each value within the mp
+    tolerance of one device's."""
+    want = one_device[("snapshot", arch)]
+    got = world2[0][f"{arch} mp2 snapshot"]
+    for r in world2:
+        other = world2[r][f"{arch} mp2 snapshot"]
+        assert [e[1].tobytes() for e in other["wire"]] == \
+            [e[1].tobytes() for e in got["wire"]]
+    for k in ("slot", "position", "nbytes"):
+        assert got[k] == want[k], k
+    np.testing.assert_array_equal(got["cur_token"], want["cur_token"])
+    assert len(got["wire"]) == len(want["wire"])
+    for (ka, a), (kb, b) in zip(got["wire"], want["wire"]):
+        assert ka == kb == "raw"
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=MP_STATE_RTOL,
+                                   atol=MP_LOGIT_ATOL)
+
+
+def test_serve_launcher_mp_over_rglru(world2):
+    """``launch.serve --mp 2 --arch recurrentgemma-2b`` (reduced, bf16)
+    serves every request on the group, the same tokens on both ranks."""
+    got = _same_on_every_rank(world2, "serve rg mp2", "tokens")
+    assert len(got) == 3
+    for r in world2:
+        res = world2[r]["serve rg mp2"]
+        assert res["finished"] == 3
+        assert res["mesh"]["mp"] == 2 and res["mesh"]["rank"] == r
 
 
 def test_workers_load_no_jax(world2, world4):

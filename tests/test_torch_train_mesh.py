@@ -6,7 +6,11 @@ one-device runs and the JAX package's (``make_train_step``,
 Reduced configs in float32 (the JAX init carried across), batches from
 ``MarkovTokenSource``. Four ranks:
 
-- two steps of qwen2.5-3b at (data 2, model 2) and (data 4, model 1):
+- two steps of qwen2.5-3b at (data 2, model 2) and (data 4, model 1),
+  both FSDP over data (each rank holds its slice of every leaf whose
+  reference spec has a data entry that divides, and AdamW's moments of
+  those slices only; the leaf shapes held to the reference's
+  ``param_pspecs`` on an abstract mesh):
   each step's loss within ``LOSS_REL`` of both one-device runs', the
   clipped global norm within ``GRAD_REL`` (the mesh sums the squares of
   the model-split leaves over the model group, the replicated ones once),
@@ -30,6 +34,10 @@ Reduced configs in float32 (the JAX init carried across), batches from
 
 Two ranks:
 
+- recurrentgemma-2b and xlstm-125m at (data 1, model 2): the RG-LRU
+  channels and the xLSTM heads split over model; two steps as below
+  against both one-device runs, the JAX package's ``make_train_step``
+  among them;
 - phi3.5-moe at (data 1, model 2) without ``moe_ep``: each rank holds two
   of the four experts; two steps as above (losses and norms against both
   one-device runs, parameters, replicated leaves);
@@ -41,7 +49,10 @@ Two ranks:
 - ``launch.train --mp 2`` on the ranks: the one-device launcher's losses
   within ``LAUNCH_LOSS_REL`` (bf16) and a checkpoint, written once by
   rank 0 from the gathered slices, that ``repro.training.checkpoint.
-  restore`` reads into the JAX template.
+  restore`` reads into the JAX template; the same of ``launch.train``
+  on (data 2, model 1), FSDP, whose ranks each hold half the data-split
+  bytes; and ``launch.train --mp 2`` of recurrentgemma-2b (Algorithm 1,
+  ``--cascade``) and xlstm-125m within ``LAUNCH_LOSS_REL`` of one device.
 """
 import dataclasses
 import importlib
@@ -58,12 +69,15 @@ from repro_torch import serving as TS
 from repro_torch.configs.base import TrainConfig
 from repro_torch.convert import flat_from_params, params_from_flat
 from repro_torch.core import cascade as TC
+from repro_torch.core import split as SP
 from repro_torch.models import collectives as CL
 from repro_torch.models import sharding
 from repro_torch.training import loop as TL
 from repro_torch.training import optimizer as TO
 
 QWEN, PHI = "qwen2.5-3b", "phi3.5-moe-42b-a6.6b"
+RG, XL = "recurrentgemma-2b", "xlstm-125m"
+ARCHS = (QWEN, PHI, RG, XL)
 LOSS_REL = 1e-5
 GRAD_REL = 1e-4
 STEP_REL = 1e-5
@@ -73,6 +87,12 @@ TCFG = dict(learning_rate=1e-3, warmup_steps=2, total_steps=100)
 LAYOUTS = {"data2 model2": 2, "data4": 1}     # model axis
 LAUNCH = ["--arch", QWEN, "--reduced", "--device", "cpu", "--steps", "2",
           "--batch", "2", "--seq", "16", "--lr", "3e-3"]
+#: the mixer archs' launches on (data 1, model 2) (recurrentgemma under
+#: Algorithm 1; xlstm's time loops at a shorter sequence)
+MIXER_LAUNCH = {RG: ["--arch", RG, "--cascade", "--seq", "16"],
+                XL: ["--arch", XL, "--seq", "8"]}
+MIXER_ARGS = ["--reduced", "--device", "cpu", "--steps", "2", "--batch",
+              "2", "--lr", "3e-3"]
 
 
 def _cfg(arch):
@@ -90,7 +110,8 @@ def _bits(a):
 
 
 def _replicated(params, mesh, cfg):
-    split = sharding.split_axes(params, mesh, cfg=cfg)
+    split = sharding.split_axes(params, mesh, cfg=cfg,
+                                shapes=SP.param_shapes(cfg))
     return {path: _bits(a).tobytes() for (path, a), (_, s) in zip(
         sharding._path_leaves(params), sharding._path_leaves(split))
         if s is None}
@@ -103,12 +124,16 @@ def _steps(payload, arch, model):
     cfg = _cfg(arch)
     params = sharding.shard_train_params(
         params_from_flat(payload[arch], device="cpu"), mesh, cfg=cfg)
-    back = flat_from_params(sharding.gather_train_params(params, mesh,
-                                                         cfg=cfg))
+    back = flat_from_params(sharding.gather_train_params(
+        params, mesh, cfg=cfg, shapes=SP.param_shapes(cfg)))
     step = TL.make_train_step(cfg, TrainConfig(**TCFG), mesh=mesh,
                               donate=False)
     state = TO.init(params)
-    out = {"metrics": [], "replicated": [], "roundtrip": sorted(back) ==
+    out = {"metrics": [], "replicated": [],
+           "shapes": {path: (tuple(a.shape), tuple(m.shape)) for (path, a),
+                      (_, m) in zip(sharding._path_leaves(params),
+                                    sharding._path_leaves(state.m))},
+           "roundtrip": sorted(back) ==
            sorted(payload[arch]) and all(back[k].tobytes() ==
                                           payload[arch][k].tobytes()
                                           for k in back)}
@@ -118,7 +143,8 @@ def _steps(payload, arch, model):
         out["metrics"].append({k: float(v) for k, v in m.items()})
         out["replicated"].append(_replicated(params, mesh, cfg))
         if s == 0:
-            full = sharding.gather_train_params(params, mesh, cfg=cfg)
+            full = sharding.gather_train_params(
+                params, mesh, cfg=cfg, shapes=SP.param_shapes(cfg))
             out["params1"] = flat_from_params(full)
     return out
 
@@ -129,6 +155,10 @@ def _sc_steps(payload, label):
 
 def _sc_moe(payload):
     return _steps(payload, PHI, 2)
+
+
+def _sc_mixer(payload, arch):
+    return _steps(payload, arch, 2)
 
 
 def _cascade(params, cfg, mesh=None):
@@ -240,9 +270,32 @@ def _sc_launch(payload):
                                 payload["ckpt_dir"]])
 
 
+def _sc_launch_fsdp(payload):
+    """``launch.train`` on the group's two ranks without --mp: (data 2,
+    model 1), FSDP."""
+    from repro_torch.launch import train
+    return train.main(LAUNCH + ["--ckpt-dir", payload["ckpt_dir_fsdp"]])
+
+
+def _sc_launch_mixer(payload, arch):
+    from repro_torch.launch import train
+    return train.main(MIXER_LAUNCH[arch] + MIXER_ARGS + [
+        "--mp", "2", "--ckpt-dir", payload["ckpt_dir"]])
+
+
 # ---------------------------------------------------------------------------
 # fixtures
 # ---------------------------------------------------------------------------
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread in this process while the ranks share the
+    host's cores with it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 @pytest.fixture(scope="module")
 def ref():
@@ -259,7 +312,7 @@ def ref():
 @pytest.fixture(scope="module")
 def jparams(ref):
     out = {}
-    for arch in (QWEN, PHI):
+    for arch in ARCHS:
         jcfg = dataclasses.replace(ref.jcfg.get_reduced(arch),
                                    dtype="float32")
         out[arch] = ref.JSP.init_split_params(ref.jax.random.PRNGKey(0),
@@ -271,8 +324,9 @@ def jparams(ref):
 def payload(ref, jparams, tmp_path_factory):
     out = {a: {k: np.asarray(v) for k, v in ref.ckpt._flatten(p).items()}
            for a, p in jparams.items()}
-    out["batches"] = {a: _batches(a) for a in (QWEN, PHI)}
+    out["batches"] = {a: _batches(a) for a in ARCHS}
     out["ckpt_dir"] = str(tmp_path_factory.mktemp("mesh_ckpt"))
+    out["ckpt_dir_fsdp"] = str(tmp_path_factory.mktemp("fsdp_ckpt"))
     return out
 
 
@@ -287,7 +341,11 @@ def world4(payload):
 def world2(payload):
     return torch_ranks.spawn(2, __name__, payload, (
         ("moe", "_sc_moe", ()), ("serve", "_sc_serve", ()),
-        ("launch", "_sc_launch", ())))
+        ("launch", "_sc_launch", ()),
+        *((arch, "_sc_mixer", (arch,)) for arch in (RG, XL)),
+        ("launch fsdp", "_sc_launch_fsdp", ()),
+        *((f"launch {arch}", "_sc_launch_mixer", (arch,))
+          for arch in (RG, XL))))
 
 
 def _one_device(payload, arch):
@@ -314,7 +372,7 @@ def _one_device(payload, arch):
 
 @pytest.fixture(scope="module")
 def one_device(payload):
-    return {a: _one_device(payload, a) for a in (QWEN, PHI)}
+    return {a: _one_device(payload, a) for a in ARCHS}
 
 
 def _jcfg(ref, arch):
@@ -325,7 +383,7 @@ def _jcfg(ref, arch):
 def jax_metrics(ref, jparams, payload):
     """The JAX package's two one-device steps of each arch."""
     out = {}
-    for arch in (QWEN, PHI):
+    for arch in ARCHS:
         step = ref.jax.jit(ref.JL.make_train_step(
             _jcfg(ref, arch), ref.jbase.TrainConfig(**TCFG)))
         p, s = jparams[arch], ref.JO.init(jparams[arch])
@@ -414,6 +472,64 @@ def test_moe_over_model_steps_match_one_device(world2, one_device,
     _check_steps(world2, "moe", one_device[PHI], jax_metrics[PHI])
 
 
+@pytest.mark.parametrize("arch", [RG, XL])
+def test_mixers_over_model_steps_match_jax(world2, one_device, jax_metrics,
+                                           arch):
+    """recurrentgemma-2b's RG-LRU channels and xlstm-125m's heads split
+    over (data 1, model 2): losses within ``LOSS_REL`` and clipped norms
+    within ``GRAD_REL`` of the JAX package's ``make_train_step`` and the
+    port's one device, the parameters after a step within the update rule,
+    the whole leaves bit-identical across the ranks."""
+    _check_steps(world2, arch, one_device[arch], jax_metrics[arch])
+
+
+def _expected_local(spec, shape, mesh_shape, path):
+    """A leaf's local shape under the reference's ``spec`` on
+    ``mesh_shape``, the model entries the port keeps whole (outside the
+    layers: the embedding, the LM head, the bank) dropped."""
+    out = []
+    for dim, axis in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        n = 1
+        for a in axes:
+            if a is None or (a == "model" and not path.startswith("layers/")):
+                continue
+            n *= mesh_shape[a]
+        out.append(dim // n)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("label", list(LAYOUTS))
+def test_fsdp_local_shapes_match_reference_specs(world4, ref, jparams,
+                                                 label):
+    """On (data 2, model 2) and (data 4, model 1) each rank's parameter
+    leaves and AdamW moments have the shapes the reference's
+    ``param_pspecs`` give on an abstract mesh of that shape (its data
+    entries applied: FSDP), and the data-split leaves hold a 1/data
+    slice."""
+    shape = {"data": 4 // LAYOUTS[label], "model": LAYOUTS[label]}
+    try:
+        amesh = ref.jax.sharding.AbstractMesh(tuple(shape.items()))
+    except TypeError:
+        amesh = ref.jax.sharding.AbstractMesh(tuple(shape.values()),
+                                              tuple(shape))
+    specs = ref.JS.param_pspecs(jparams[QWEN], amesh)
+    flat = ref.jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, ref.jax.sharding.PartitionSpec)
+    )[0]
+    want = {ref.JS._path_str(p): s for p, s in flat}
+    full = {k: v.shape for k, v in ref.ckpt._flatten(jparams[QWEN]).items()}
+    n_fsdp = 0
+    for r in world4:
+        got = world4[r][label]["shapes"]
+        assert sorted(got) == sorted(full)
+        for path, (p_shape, m_shape) in got.items():
+            exp = _expected_local(want[path], full[path], shape, path)
+            assert p_shape == m_shape == exp, (label, r, path, p_shape, exp)
+            n_fsdp += "data" in str(want[path]) and p_shape != full[path]
+    assert n_fsdp > 0
+
+
 def test_cascade_on_the_mesh(world4, payload, jax_cascade):
     """Algorithm 1 on the (2, 2) mesh: every logged loss within
     ``LOSS_REL`` of the port's one-device cascade's and of the JAX
@@ -478,9 +594,17 @@ def test_moe_serving_over_mp_decodes_one_device_tokens(world2, payload,
         assert world2[r]["serve"] == want
 
 
-def test_train_launcher_mp2_checkpoint(world2, payload, ref, tmp_path):
+@pytest.fixture(scope="module")
+def one_launch(tmp_path_factory):
+    """The one-device launcher's run of ``LAUNCH``: (its history, the
+    directory of its checkpoint)."""
     from repro_torch.launch import train
-    one = train.main(LAUNCH + ["--ckpt-dir", str(tmp_path)])
+    ckpt_dir = str(tmp_path_factory.mktemp("one_ckpt"))
+    return train.main(LAUNCH + ["--ckpt-dir", ckpt_dir]), ckpt_dir
+
+
+def test_train_launcher_mp2_checkpoint(world2, payload, ref, one_launch):
+    one, tmp_path = one_launch
     got = world2[0]["launch"]
     for a, b in zip(got["phase1"], one["phase1"]):
         assert _close(a["loss"], b["loss"], LAUNCH_LOSS_REL), (got, one)
@@ -497,6 +621,54 @@ def test_train_launcher_mp2_checkpoint(world2, payload, ref, tmp_path):
     for k in flat:
         assert flat[k].shape == mine[k].shape, k
         assert np.all(np.isfinite(np.asarray(flat[k], np.float32))), k
+
+
+def _restores_in_jax(ref, path):
+    template = ref.JSP.init_split_params(ref.jax.random.PRNGKey(1),
+                                         ref.jcfg.get_reduced(QWEN))
+    flat = ref.ckpt._flatten(ref.ckpt.restore(path, template))
+    want = ref.ckpt._flatten(template)
+    assert sorted(flat) == sorted(want)
+    for k in flat:
+        assert flat[k].shape == want[k].shape, k
+        assert np.all(np.isfinite(np.asarray(flat[k], np.float32))), k
+
+
+def test_train_launcher_fsdp_checkpoint(world2, payload, ref, one_launch):
+    """``launch.train`` on two ranks without --mp runs (data 2, model 1)
+    with the weights and AdamW state split over data: the one-device
+    launcher's losses within ``LAUNCH_LOSS_REL``, each rank holding fewer
+    parameter and AdamW bytes than the layout without FSDP, and the
+    checkpoint rank 0 writes from the gathered slices restores in JAX."""
+    one, _ = one_launch
+    got = world2[0]["launch fsdp"]
+    assert len(got["phase1"]) == len(one["phase1"])
+    for a, b in zip(got["phase1"], one["phase1"]):
+        assert _close(a["loss"], b["loss"], LAUNCH_LOSS_REL), (got, one)
+    mesh = got["mesh"]
+    assert mesh["shape"] == {"data": 2, "model": 1}
+    for k in ("params", "adam"):
+        assert mesh["rank_bytes"][k] < mesh["rank_bytes_unsharded_data"][k]
+    _restores_in_jax(ref, os.path.join(payload["ckpt_dir_fsdp"],
+                                       "qwen2_5-3b.npz"))
+
+
+@pytest.mark.parametrize("arch", [RG, XL])
+def test_train_launcher_mixers_mp2(world2, arch, tmp_path):
+    """``launch.train --mp 2`` of the mixer archs (recurrentgemma-2b under
+    Algorithm 1): the one-device launcher's losses within
+    ``LAUNCH_LOSS_REL`` on the mesh (data 1, model 2)."""
+    from repro_torch.launch import train
+    one = train.main(MIXER_LAUNCH[arch] + MIXER_ARGS
+                     + ["--ckpt-dir", str(tmp_path)])
+    got = world2[0][f"launch {arch}"]
+    assert got["mesh"]["shape"] == {"data": 1, "model": 2}
+    key = "phases" if arch == RG else "phase1"
+    assert len(got[key]) == len(one[key])
+    for a, b in zip(got[key], one[key]):
+        pairs = (zip(a["log"], b["log"]) if arch == RG else [(a, b)])
+        for x, y in pairs:
+            assert _close(x["loss"], y["loss"], LAUNCH_LOSS_REL), (got, one)
 
 
 def test_ranks_load_no_jax(world2, world4):

@@ -15,8 +15,18 @@ reference, computed from a mesh's axis sizes (a
   batch sizes;
 - ``moe_supports_ep`` on the reference test's cases and meshes;
 - the model axis the port splits each layer leaf over
-  (``shard_train_params``) is the model entry of that leaf's spec.
+  (``shard_train_params``) is the model entry of that leaf's spec;
+- the port's layout of every arch (``rank_specs``: what
+  ``shard_train_params`` cuts) on (data 2, model 2), (data 4, model 1)
+  and (data 1, model 2) is the reference's ``param_pspecs`` leaf by leaf,
+  less the model entries of blocks the port keeps whole and plus the
+  xLSTM leaves it splits with their heads (``_PORT_RULES``), and the
+  rank's slices have the shapes that layout gives;
+- the per-block-kind plan (``check_model_parallel``): RG-LRU splits where
+  ``d_rnn % m == 0``, the xLSTM mixers where ``n_heads % m == 0``, each
+  kind replicated otherwise.
 """
+import re
 import types
 
 import jax
@@ -119,9 +129,9 @@ def test_param_pspecs_match_reference(trees, arch, tp_scope, shape):
                                   "stablelm-3b", "mixtral-8x7b"])
 @pytest.mark.parametrize("model", [2, 4])
 def test_split_axis_is_the_specs_model_entry(trees, arch, model):
-    """Each layer leaf the port splits (``_model_axis``) is split along
-    the model entry of its ``param_pspecs`` spec, and a leaf whose spec
-    has a model entry is split wherever its block shards."""
+    """Each layer leaf the port splits over model (``rank_specs``) is
+    split along the model entry of its ``param_pspecs`` spec, and a leaf
+    whose spec has a model entry is split wherever its block shards."""
     _, tp = trees[arch]
     cfg = get_reduced(arch)
     specs = _port_specs(sharding.param_pspecs(
@@ -129,8 +139,11 @@ def test_split_axis_is_the_specs_model_entry(trees, arch, model):
         stacked_layers=cfg.homogeneous))
     blocks = {"attn": sharding.attn_sharded(cfg, model),
               "mlp": sharding.mlp_sharded(cfg, model)}
+    port = sharding.rank_specs(cfg, (("model", model),),
+                               sharding.tree_shapes(tp))
     for path, leaf in sharding._path_leaves(tp):
-        axis = sharding._model_axis(path, leaf.dim(), cfg, model)
+        axis = (port[path].index("model") if "model" in port[path]
+                else None)
         spec = specs[path]
         block = "attn" if "mix/" in path else "mlp"
         if path.startswith("layers/") and "model" in spec and blocks[block]:
@@ -247,8 +260,92 @@ def test_moe_supports_ep_matches_reference():
 
 
 def test_mp_over_recurrent_mixers_raises_naming_7c():
-    for arch in ("recurrentgemma-2b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            sharding.check_model_parallel(get_reduced(arch), 2)
-    sharding.check_model_parallel(get_reduced("mixtral-8x7b"), 2)
-    sharding.check_model_parallel(get_reduced("xlstm-125m"), 1)
+    """mp over the RG-LRU and xLSTM mixers no longer raises: the plan is
+    per block kind (RG-LRU where ``d_rnn % m == 0``, the xLSTM mixers
+    where ``n_heads % m == 0``, each kind replicated otherwise), and the
+    rank's config narrows only the kinds that split."""
+    from repro_torch.configs import get_config
+    cases = [
+        # (arch, full?, m): (attn, mlp, rglru, xlstm)
+        ("recurrentgemma-2b", False, 2, (False, True, True, False)),
+        ("recurrentgemma-2b", False, 3, (False, False, False, False)),
+        ("recurrentgemma-2b", True, 2, (False, True, True, False)),
+        ("recurrentgemma-2b", True, 4, (False, True, True, False)),
+        ("xlstm-125m", False, 2, (False, False, False, True)),
+        ("xlstm-125m", False, 4, (False, False, False, False)),
+        ("xlstm-125m", True, 4, (False, False, False, True)),
+        ("xlstm-125m", True, 8, (False, False, False, False)),
+        ("xlstm-125m", True, 1, (False, False, False, False)),
+        ("mixtral-8x7b", False, 2, (True, True, False, False)),
+    ]
+    for arch, full, m, want in cases:
+        cfg = get_config(arch) if full else get_reduced(arch)
+        got = sharding.check_model_parallel(cfg, m)
+        assert got["mlstm"] == got["slstm"]
+        assert (got["attn"], got["mlp"], got["rglru"], got["mlstm"]) == \
+            want, (arch, full, m, got)
+        local = sharding.local_cfg(cfg, m)
+        assert local.d_rnn == ((cfg.d_rnn // m) if want[2] else cfg.d_rnn)
+        assert local.n_heads == (cfg.n_heads // m if want[0] or want[3]
+                                 else cfg.n_heads)
+        assert local.head_dim == cfg.head_dim
+    with pytest.raises(ValueError):
+        sharding.check_model_parallel(get_reduced("xlstm-125m"), 0)
+
+
+#: the leaves the port splits over model where the reference replicates
+#: them (a storage difference: a rank uses only its heads' part)
+STORAGE = re.compile(r"mix/(w[if]|w_[ifzo])/b$|mix/r_[ifzo]$")
+LAYOUT_SHAPES = ({"data": 2, "model": 2}, {"data": 4, "model": 1},
+                 {"data": 1, "model": 2})
+
+
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES, ids=["d2m2", "d4", "m2"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_rank_layout_is_the_reference_spec(trees, arch, shape):
+    """The port's layout (``rank_specs``) leaf by leaf is the reference's
+    ``param_pspecs`` on an abstract mesh: each data entry (FSDP) kept,
+    each model entry kept in a layer whose block kind splits and dropped
+    elsewhere (the port keeps the embedding, the LM head, the bank and
+    the blocks that do not divide whole over model; an axis of size 1
+    splits nothing), plus a model entry on the head axis of the
+    ``STORAGE`` leaves where the xLSTM mixers split; the rank's slices
+    (``_local_slices``) have those shapes."""
+    shapes, tp = trees[arch]
+    cfg = get_reduced(arch)
+    m = shape["model"]
+    splits = sharding.check_model_parallel(cfg, m)
+    want = _ref_specs(JS.param_pspecs(shapes, _abstract(shape),
+                                      stacked_layers=cfg.homogeneous))
+    got = sharding.rank_specs(cfg, tuple(shape.items()),
+                              sharding.tree_shapes(tp))
+    assert sorted(got) == sorted(want)
+    local = dict(sharding._path_leaves(sharding._local_slices(
+        tp, cfg, tuple(shape.items()), {"data": 1, "model": m - 1})))
+    n_data = 0
+    for path, spec in want.items():
+        keep = path.startswith("layers/") and splits[
+            sharding._layer_kind(path, cfg)]
+        exp = tuple(None if (a == "model" and not keep)
+                    or shape.get(a) == 1 else a
+                    for a in _norm(spec)) + (None,) * (len(got[path])
+                                                       - len(spec))
+        if STORAGE.search(path) and keep:
+            assert "model" not in spec, path
+            exp = ("model",) + exp[1:]
+        assert _norm(got[path]) == _norm(exp), (path, got[path], exp)
+        full = dict(sharding._path_leaves(tp))[path].shape
+        div = [shape[a] if a else 1 for a in got[path]]
+        assert tuple(local[path].shape) == tuple(
+            d // n for d, n in zip(full, div)), path
+        n_data += "data" in got[path]
+    assert (n_data > 0) == (shape["data"] > 1)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_shapes_are_the_init_tree(trees, arch):
+    """``core.split.param_shapes`` (the init run on fake tensors) gives
+    each leaf's path, shape and dtype as the real init makes them, in the
+    tree's order: the whole tree a rank's layout reads."""
+    _, tp = trees[arch]
+    assert TSP.param_shapes(get_reduced(arch)) == sharding.tree_shapes(tp)
