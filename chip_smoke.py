@@ -171,8 +171,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
     width against ``moe_apply`` (capacity 8: rows and the token path's gradient
     within ``TOL["moe_ep_row_rel"]`` / ``["moe_ep_grad_rel"]``; the default
     capacity: the drops of each rank's block as its plain routing's) and a
-    train step with ``moe_ep=True``; (d) ``qtp_forward`` on granite-8b against
-    ``T.forward`` (``TOL["qtp"]``); (e) the pod pipeline on stablelm-3b against
+    train step with ``moe_ep=True``; (d) ``qtp_forward`` on granite-8b (cut to
+    ``P17_QTP["layers"]``) against ``T.forward`` (``TOL["qtp"]``); (e) the pod pipeline on stablelm-3b against
     ``T.forward`` and ``split_forward`` (``TOL["pipe"]``), its gradients on
     both stages and heads, the int8 backward, the wire counter; (f) phi3.5-moe
     continuous at (1, 2), cut to ``P17_SERVE_LAYERS``, against one device (the
@@ -202,6 +202,37 @@ Phases, each printing one JSON line; any failure exits nonzero:
     ``TOL["train_mp_loss_rel"]`` of the helper's one-device run (which its
     ``--lr 0`` control must exceed), the whole leaves bit-identical across
     the ranks, no kernel launched.
+19. the remaining entry points: (a) the dry run
+    (``repro_torch.launch.dryrun``) at full width on fake ranks of the
+    production meshes, CPU-only subprocesses started together right after
+    the build so that they run beside the card's phases (``P19_DRYRUNS``:
+    qwen2.5-3b x train_4k x 16x16, mixtral-8x7b x decode_32k x 2x16x16,
+    recurrentgemma-2b x long_500k x 16x16), each passing its
+    rank-coherence check, then ``bench_roofline`` and
+    ``gen_experiments`` over its records (a line and a row each); (b)
+    ``bench_modes.run()`` equal to the CPU's (``P19_MODES``); (c)
+    ``examples/split_serving.py --device cuda`` at the reference's defaults
+    with the launch counters at 0 just before and read just after (the
+    boundary, the tail and paged attention by phase 7's rule), each
+    request's modes and wire bytes those of the same example on the CPU;
+    (d) ``examples/quickstart.py --device cuda`` (finite losses, the
+    Ensure line, no kernel launched); (e) ``examples/expert_parallel_moe.py
+    --device cuda``: 8 gloo ranks on the card, the example's assertions;
+    (f) ``benchmarks/run.py --device cuda`` over its suite table, less
+    ``kernels`` (phase 10).
+
+The order of the run: phases 1 to 6, the check of the profile summary
+(``phase_profile_summary``) and phase 10 (its fused-tick gate is timed on
+the host clock), alone on the card; then two background lanes
+(``LANES``, ``lane``), each a process of its own on the card, with its
+paths' launch counters at 0 just before and read just after in that
+process: one runs phase 13, the other phase 11, phase 12's eval
+forwards and ``train_100m``, and phase 19's card parts (b) to (f), while
+this process runs phases 7 to 9 and phase 12's first steps and launcher
+(a few GB each beside the lanes'; their rates and profiles then share
+the host and the card); this process waits for the lanes and prints
+their output, then runs phases 14 to 18 (14 and 15 need the whole card)
+and collects phase 19's dry runs.
 
 Kernel times come from ``torch.profiler`` traces. A trace can lose
 events: a lost one counts as its kernel's mean traced event (a call
@@ -234,10 +265,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by input type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # Tolerances against the plain versions, and why.
 TOL = {
@@ -502,10 +529,19 @@ def time_ms(fn, iters: int, flush=None, by_kernel=None) -> float:
     return us / iters / 1e3
 
 
+def peaks():
+    """The H100 SXM's published peaks (dense), from
+    ``repro_torch.launch.mesh``: HBM bytes/s, and FLOP/s by input type."""
+    from repro_torch.launch import mesh
+    return mesh.HBM_BW, {"bfloat16": mesh.PEAK_FLOPS_BF16,
+                         "float32": mesh.PEAK_FLOPS_F32}
+
+
 def bound(nbytes: float, flops: float, dt: str):
     """(least time in ms, "bytes" or "operations") on the published peaks."""
-    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    hbm, flops_per_s = peaks()
+    t_mem = nbytes / hbm * 1e3
+    t_ops = flops / flops_per_s[dt] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -3275,10 +3311,9 @@ def phase_train_100m(dev, smi: str) -> dict:
     return launches
 
 
-def phase_train(seed: int, dev, smi: str) -> dict:
-    """Phase 12: the first train steps against the CPU, the launcher at
-    full width, the eval forwards on the CUDA scan, the xlstm-125m
-    example. Returns the kernel launches of each path."""
+def phase_train(dev, smi: str) -> dict:
+    """Phase 12's first half: the first train steps against the CPU, the
+    launcher at full width. Returns the kernel launches of each path."""
     t0 = time.perf_counter()
     first = train_first_steps(dev)
     emit({"phase": "train", "path": "first_steps", "cases": first,
@@ -3286,9 +3321,13 @@ def phase_train(seed: int, dev, smi: str) -> dict:
           "card": smi})
     free_cuda()
     train_l, serve_l = phase_train_launcher(dev, smi)
-    by_path = {"qwen2.5-3b train": train_l,
-               "qwen2.5-3b serve --ckpt": serve_l}
-    by_path.update(phase_eval_forwards(seed, dev, smi))
+    return {"qwen2.5-3b train": train_l, "qwen2.5-3b serve --ckpt": serve_l}
+
+
+def phase_train_small(seed: int, dev, smi: str) -> dict:
+    """Phase 12's second half: the eval forwards on the CUDA scan, the
+    xlstm-125m example. Returns the kernel launches of each path."""
+    by_path = phase_eval_forwards(seed, dev, smi)
     by_path["xlstm-125m train_100m"] = phase_train_100m(dev, smi)
     return by_path
 
@@ -4798,11 +4837,11 @@ def phase_mesh(dev, seed: int, iters: int, smi: str) -> dict:
 
 #: (a) and (b): launch.train's Algorithm 1 on qwen2.5-3b at full width,
 #: [4, 128], two steps a phase, cut in depth by the model axis: (a) at mp
-#: 2 to 8 of 36 layers (time: each layer adds six host-staged all_reduces
+#: 2 to 4 of 36 layers (time: each layer adds six host-staged all_reduces
 #: a step and its slices to the checkpoint gathered over gloo and written
 #: by rank 0, and the one-device reference and its control run at the
 #: same depth; 12 layers took 63.5 s of phase 17 on a slow host, whose
-#: script read 1,290 of its 1,200 s); (b) at
+#: script read 1,290 of its 1,200 s, and 8 layers 32 s); (b) at
 #: dp 2 to 2 layers (time: dp 2 moves every gradient in float32 through
 #: the host each step, 5.0 GB at 8 layers, 7.5 s a step, and under FSDP
 #: also gathers each layer's weights twice a step as int32 buffers of the
@@ -4811,7 +4850,7 @@ def phase_mesh(dev, seed: int, iters: int, smi: str) -> dict:
 #: 0, while rank 1 runs the control, before the mesh runs)
 P17_TRAIN = ["--arch", "qwen2.5-3b", "--cascade", "--steps", "2", "--batch",
              "4", "--seq", "128"]
-P17_TRAIN_LAYERS = {2: 8, 1: 2}
+P17_TRAIN_LAYERS = {2: 4, 1: 2}
 #: each logged loss of a mesh run within this share of the one-device
 #: run's: the mp run rounds each row-split output's two bf16 partial
 #: products where one device rounds one GEMM, and dp sums the gradients in
@@ -4831,10 +4870,12 @@ P17_EP = {"layers": 2, "split_at": 1, "x": (2, 256), "train": (4, 128)}
 #: scale); the token path's gradient within this relative L2 norm
 TOL["moe_ep_row_rel"] = 2.0 ** -6
 TOL["moe_ep_grad_rel"] = 2.0 ** -6
-#: (d): granite-8b at full width and depth, [2, 512]; the reference test's
-#: bounds (tests/test_qtp.py), bits 0's absolute bound scaled to the
-#: logits above it as tests/test_torch_qtp.py does
-P17_QTP = {"arch": "granite-8b", "tokens": (2, 512)}
+#: (d): granite-8b at full width, cut to 12 of its 36 layers (time: each
+#: layer adds four host-staged collectives a forward; 36 layers took 15 s
+#: of phase 17), [2, 512]; the reference test's bounds
+#: (tests/test_qtp.py), bits 0's absolute bound scaled to the logits above
+#: it as tests/test_torch_qtp.py does
+P17_QTP = {"arch": "granite-8b", "layers": 12, "tokens": (2, 512)}
 TOL["qtp"] = {"bits0_atol": 0.1, "bits0_scale": 2.0 ** -9,
               "bits8_rel": 0.05}
 #: (e): stablelm-3b at full width and depth, (pod 2), [8, 128], n_micro 4;
@@ -5208,7 +5249,7 @@ def p17_qtp(rank: int) -> dict:
     from repro_torch.core import split as SP
     from repro_torch.models import sharding
     from repro_torch.models import transformer as T
-    cfg = cut_config(P17_QTP["arch"])
+    cfg = cut_config(P17_QTP["arch"], P17_QTP["layers"])
     dev = torch.device(P17_DEVICE)
     mesh = sharding.train_mesh(2, device=dev)
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -6069,6 +6110,351 @@ def phase_mixers_mesh(dev, seed: int, iters: int, smi: str,
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the remaining entry points
+# ---------------------------------------------------------------------------
+
+#: the dry runs at full width: (arch, shape, mesh flag)
+P19_DRYRUNS = (("qwen2.5-3b", "train_4k", []),
+               ("mixtral-8x7b", "decode_32k", ["--multipod"]),
+               ("recurrentgemma-2b", "long_500k", []))
+#: ``bench_modes.run()`` as the port computes it on the CPU (host-only,
+#: deterministic: the counter-hash channel, the orchestrator, the payload
+#: model of reduced granite-8b)
+P19_MODES = {
+    "static_z": {"bytes": 131072000, "violations": 913,
+                 "mean_acc": 0.8599999999999666, "frac_mode1": 0.0},
+    "static_zp": {"bytes": 17408000, "violations": 223,
+                  "mean_acc": 0.8099999999999634, "frac_mode1": 1.0},
+    "dynamic": {"bytes": 70375424, "violations": 343,
+                "mean_acc": 0.8332999999999651, "frac_mode1": 0.534},
+    "payload": {0: 65536, 1: 8704}}
+#: the reference example's defaults (reduced qwen2.5-3b, 10 requests, 4
+#: slots, 16 tokens)
+P19_SERVE = ["--arch", "qwen2.5-3b", "--requests", "10", "--n-slots", "4",
+             "--gen", "16"]
+P19_QUICKSTART = ["--steps", "3"]
+P19_TIMEOUT = 600
+
+
+def p19_start() -> dict:
+    """Start the dry runs of ``P19_DRYRUNS`` (CPU-only subprocesses that
+    touch no card and launch no kernel), all together, into a temporary
+    directory, so that they run beside the card's phases; ``p19_dryruns``
+    collects them and ``p19_stop`` ends any left."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="dryrun_torch_")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for arch, shape, flag in P19_DRYRUNS:
+        log = open(os.path.join(out_dir, f"{arch}__{shape}.log"), "w")
+        procs.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, *flag, "--results-dir",
+             os.path.join(out_dir, "records")],
+            env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return {"dir": out_dir, "procs": procs, "t0": time.perf_counter()}
+
+
+def p19_stop(started: dict) -> None:
+    import shutil
+    for _, _, log, proc in started["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+    shutil.rmtree(started["dir"], ignore_errors=True)
+
+
+def p19_dryruns(started: dict) -> dict:
+    """The dry runs ``p19_start`` began: each must pass its
+    rank-coherence check; then the port's roofline readers over the
+    records (a line and a row each)."""
+    from repro_torch.benchmarks import bench_roofline, gen_experiments
+    t0 = time.perf_counter()
+    lines = {}
+    for arch, shape, log, proc in started["procs"]:
+        proc.wait(timeout=P19_TIMEOUT)
+        log.close()
+        with open(log.name) as f:
+            text = f.read()
+        lines[f"{arch} {shape}"] = [ln for ln in text.splitlines()
+                                    if ln.startswith("[dryrun]")]
+        check(proc.returncode == 0 and any(
+            "coherent over ranks" in ln for ln in lines[f"{arch} {shape}"]),
+              f"phase 19: dry run {arch} x {shape} failed:\n"
+              f"{text[-3000:]}")
+    out_dir = os.path.join(started["dir"], "records")
+    records = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            rec = json.load(f)
+        records[name] = rec
+        check(rec["ranks_checked"] == [0, rec["chips"] - 1],
+              f"phase 19: {name} has no coherence check")
+    check(len(records) == len(P19_DRYRUNS),
+          f"phase 19: {len(records)} dry-run records for "
+          f"{len(P19_DRYRUNS)} runs")
+    roof = bench_roofline.lines(out_dir)
+    table = "\n".join(gen_experiments.table(m, False, out_dir)
+                      for m in ("16_16", "2_16_16"))
+    rows = [ln for ln in table.splitlines()
+            if ln.startswith("| ") and not ln.startswith("| arch")]
+    check(len(roof) == len(records) and len(rows) == len(records),
+          f"phase 19: the readers gave {len(roof)} lines and {len(rows)} "
+          f"rows for {len(records)} records")
+    return {"seconds_waited": time.perf_counter() - t0,
+            "seconds_since_start": time.perf_counter() - started["t0"],
+            "printed": lines, "roofline_lines": roof, "table_rows": rows,
+            "records": {name: {
+                k: rec[k] for k in ("arch", "shape", "mesh", "chips",
+                                    "roofline", "useful_ratio",
+                                    "memory_analysis", "collectives",
+                                    "collective_events", "ranks_checked",
+                                    "differences", "run_s")}
+                for name, rec in records.items()}}
+
+
+def p19_split_serving() -> tuple:
+    """``examples/split_serving.py --device cuda`` at the reference's
+    defaults, its launches counted against its ticks and prefill
+    dispatches (phase 7's rule), each request's modes and wire bytes held
+    to the same example on the CPU."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.examples import split_serving
+    t0 = time.perf_counter()
+    calls: dict = {}
+    with counted_path(calls):
+        card = split_serving.main(P19_SERVE + ["--device", "cuda"])
+    check_path_launches(calls, get_reduced("qwen2.5-3b"),
+                        "phase 19 split_serving")
+    secs = time.perf_counter() - t0
+    cpu = split_serving.main(P19_SERVE + ["--device", "cpu"])
+    check(len(card["requests"]) == 10, "phase 19: split_serving finished "
+          f"{len(card['requests'])} of 10 requests")
+    for rid, row in cpu["requests"].items():
+        got = card["requests"][rid]
+        check(got["mode_counts"] == row["mode_counts"]
+              and got["wire_bytes"] == row["wire_bytes"],
+              f"phase 19: split_serving request {rid}: card {got} against "
+              f"the CPU's {row}")
+    check((card["mixed_mode_ticks"], card["decode_ticks"])
+          == (cpu["mixed_mode_ticks"], cpu["decode_ticks"]),
+          "phase 19: split_serving's tick summary differs from the CPU's")
+    same_tokens = sum(card["requests"][r]["tokens"] == row["tokens"]
+                      for r, row in cpu["requests"].items())
+    return calls["launches"], {
+        "seconds": secs, "launches": calls["launches"],
+        "prefill_dispatches": calls.get("split_prefill_mixed", 0),
+        "decode_ticks": calls.get("split_decode_step_mixed", 0),
+        "mixed_mode_ticks": card["mixed_mode_ticks"],
+        "mode_counts": card["mode_counts"],
+        "requests_with_the_cpu_tokens": same_tokens}
+
+
+def p19_quickstart() -> dict:
+    """``examples/quickstart.py --device cuda``: finite losses, the Ensure
+    line, no kernel of the six launched (training launches none)."""
+    import io
+    from repro_torch.examples import quickstart
+    t0 = time.perf_counter()
+    fns = zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = quickstart.main(P19_QUICKSTART + ["--device", "cuda"])
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    launches = {k: f.launches for k, f in fns.items()}
+    hist = out["history"]
+    losses = [r["loss"] for ph in hist["phases"] for r in ph["log"]]
+    losses += hist["ensure"]["losses"]
+    check(all(math.isfinite(x) for x in losses),
+          f"phase 19: quickstart losses {losses}")
+    check("'Ensure' check" in text, "phase 19: quickstart printed no "
+                                    "Ensure line")
+    check(not any(launches.values()),
+          f"phase 19: quickstart launched {launches}")
+    return {"seconds": time.perf_counter() - t0, "losses": losses,
+            "ensure": hist["ensure"], "launches": launches}
+
+
+def p19_expert_parallel() -> dict:
+    """``examples/expert_parallel_moe.py --device cuda``: 8 gloo ranks on
+    the card, the example's own assertions."""
+    from repro_torch.examples import expert_parallel_moe
+    t0 = time.perf_counter()
+    out = expert_parallel_moe.main(["--device", "cuda"])
+    return {"seconds": time.perf_counter() - t0, **out}
+
+
+def p19_benches() -> dict:
+    """``benchmarks/run.py --device cuda`` over its suite table, less the
+    suites an earlier phase runs (phase 10: ``kernels``)."""
+    from repro_torch.benchmarks import run
+    t0 = time.perf_counter()
+    names = [name for name, _, _ in run.SUITES if name != "kernels"]
+    fns = zero_counts()
+    try:
+        run.main(["--device", "cuda", "--suites", ",".join(names)])
+    except SystemExit as e:
+        check(e.code in (0, None), f"phase 19: benchmarks/run.py exited "
+                                   f"{e.code}")
+    return {"seconds": time.perf_counter() - t0, "suites": names,
+            "launches": {k: f.launches for k, f in fns.items()}}
+
+
+def p19_card() -> dict:
+    """Phase 19's parts (b) to (f), which run in a background lane
+    (``LANES``): their results, and the launches of the split_serving
+    path under ``launches``."""
+    from repro_torch.benchmarks import bench_modes
+    t0 = time.perf_counter()
+    modes = bench_modes.run()
+    check(modes == P19_MODES, f"phase 19: bench_modes {modes} differs from "
+                              f"the CPU's {P19_MODES}")
+    launches, serving = p19_split_serving()
+    free_cuda()
+    quick = p19_quickstart()
+    free_cuda()
+    ep = p19_expert_parallel()
+    benches = p19_benches()
+    free_cuda()
+    return {"launches": launches, "bench_modes": modes,
+            "split_serving": serving, "quickstart": quick,
+            "expert_parallel_moe": ep, "benches": benches,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_entry_points(smi: str, started: dict, card: dict) -> dict:
+    """Phase 19 (see the module's docstring): the dry runs ``p19_start``
+    began, and ``card``, what ``p19_card`` returned in the background
+    lane; returns the launches of the split_serving path."""
+    t0 = time.perf_counter()
+    dry = p19_dryruns(started)
+    emit({"phase": "entry_points", "card": smi,
+          "note": "dry-run terms are analytic, on the H100 SXM's published "
+                  "peaks (repro_torch.launch.mesh), not measured",
+          "dryrun": dry, **{k: v for k, v in card.items()
+                            if k not in ("launches", "seconds")},
+          "lane_seconds": card["seconds"],
+          "seconds": time.perf_counter() - t0})
+    return {"split_serving": card["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# the background lanes: phases 11, 13, phase 12's small half and phase
+# 19's card parts in processes of their own, beside phases 7 to 9 and 12
+# ---------------------------------------------------------------------------
+
+#: the background lanes, each a process of its own on the card running its
+#: jobs (``lane_job``) in order, beside phases 7 to 9 and phase 12's first
+#: half in the main process
+LANES = (("scale_out",), ("cascade", "train_small", "p19_card"))
+
+
+def lane_job(name: str, seed: int, dev, smi: str) -> dict:
+    """One job of a lane: the launches of its paths (``p19_card``: its
+    results, the split_serving path's launches under ``launches``)."""
+    if name == "scale_out":
+        return phase_scale_out(dev, smi)
+    if name == "cascade":
+        return {"lumos5g-lstm cascade": phase_cascade(seed, smi)}
+    if name == "train_small":
+        return phase_train_small(seed, dev, smi)
+    return p19_card()
+
+
+def lane(rank: int, world: int, port: int, queue, *, t0: float, smi: str,
+         log: str, seed: int, jobs: tuple) -> None:
+    """A background lane, a process of its own group on the card: its
+    ``jobs`` in order (``lane_job``), each path's launch counters at 0
+    just before and read just after in this process. Its standard output
+    (its children's too) goes to ``log``, which the parent prints when it
+    collects the lane; its phase lines keep the script's clock (``t0``).
+    The group ends itself if the parent dies. Its results by job (or its
+    error) to the parent."""
+    import signal
+    import threading
+    import traceback
+    global _T0
+    _T0 = t0
+    os.setpgrp()                # the parent ends the lane's whole group
+    parent = os.getppid()
+
+    def orphan_guard():
+        while os.getppid() == parent:
+            time.sleep(1)
+        os.killpg(0, signal.SIGKILL)
+    threading.Thread(target=orphan_guard, daemon=True).start()
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.close(fd)
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        done = {}
+        for name in jobs:
+            done[name] = lane_job(name, seed, torch.device("cuda"), smi)
+            free_cuda()
+        sys.stdout.flush()
+        queue.put((rank, {"jobs": done, "untraced": dict(UNTRACED)}))
+    except BaseException:
+        sys.stdout.flush()
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def lane_start(smi: str, seed: int, jobs: tuple) -> dict:
+    """Start a ``lane`` running ``jobs`` (``start_mesh``'s processes and
+    queue, its log)."""
+    import functools
+    import tempfile
+    fd, log = tempfile.mkstemp(prefix="chip_smoke_lane_", suffix=".log")
+    os.close(fd)
+    procs, queue = start_mesh(1, functools.partial(
+        lane, t0=_T0, smi=smi, log=log, seed=seed, jobs=jobs))
+    return {"procs": procs, "queue": queue, "log": log, "jobs": jobs,
+            "t0": time.perf_counter()}
+
+
+def lane_collect(started: dict) -> dict:
+    """Wait for a lane, print its output, fold its ``UNTRACED`` counts
+    into this process's; its results by job. Raises if it failed."""
+    t0 = time.perf_counter()
+    try:
+        res = collect_mesh(started["procs"], started["queue"])[0]
+    finally:
+        lane_stop(started)
+    for k, v in res["untraced"].items():
+        UNTRACED[k] += v
+    emit({"phase": "lane", "jobs": list(started["jobs"]),
+          "waited_s": time.perf_counter() - t0,
+          "lane_s": time.perf_counter() - started["t0"]})
+    return res["jobs"]
+
+
+def lane_stop(started: dict) -> None:
+    """Print the lane's output once, and end what is left of its process
+    group (nothing once it returned; all of it when this process failed
+    first)."""
+    import signal
+    for p in started["procs"]:
+        if p.is_alive() or p.exitcode:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.killpg(p.pid, signal.SIGKILL)
+        if p.is_alive():
+            p.kill()
+        p.join()
+    log = started.pop("log", None)
+    if log:
+        with open(log) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+        os.unlink(log)
+
+
 SOURCES = {
     "boundary_mixed_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
     "decode_tail_grouped": "src/repro_torch/csrc/boundary_mixed.cu",
@@ -6115,12 +6501,22 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(libs)})
+    dry = p19_start()
+    try:
+        return run_phases(args, dev, smi, dry)
+    finally:
+        p19_stop(dry)
+
+
+def run_phases(args, dev, smi: str, dry: dict) -> int:
+    """Phases 3 to 19 and the closing lines."""
+    import torch
+    from repro_torch.configs import get_config
 
     cfg = get_config("qwen2.5-3b")
     rcfg = get_config("recurrentgemma-2b")
@@ -6156,9 +6552,30 @@ def main(argv=None) -> int:
     for c in dense:
         phase_dense_kernels(c, dev, args.seed, args.iters)
 
+    # the profile summary's check (the casts' device ms of two readings
+    # of one trace within 1e-4) and the bench's fused-tick gate (timed on
+    # the host clock) run before the lanes share the card and the host:
+    # in a lane the two readings parted by 0.5%
     phase_profile_summary()
+    bench = phase_bench()
+    lanes = []
+    try:
+        for jobs in LANES:
+            lanes.append(lane_start(smi, args.seed, jobs))
+        return phases_beside_lanes(args, dev, smi, dry, lanes,
+                                   (cfg, rcfg, xcfg, *dense), bench, results)
+    finally:
+        for started in lanes:
+            lane_stop(started)
+
+
+def phases_beside_lanes(args, dev, smi: str, dry: dict, lanes: list,
+                        archs: tuple, bench: dict, results: dict) -> int:
+    """Phases 7 to 9 and phase 12's first half while the lanes run theirs
+    (``LANES``); then the lanes' results, phases 14 to 18, phase 19's dry
+    runs and the closing lines."""
+    import torch
     by_path = {}
-    archs = (cfg, rcfg, xcfg, *dense)
     for c in archs:
         phase_reference(c.name)
         if c.name == "stablelm-3b":
@@ -6173,13 +6590,16 @@ def main(argv=None) -> int:
         free_cuda()
         phase_profile(c, "sync")
         free_cuda()
-    by_path["bench"] = phase_bench()
-    by_path["lumos5g-lstm cascade"] = phase_cascade(args.seed, smi)
+    train = phase_train(dev, smi)
     free_cuda()
-    by_path.update(phase_train(args.seed, dev, smi))
-    free_cuda()
-    by_path.update(phase_scale_out(dev, smi))
-    free_cuda()
+    done = {}
+    for started in lanes:
+        done.update(lane_collect(started))
+    by_path["bench"] = bench
+    by_path.update(done["cascade"])
+    by_path.update(train)
+    by_path.update(done["train_small"])
+    by_path.update(done["scale_out"])
     by_path.update(phase_frontends(dev, args.seed, args.iters, smi))
     free_cuda()
     by_path.update(phase_moe(dev, args.seed, args.iters, smi))
@@ -6194,6 +6614,7 @@ def main(argv=None) -> int:
                                          early))
     finally:
         p18_stop(early)
+    by_path.update(phase_entry_points(smi, dry, done["p19_card"]))
 
     emit({"phase": "untraced", "measurements": UNTRACED})
     print(smi, flush=True)

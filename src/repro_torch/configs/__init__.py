@@ -11,7 +11,9 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import LSTMConfig, ModelConfig, SplitConfig
+from repro_torch.configs.base import (LSTMConfig, ModelConfig, ShapeConfig,
+                                      SplitConfig)
+from repro_torch.configs.shapes import SHAPES, get_shape
 
 _MODULES: Dict[str, str] = {
     "musicgen-large": "repro_torch.configs.musicgen_large",
@@ -44,5 +46,5 @@ def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
 
 
-__all__ = ["ARCH_IDS", "LSTMConfig", "ModelConfig", "SplitConfig", "get_config",
-           "get_reduced"]
+__all__ = ["ARCH_IDS", "SHAPES", "LSTMConfig", "ModelConfig", "ShapeConfig",
+           "SplitConfig", "get_config", "get_reduced", "get_shape"]

@@ -108,7 +108,7 @@ def boundary_mixed_grouped(x2, mode_idx, seq_len: int, bank, *,
     d], ``norm_scale`` [M, d], int32 ``width`` / ``bits`` [M], read on the
     device). Returns [N, d] in the input order: two launches, no layout."""
     N, d = x2.shape
-    if x2.device.type == "cpu":
+    if x2.device.type != "cuda":
         return boundary_mixed_rows_ref(
             x2, mode_idx.repeat_interleave(seq_len), bank, dtype)
     what = "boundary_mixed_grouped"
@@ -175,7 +175,7 @@ def decode_tail_grouped(xp, heads, norm_scale, norm_bias=None, hid_g=None, *,
         H, d2, V = heads.shape
     G = -(-P // block_r)
     n_run = G if n_blocks is None else int(n_blocks)
-    if xp.device.type == "cpu":
+    if xp.device.type != "cuda":
         block_v = next((b for b in (512, 256, 128) if V % b == 0), V)
         hv = heads.transpose(1, 2) if tied else heads        # a view
         pad = G * block_r - P

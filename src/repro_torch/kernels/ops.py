@@ -1,9 +1,10 @@
 """Dispatchers for the hand-written kernels (mirrors ``repro.kernels.ops``).
 
 A CPU tensor takes the plain PyTorch path the reference takes off a TPU
-(the serving references of ``kernels.ref``); a CUDA tensor takes the
-kernel, whose wrapper raises on a shape or type it does not take. Nothing
-falls back on the card. The boundary and the one-head decode tail take the
+(the serving references of ``kernels.ref``), as does a tensor on the meta
+device (the dry run's stand-ins); a CUDA tensor takes the kernel, whose
+wrapper raises on a shape or type it does not take. Nothing falls back on
+the card. The boundary and the one-head decode tail take the
 rows in place; the multi-head tail's row layout (``head_layout``) is
 computed on the tensors' device without a host sync. ``group_layout``, the
 reference's mode-grouped boundary layout, stays for the blocked plain
@@ -101,7 +102,7 @@ def boundary_mixed_op(stacked, x, mode_idx, *, dtype=torch.bfloat16):
     """Fused mixed-mode bottleneck boundary. x: [B, S, d], ``mode_idx``:
     [B] in [0, M]. CPU: the serving reference; CUDA: the boundary kernel on
     the rows in place (two launches, no layout)."""
-    if x.device.type == "cpu":
+    if x.device.type != "cuda":
         return ref.boundary_mixed_ref(stacked, x, mode_idx, dtype=dtype)
     B, S, d = x.shape
     y = boundary_mixed_grouped(x.reshape(B * S, d),
@@ -140,7 +141,7 @@ def decode_tail_op(x, norm_scale, norm_bias, heads, head_idx=None, *,
     embedding table when ``tied`` (read in place by the kernel, never
     copied). CPU: the serving reference; CUDA: the fused tail kernel, on
     the rows in place for one head (three launches, no layout)."""
-    if x.device.type == "cpu":
+    if x.device.type != "cuda":
         return ref.decode_tail_ref(x, norm_scale, norm_bias, heads, head_idx,
                                    norm_kind=norm_kind, tied=tied)
     B, S, d = x.shape
@@ -189,7 +190,7 @@ def bottleneck_quant_op(x, w, *, bits: int = 8):
     CUDA: the kernel, which takes any row count and depth."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if x.device.type == "cpu":
+    if x.device.type != "cuda":
         codes, scales = ref.bottleneck_quant_ref(x2, w, bits)
     else:
         codes, scales = bottleneck_quant(x2, w.contiguous(), bits=bits)
@@ -204,7 +205,7 @@ def dequant_matmul_op(codes, scales, w):
     lead = codes.shape[:-1]
     c2 = codes.reshape(-1, codes.shape[-1]).contiguous()
     s2 = scales.reshape(-1, 1).contiguous()
-    if codes.device.type == "cpu":
+    if codes.device.type != "cuda":
         y = ref.dequant_matmul_ref(c2, s2, w)
     else:
         y = dequant_matmul(c2, s2, w.contiguous())

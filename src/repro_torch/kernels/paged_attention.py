@@ -46,7 +46,7 @@ def paged_attention(q, k_pages, v_pages, block_table, positions, *,
     None picks it (``pages_per_split_for``). Every choice gives the same
     numbers. Returns the attention context [B, nq, hd] in ``q.dtype``."""
     global _fn
-    if q.device.type == "cpu":
+    if q.device.type != "cuda":
         return paged_attention_ref(q, k_pages, v_pages, block_table,
                                    positions)
     what = "paged_attention"

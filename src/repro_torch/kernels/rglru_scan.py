@@ -72,7 +72,7 @@ def rglru_scan(a, b, h0=None):
     optional [B, D] float32 initial carry (zeros when omitted). Returns h:
     [B, S, D] float32, bit for bit the plain version's."""
     global _fn
-    if a.device.type == "cpu":
+    if a.device.type != "cuda":
         return rglru_scan_ref(a, b, h0)
     what = "rglru_scan"
     if a.dim() != 3 or b.shape != a.shape:

@@ -216,7 +216,7 @@ def paged_decode_attention(p, x, arena, block_table, cur_pos, *, n_q: int,
     arena["k"][pg, row] = k[:, 0]
     arena["v"][pg, row] = v[:, 0]
 
-    if x.device.type != "cpu":
+    if x.device.type == "cuda":
         from repro_torch.kernels import ops
         ctx = ops.paged_attention_op(q[:, 0].contiguous(), arena["k"],
                                      arena["v"], block_table, pos[:, 0])

@@ -49,19 +49,29 @@ NATIVE = {
     ("gloo", "cpu"): frozenset({"all_gather", "reduce_scatter",
                                 "all_to_all", "ppermute"}),
     ("gloo", "cuda"): frozenset(),
+    # the dry run's stand-in world (``launch/dryrun.py``): NCCL's forms,
+    # which the production mesh runs, on shape-only tensors
+    ("fake", "meta"): frozenset({"all_gather", "reduce_scatter",
+                                 "all_to_all", "ppermute"}),
 }
 FORMS = ("native", "all_reduce")
 
 _INTS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 #: this process's collective calls and the bytes of their buffers, by
-#: the torch.distributed op issued (``reset_counts`` zeroes)
-COUNTS = {"calls": {}, "bytes": {}}
+#: the torch.distributed op issued, and its moves ("all_gather",
+#: "reduce_scatter", "all_to_all", "ppermute") by name whatever their
+#: form (``reset_counts`` zeroes)
+COUNTS = {"calls": {}, "bytes": {}, "moves": {}}
 
 
 def reset_counts() -> None:
-    COUNTS["calls"].clear()
-    COUNTS["bytes"].clear()
+    for v in COUNTS.values():
+        v.clear()
+
+
+def _moved(name: str) -> None:
+    COUNTS["moves"][name] = COUNTS["moves"].get(name, 0) + 1
 
 
 def _issue(op: str, t: torch.Tensor) -> None:
@@ -131,6 +141,7 @@ def gather_raw(x: torch.Tensor, group, dim: int = 0, *,
     if m == 1:
         return x
     dim = dim % x.dim()
+    _moved("all_gather")
     if _form("all_gather", group, x, form) == "native":
         xs = x.movedim(dim, 0).contiguous()
         out = xs.new_empty((m * xs.shape[0],) + xs.shape[1:])
@@ -152,6 +163,7 @@ def scatter_sum_raw(x: torch.Tensor, group, dim: int = 0, *,
         return x
     dim = dim % x.dim()
     n = x.shape[dim] // m
+    _moved("reduce_scatter")
     if _form("reduce_scatter", group, x, form) == "native":
         xs = x.movedim(dim, 0).contiguous()
         out = xs.new_empty((n,) + xs.shape[1:])
@@ -171,6 +183,7 @@ def all_to_all_raw(x: torch.Tensor, group, *,
     if x.shape[0] != m:
         raise ValueError(f"all_to_all: leading dim {x.shape[0]} != group "
                          f"size {m}")
+    _moved("all_to_all")
     if _form("all_to_all", group, x, form) == "native":
         out = torch.empty_like(x.contiguous())
         _issue("all_to_all", out)
@@ -190,19 +203,24 @@ def ppermute_raw(x: torch.Tensor, group, perm: Sequence[Tuple[int, int]],
         return torch.zeros_like(x) if not any(
             s == d == 0 for s, d in perm) else x
     me = rank(group)
+    _moved("ppermute")
     if _form("ppermute", group, x, form) == "native":
         out = torch.zeros_like(x)
         ops = []
         for s, d in perm:
             if s == me:
-                ops.append(dist.P2POp(dist.isend, x.contiguous(),
-                                      dist.get_global_rank(group, d), group))
+                ops.append((dist.isend, x.contiguous(),
+                            dist.get_global_rank(group, d)))
             if d == me:
-                ops.append(dist.P2POp(dist.irecv, out,
-                                      dist.get_global_rank(group, s), group))
+                ops.append((dist.irecv, out, dist.get_global_rank(group, s)))
         if ops:
             _issue("send_recv", x)
-            for req in dist.batch_isend_irecv(ops):
+            if x.is_meta:      # no coalesced batch takes meta tensors
+                reqs = [fn(t, peer, group=group) for fn, t, peer in ops]
+            else:
+                reqs = dist.batch_isend_irecv(
+                    [dist.P2POp(fn, t, peer, group) for fn, t, peer in ops])
+            for req in reqs:
                 req.wait()
         return out
     buf = x.new_zeros((m,) + x.shape)             # [dst, ...]

@@ -26,6 +26,13 @@ Reduced configs in float32 (the JAX init carried across), batches from
   the port's one-device cascade's and the JAX package's ``train_cascade``
   on the same weights and batches (phase 2 freezes the backbone, and
   every rank still recomputes and reduces the same layers);
+- one step at (data 2, model 2) under ``roofline.CollectiveRecorder``:
+  the recorder's kinds, counts and result bytes equal the step's own
+  ``collectives.COUNTS``, and the dry run (``launch/dryrun.py``) of the
+  same step on a fake world of 4 records the same ordered list;
+- ``examples/expert_parallel_moe.run`` at (data 2, model 2) on reduced
+  phi3.5-moe: the example's three assertions (the EP run issues
+  all-to-alls, the per-step loss gap under 0.5, the EP loss decreasing);
 - the collectives' all_reduce forms (what gloo runs on CUDA tensors) give
   the native forms' bits: gathers, all_to_all and ppermute of float32
   (``-0.0`` and NaN included), bf16 and int8 tensors; scatter-sums of
@@ -334,7 +341,8 @@ def payload(ref, jparams, tmp_path_factory):
 def world4(payload):
     return torch_ranks.spawn(4, __name__, payload, (
         *((label, "_sc_steps", (label,)) for label in LAYOUTS),
-        ("cascade", "_sc_cascade", ()), ("forms", "_sc_forms", ())))
+        ("cascade", "_sc_cascade", ()), ("forms", "_sc_forms", ()),
+        ("recorded", "_sc_recorded", ()), ("ep_moe", "_sc_ep_moe", ())))
 
 
 @pytest.fixture(scope="module")
@@ -675,3 +683,98 @@ def test_ranks_load_no_jax(world2, world4):
     for world in (world2, world4):
         for r in world:
             assert world[r]["loaded"] == [], world[r]["loaded"]
+
+
+# ---------------------------------------------------------------------------
+# the collective recorder and the expert-parallel example on the ranks
+# ---------------------------------------------------------------------------
+
+def _sc_recorded(payload):
+    """One train step of qwen2.5-3b at (data 2, model 2) under the
+    collective recorder, with ``collectives.COUNTS`` beside it."""
+    from repro_torch.launch import roofline
+    mesh = sharding.train_mesh(2, device="cpu")
+    cfg = _cfg(QWEN)
+    # the converted leaves in the port's init order (the order of a
+    # tree's gathers follows its keys), as the dry run builds them
+    leaf = dict(sharding._path_leaves(params_from_flat(payload[QWEN],
+                                                       device="cpu")))
+    params = sharding._map_paths(lambda path, _: leaf[path],
+                                 SP.abstract_split_params(cfg))
+    params = sharding.shard_train_params(params, mesh, cfg=cfg)
+    step = TL.make_train_step(cfg, TrainConfig(**TCFG), mesh=mesh,
+                              donate=False)
+    batch = {k: torch.from_numpy(v)
+             for k, v in payload["batches"][QWEN][0].items()}
+    state = TO.init(params)
+    CL.reset_counts()
+    with roofline.CollectiveRecorder() as rec:
+        step(params, state, batch)
+    return {"events": rec.events, "summary": rec.summary(),
+            "counts": {k: dict(v) for k, v in CL.COUNTS.items()}}
+
+
+def _sc_ep_moe(payload):
+    """The expert-parallel example's ``run`` at (data 2, model 2): both
+    runs' losses and the all_to_all moves each issued."""
+    from repro_torch.examples import expert_parallel_moe as EX
+    mesh = sharding.train_mesh(2, device="cpu")
+    cfg = get_reduced(EX.ARCH)
+    out = {}
+    for ep in (False, True):
+        out[ep] = EX.run(cfg, mesh, moe_ep=ep, steps=3, batch=4, seq=16)
+    return out
+
+
+
+#: the recorder's kind of each op ``collectives.COUNTS`` names
+_KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+         "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+         "send_recv": "collective-permute"}
+
+
+def test_recorder_matches_collective_counts(world4):
+    first = world4[0]["recorded"]["events"]
+    assert first, "the step issued no collective"
+    for r in world4:
+        rec = world4[r]["recorded"]
+        calls, nbytes = rec["counts"]["calls"], rec["counts"]["bytes"]
+        assert sum(v["count"] for v in rec["summary"].values()) == \
+            sum(calls.values())
+        for op, n in calls.items():
+            kind = _KIND[op]
+            assert rec["summary"][kind]["count"] == n, op
+            # COUNTS keeps a reduce-scatter's input buffer, the recorder
+            # its result: one group's share of it
+            got = sum(b * (g if kind == "reduce-scatter" else 1)
+                      for k, g, b in rec["events"] if k == kind)
+            assert got == nbytes[op], op
+        assert list(rec["events"]) == list(first)
+
+
+def test_dry_run_records_the_live_step(world4):
+    import torch_dry
+    out = torch_dry.run_script(f"""
+        import dataclasses, json
+        from repro_torch.configs import get_reduced
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+        cfg = dataclasses.replace(get_reduced("{QWEN}"), dtype="float32")
+        sc = ShapeConfig("t", seq_len=16, global_batch=4, kind="train")
+        print(json.dumps({{r: dryrun.rank_run(
+            cfg, sc, {{"data": 2, "model": 2}}, r)["events"]
+            for r in (0, 3)}}))
+    """)
+    for r in (0, 3):
+        assert [tuple(e) for e in out[str(r)]] == \
+            [tuple(e) for e in world4[r]["recorded"]["events"]]
+
+
+def test_expert_parallel_example_on_the_mesh(world4):
+    for r in world4:
+        (ref_losses, ref_a2a), (ep_losses, ep_a2a) = (
+            world4[r]["ep_moe"][ep] for ep in (False, True))
+        assert ep_a2a > 0 and ref_a2a == 0
+        assert max(abs(a - b) for a, b in zip(ref_losses, ep_losses)) < 0.5
+        assert ep_losses[-1] < ep_losses[0]
+        assert world4[r]["ep_moe"] == world4[0]["ep_moe"]
