@@ -54,19 +54,32 @@ Phases, each printing one JSON line; any failure exits nonzero:
    continuous`` at full width in bf16 with the launch counters set to 0
    just before and read just after; every request must finish, every
    kernel of the path must have launched, and the launches must match the
-   path's prefill dispatches and decode ticks;
-8. profile: each main path once more under ``torch.profiler``, for the
-   device busy time and the kernels that take it (the dense archs' runs
-   cut in depth: ``PROFILE_CUT``);
+   path's prefill dispatches and decode ticks. Each window is one replay
+   of a CUDA graph (``serving/graphs.py``): the path must replay graphs
+   and call the decode step only at each graph's first use and capture;
+   the ticks are the step's calls less the captured ones plus the
+   replayed ones (the graph tallies), equal to the engine's own decode
+   ticks. On ``HOST_LOOP_ORACLE`` the tokens equal a ``host_loop=True``
+   run's (no graph, logits read every tick) bit for bit;
+8. profile: each main path once more under ``torch.profiler``, on the
+   engine the main path built (its graphs captured), for the device busy
+   time, the device kernels and host launch calls a tick, the graph
+   replays' kernels, busy time and span a replayed tick (the trace must
+   hold each replay's kernels) and the kernels that take the time (the
+   dense archs' runs cut in depth: ``PROFILE_CUT``);
 9. the same three for the synchronous engine (``--engine sync``, the
    orchestrator's policy): a reduced f32 reference under the orchestrator
    and on mode 1, the full-width path with its launches asserted (one
-   decode tail a step, one scan per RG-LRU or mLSTM layer a prefill), a
-   profile;
+   decode tail a step, one scan per RG-LRU or mLSTM layer a prefill; each
+   token step a graph replay, one graph a mode), a profile;
 10. bench: ``repro_torch.benchmarks.bench_kernels.main --device cuda``,
     whose parity checks must hold, which must launch the wire pair, and
     whose fused boundary + tail tick must beat the unfused chain (the
-    reference bench gate's ``MEGA_FLOOR``, 1.0);
+    reference bench gate's ``MEGA_FLOOR``, 1.0); then the serving bench's
+    loop comparison (``bench_serving.compare_engine_loops``) at the
+    bench's own arguments (``LOOP_BENCH``: qwen2.5-3b, 8 slots, 24
+    tokens), whose device loop must decode at least ``MIN_LOOP_SPEEDUP``
+    (1.15) times the host loop's rate, the reference bench gate;
 11. cascade: the paper's proof of concept at full size (the lumos5g-lstm
     config on the 70,000-sample Lumos5G twin): the first train step of
     each phase of Algorithm 1 on the card against the CPU from the same
@@ -222,17 +235,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
     ``kernels`` (phase 10).
 
 The order of the run: phases 1 to 6, the check of the profile summary
-(``phase_profile_summary``) and phase 10 (its fused-tick gate is timed on
-the host clock), alone on the card; then two background lanes
-(``LANES``, ``lane``), each a process of its own on the card, with its
-paths' launch counters at 0 just before and read just after in that
-process: one runs phase 13, the other phase 11, phase 12's eval
-forwards and ``train_100m``, and phase 19's card parts (b) to (f), while
-this process runs phases 7 to 9 and phase 12's first steps and launcher
-(a few GB each beside the lanes'; their rates and profiles then share
-the host and the card); this process waits for the lanes and prints
-their output, then runs phases 14 to 18 (14 and 15 need the whole card)
-and collects phase 19's dry runs.
+(``phase_profile_summary``) and phase 10 (its fused-tick gate and the loop
+comparison are timed on the host clock), alone on the card; then two
+background lanes (``LANES``, ``lane``), each a process of its own on the
+card, with its paths' launch counters at 0 just before and read just
+after in that process: one runs phase 13, the other phase 11, phase 12's
+eval forwards and ``train_100m``, phase 19's card parts (b) to (f), and
+phases 6 to 9 of ``LANE_ARCHS`` (recurrentgemma-2b, xlstm-125m: a few
+GB each), while this process runs phases 6 to 9 of qwen2.5-3b and the
+dense archs and phase 12's first steps and launcher (their rates and
+profiles then share the host and the card); this process waits for the
+lanes and prints their output, then runs phases 14 to 18 (14 and 15 need
+the whole card) and collects phase 19's dry runs.
 
 Kernel times come from ``torch.profiler`` traces. A trace can lose
 events: a lost one counts as its kernel's mean traced event (a call
@@ -380,6 +394,13 @@ MAX_KERNELS = {"boundary": 2, "tail": 3}
 # the reference bench gate's floor on the fused tick's speedup
 # (tools/check_bench.py, MEGA_FLOOR)
 MEGA_FLOOR = 1.0
+# the reference bench gate's floor on the device loop's decode rate over
+# the host loop's, engine_comparison.decode_speedup (tools/check_bench.py:334,
+# MIN_LOOP_SPEEDUP), and the serving bench's own arguments of that
+# comparison (benchmarks/bench_serving.py's defaults: --compare-slots 8,
+# --compare-gen 24, --prompt-len 4, max(--requests 12, 2 * 8) requests)
+MIN_LOOP_SPEEDUP = 1.15
+LOOP_BENCH = {"n_slots": 8, "gen": 24, "prompt_len": 4, "n_requests": 16}
 
 
 _T0 = time.perf_counter()
@@ -2146,6 +2167,55 @@ def serve_engine(cls=None, **kw):
         serve.ContinuousBatchingEngine = orig
 
 
+#: the launcher's name of each engine's class
+ENGINE_CLASS = {"continuous": "ContinuousBatchingEngine",
+                "sync": "ServingEngine"}
+
+
+@contextlib.contextmanager
+def keeping(engine: str, kept: dict):
+    """Each ``engine`` engine the launcher builds while the block runs is
+    kept in ``kept["engine"]`` (the profile phase runs on it again)."""
+    from repro_torch.launch import serve
+    name = ENGINE_CLASS[engine]
+    orig = getattr(serve, name)
+
+    def build(*a, **kw):
+        kept["engine"] = orig(*a, **kw)
+        return kept["engine"]
+
+    setattr(serve, name, build)
+    try:
+        yield kept
+    finally:
+        setattr(serve, name, orig)
+
+
+@contextlib.contextmanager
+def reusing(engine: str, eng):
+    """The launcher builds no ``engine`` engine while the block runs: it
+    gets ``eng`` back, its counters zeroed (continuous; its warm-up then
+    replays the graphs it captured) or its state reset and the run's
+    orchestrator given to it (sync)."""
+    from repro_torch.launch import serve
+    name = ENGINE_CLASS[engine]
+    orig = getattr(serve, name)
+
+    def again(*a, **kw):
+        if engine == "sync":
+            eng.reset()
+            eng.orch = kw.get("orchestrator")
+        else:
+            eng.reset_counters()
+        return eng
+
+    setattr(serve, name, again)
+    try:
+        yield eng
+    finally:
+        setattr(serve, name, orig)
+
+
 def bank_free(params) -> dict:
     """A view of ``params`` without the bottleneck bank: a new top-level
     dict sharing every tensor (the engines then run the bank-free
@@ -2340,6 +2410,85 @@ def counting_f32_forms(calls: dict):
         yield calls
 
 
+@contextlib.contextmanager
+def graph_tally(calls: dict):
+    """The step graphs' tallies (``StepGraphs.totals``) at 0 while the
+    block runs; ``calls`` then gets them under ``graphs``."""
+    from repro_torch.serving.graphs import StepGraphs
+    StepGraphs.reset_totals()
+    try:
+        yield calls
+    finally:
+        calls["graphs"] = dict(StepGraphs.totals)
+
+
+def graphed_steps(calls: dict, *fns: str) -> int:
+    """The decode ticks (sync: token steps) a path ran: the step
+    functions' calls less those made while a graph was captured (which
+    ran nothing) plus the steps the graphs replayed (which call nothing);
+    ``calls`` as ``graph_tally`` left it."""
+    g = calls["graphs"]
+    return (sum(calls.get(f, 0) for f in fns) - g["captured_steps"]
+            + g["replayed_steps"])
+
+
+def check_graphed(calls: dict, label: str, *fns: str) -> None:
+    """A one-device path's decode steps all went through graphs: some
+    replayed, and the step functions were called only at each graph's
+    first use (its warm-up, the key's own work) and its capture."""
+    g = calls["graphs"]
+    n = sum(calls.get(f, 0) for f in fns)
+    check(g["replays"] > 0 and g["eager_steps"] == g["captured_steps"]
+          and n == g["eager_steps"] + g["captured_steps"],
+          f"{label}: {n} eager decode-step calls against the graphs' "
+          f"tallies {g} (a step ran eagerly after its capture, or no graph "
+          f"replayed)")
+
+
+@contextlib.contextmanager
+def engine_ticks(calls: dict):
+    """The decode ticks every continuous engine counted before each
+    ``reset_counters`` (a warm-up's) while the block runs, summed into
+    ``calls["engine_ticks"]``; a run's own ticks stay in its stats."""
+    from repro_torch.serving import ContinuousBatchingEngine as E
+    orig = E.reset_counters
+    calls.setdefault("engine_ticks", 0)
+
+    def reset(self):
+        calls["engine_ticks"] += self.decode_ticks
+        return orig(self)
+
+    E.reset_counters = reset
+    try:
+        yield calls
+    finally:
+        E.reset_counters = orig
+
+
+#: the archs whose one-device continuous main path is held bit for bit
+#: against the same arguments' host loop (``host_loop=True``: eager ticks,
+#: logits and argmax read every tick), the reference's equivalence oracle
+HOST_LOOP_ORACLE = ("qwen2.5-3b", "recurrentgemma-2b", "xlstm-125m",
+                    "musicgen-large", PHI)
+
+
+def host_loop_oracle(argv: list, cfg, label: str, tokens: dict,
+                     params) -> dict:
+    """``serve_run(argv, cfg, params)`` on the host loop (the launcher's
+    runner on the graphed run's weights): its tokens must equal
+    ``tokens`` (the graphed run's, by request) bit for bit."""
+    with serve_engine(host_loop=True):
+        want = serve_run(argv, cfg, params)["tokens"]
+    diff = first_difference(tokens, want)
+    check(len(want) == len(tokens) and diff is None,
+          f"{label}: the graphed window's tokens differ from the host "
+          f"loop's at (request, token index) {diff}")
+    out = {"phase": "host_loop_oracle", "arch": cfg.name, "path": label,
+           "requests": len(want), "requests_equal": len(want)}
+    emit(out)
+    return out
+
+
 def tails_per_step(cfg) -> int:
     """Decode tails a decode step launches: one, or none for the
     multi-codebook audio heads, which keep the norm / logits / argmax
@@ -2347,7 +2496,7 @@ def tails_per_step(cfg) -> int:
     return 0 if cfg.frontend == "audio" and cfg.n_codebooks > 1 else 1
 
 
-def phase_main_path(cfg, smi: str, params=None):
+def phase_main_path(cfg, smi: str, params=None, kept=None):
     """The arch's serving entry point at full width with every launch
     counter at 0 just before and read just after, prefill dispatches and
     decode ticks counted beside them (warm-up included); with ``params``,
@@ -2358,18 +2507,26 @@ def phase_main_path(cfg, smi: str, params=None):
     boundary and one scan per RG-LRU or mLSTM layer (none a tick: a
     decode step is one cell step). The RG-LRU and sLSTM layers' float32
     forms are made once, when the engine prepares its parameters, and
-    never on a step."""
+    never on a step. ``kept`` (a dict) gets the engine under
+    ``engine``; the host-loop oracle runs on its weights."""
     from repro_torch.core import split as SP
     fns = zero_counts()
     calls: dict = {}
+    argv = SERVE[cfg.name] + ["--device", "cuda"]
+    kept = {} if kept is None else kept
     with counting(SP, "split_prefill_mixed", calls), \
             counting(SP, "split_decode_step_mixed", calls), \
-            counting_f32_forms(calls):
-        summary = serve_run(SERVE[cfg.name] + ["--device", "cuda"], cfg,
-                            params)
+            counting_f32_forms(calls), graph_tally(calls), \
+            engine_ticks(calls), keeping("continuous", kept):
+        summary = serve_run(argv, cfg, params)
     launches = {k: f.launches for k, f in fns.items()}
     prefills = calls.get("split_prefill_mixed", 0)
-    ticks = calls.get("split_decode_step_mixed", 0)
+    ticks = graphed_steps(calls, "split_decode_step_mixed")
+    check_graphed(calls, f"main path {cfg.name}", "split_decode_step_mixed")
+    check(ticks == calls["engine_ticks"] + summary["decode_ticks"],
+          f"main path {cfg.name}: {ticks} ticks by the graph tallies, "
+          f"{calls['engine_ticks']} + {summary['decode_ticks']} by the "
+          f"engine")
     toks = summary["tokens"]
     MAIN_RUNS[f"{cfg.name} continuous"] = toks
     check(summary["requests_finished"] == 8 and len(toks) == 8,
@@ -2402,10 +2559,15 @@ def phase_main_path(cfg, smi: str, params=None):
           "seconds": summary["seconds"],
           "decode_tok_per_s": summary["decode_tok_per_s"],
           "mode_counts": summary["mode_counts"], "launches": launches,
-          "prefill_dispatches": prefills, "decode_step_calls": ticks,
+          "prefill_dispatches": prefills, "ticks_with_warm_up": ticks,
+          "decode_step_calls": calls.get("split_decode_step_mixed", 0),
+          "graphs": calls["graphs"],
           "rglru_f32_forms_made": calls.get("_f32_forms", 0),
           "slstm_f32_forms_made": calls.get("_slstm_f32_forms", 0),
           "card": smi})
+    if cfg.name in HOST_LOOP_ORACLE:
+        host_loop_oracle(argv, cfg, "continuous", toks,
+                         kept["engine"].params)
     return launches
 
 
@@ -2418,33 +2580,74 @@ PROFILE_CUT = {"continuous": ["--requests", "4", "--gen", "4"],
                "sync": ["--gen", "4"]}
 
 
-def phase_profile(cfg, engine: str, params=None):
-    """The arch's main path on ``engine`` once more, traced with
-    ``torch.profiler`` (its rate is not the one reported above): device
-    busy time, idle share, launches per decode step and the kernels that
-    take the time, summarized from the profiler's events (no Chrome trace
-    is written: the script reads none, and writing a full-width trace took
+def phase_profile(cfg, engine: str, eng):
+    """The arch's main path on ``engine`` once more, on the engine the
+    main path built (``eng``: its weights, its graphs captured), through
+    the launcher's runner, traced with ``torch.profiler`` (its rate is not
+    the one reported above): device busy time, idle share, device kernels
+    and host launch calls per decode step and the kernels that take the
+    time, summarized from the profiler's events (no Chrome trace is
+    written: the script reads none, and writing a full-width trace took
     much of the phase's time). A sync run's launches per step include its
-    one prefill's. With ``params``: on them and ``cfg`` (``serve_run``)."""
+    one prefill's, a continuous run's its prefill dispatches'. ``graphed``
+    splits out the graph replays (the spans ``profile_summary`` finds
+    them by): their device kernels, busy time, span and host launch calls
+    a replayed tick, and the rest a step; the trace must hold one span, at
+    least one kernel and one graph launch for each replay the graphs
+    counted."""
     from repro_torch.launch import serve
+    from repro_torch.serving.graphs import StepGraphs
     argv = (SERVE if engine == "continuous" else SYNC)[cfg.name]
     if cfg.homogeneous:
         argv = argv + PROFILE_CUT[engine]
+    args = serve.parser().parse_args(argv + [
+        "--device", "cuda", "--profile-dir",
+        str(ROOT / "build" / "profile" / engine / cfg.name)])
     export = serve.profile_extra
     serve.profile_extra = lambda args, prof, seconds: (
         {} if prof is None else {"profile": serve.profile_summary(prof,
                                                                   seconds)})
+    run = {"continuous": serve.run_continuous, "sync": serve.run_sync}
+    make = serve.make_profiler
+
+    def traced(args, dev):           # the tallies count the traced run's
+        StepGraphs.reset_totals()
+        return make(args, dev)
     try:
-        summary = serve_run(argv + [
-            "--device", "cuda", "--profile-dir",
-            str(ROOT / "build" / "profile" / engine / cfg.name)], cfg,
-            params)
+        with reusing(engine, eng), patched(serve, "make_profiler", traced):
+            summary = run[engine](args, cfg, eng.params)
     finally:
         serve.profile_extra = export
     prof = summary["profile"]
     steps = (summary["decode_ticks"] if engine == "continuous"
              else len(sync_rows(summary["generated"])[0]))
     per_step = prof["kernel_launches"] / max(steps, 1)
+    host_calls = sum(prof["launch_calls"].values()) / max(steps, 1)
+    # the graphs' part: each replayed tick's device kernels, busy time and
+    # span (a replay's first kernel's start to its last kernel's end) and
+    # the host's graph launches for it, and the rest of the run (prefills,
+    # admission, warm-ups) a step: its kernels and eager launch calls
+    g = prof["graph_replays"]
+    tally = dict(StepGraphs.totals)
+    replayed = max(tally["replayed_steps"], 1)
+    calls = prof["launch_calls"]
+    graph_calls = calls.get("cudaGraphLaunch", 0)
+    graphed = {"replayed_ticks": tally["replayed_steps"],
+               "replays": g["replays"],
+               "kernels_per_tick": g["kernels"] / replayed,
+               "busy_ms_per_tick": g["busy_s"] * 1e3 / replayed,
+               "span_ms_per_tick": g["span_s"] * 1e3 / replayed,
+               "idle_within_replays": 1.0 - g["busy_s"] / max(g["span_s"],
+                                                              1e-12),
+               "graph_launches_per_tick": graph_calls / replayed,
+               "kernels_outside_per_step":
+                   (prof["kernel_launches"] - g["kernels"]) / max(steps, 1),
+               "launch_calls_outside_per_step":
+                   (sum(calls.values()) - graph_calls) / max(steps, 1)}
+    check(g["replays"] == tally["replays"] > 0 and g["kernels"] > 0,
+          f"profile {engine} {cfg.name}: the trace holds the kernels of "
+          f"{g['replays']} graph launches ({g['kernels']} kernels), "
+          f"against {tally['replays']} graph replays")
     n_rglru = sum(cfg.block_kind(i) == "rglru" for i in range(cfg.n_layers))
     ceiling = None
     if n_rglru and prof["kernel_launches"]:
@@ -2457,6 +2660,8 @@ def phase_profile(cfg, engine: str, params=None):
           "n_layers": cfg.n_layers, "decode_steps": steps,
           "device_traced": prof["kernel_launches"] > 0,
           "launches_per_decode_step": per_step,
+          "host_launch_calls_per_decode_step": host_calls,
+          "graphed": graphed,
           "launches_ceiling": ceiling,
           "to_copy_ms_per_decode_step": prof["to_copy"]["device_ms"]
           / max(steps, 1), **prof})
@@ -2469,8 +2674,10 @@ def phase_profile_summary():
     profile phase at full width), on the continuous engine at reduced f32
     qwen2.5-3b on the card: the same kernels, device busy time and casts,
     the casts' device ms within 1e-4 relative (a cast nested in a cast
-    counts twice in ``key_averages``). Both summaries' host seconds are
-    printed."""
+    counts twice in ``key_averages``), and the graph replays' kernels
+    (the run's windows replay graphs; a replayed kernel carries its graph
+    launch's id): the same replays and kernels, their busy time within
+    1e-9 relative. Both summaries' host seconds are printed."""
     import dataclasses
 
     import torch
@@ -2490,24 +2697,37 @@ def phase_profile_summary():
     t0 = time.perf_counter()
     got = serve.profile_summary(prof, 1.0)
     t1 = time.perf_counter()
-    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    events = prof.events()
+    dev = [e for e in events if e.device_type.name == "CUDA"]
+    launches = {e.id for e in events if e.name == "cudaGraphLaunch"}
+    replayed = [e for e in dev if e.id in launches]
     casts = [e for e in prof.key_averages() if e.key == "aten::_to_copy"]
     t2 = time.perf_counter()
     want = {"kernel_launches": len(dev),
             "device_busy_s": sum(e.time_range.elapsed_us() for e in dev) / 1e6,
             "calls": sum(e.count for e in casts),
-            "device_ms": sum(e.device_time_total for e in casts) / 1e3}
+            "device_ms": sum(e.device_time_total for e in casts) / 1e3,
+            "replays": len({e.id for e in replayed}),
+            "replayed_kernels": len(replayed),
+            "replayed_busy_s": sum(e.time_range.elapsed_us()
+                                   for e in replayed) / 1e6}
+    reps = got["graph_replays"]
     check(got["kernel_launches"] == want["kernel_launches"] > 0
           and math.isclose(got["device_busy_s"], want["device_busy_s"],
                            rel_tol=1e-9)
           and got["to_copy"]["calls"] == want["calls"]
           and math.isclose(got["to_copy"]["device_ms"], want["device_ms"],
-                           rel_tol=1e-4),
+                           rel_tol=1e-4)
+          and reps["replays"] == want["replays"] > 0
+          and reps["kernels"] == want["replayed_kernels"] > 0
+          and math.isclose(reps["busy_s"], want["replayed_busy_s"],
+                           rel_tol=1e-9),
           f"profile summary: {got} against the event tree's {want}")
     emit({"phase": "profile_summary", "raw_events_s": t1 - t0,
           "event_tree_s": t2 - t1, "summary": {
               k: got[k] for k in ("kernel_launches", "device_busy_s",
-                                  "to_copy")}, "event_tree": want})
+                                  "to_copy", "graph_replays")},
+          "event_tree": want})
 
 
 # ---------------------------------------------------------------------------
@@ -2576,7 +2796,7 @@ def sync_rows(generated) -> list:
     return a.reshape(-1, a.shape[-1]).tolist()
 
 
-def phase_sync_main_path(cfg, smi: str, params=None):
+def phase_sync_main_path(cfg, smi: str, params=None, kept=None):
     """The sync engine through ``serve.main`` at full width (with
     ``params``: its runner on them and ``cfg``), every launch counter at
     0 just before and read just after, prefills and decode steps counted
@@ -2591,12 +2811,15 @@ def phase_sync_main_path(cfg, smi: str, params=None):
     with counting(T, "prefill", calls), \
             counting(SP, "split_decode_step", calls), \
             counting(T, "decode_step", calls), \
-            counting_f32_forms(calls):
+            counting_f32_forms(calls), graph_tally(calls), \
+            keeping("sync", {} if kept is None else kept):
         summary = serve_run(SYNC[cfg.name] + ["--device", "cuda"], cfg,
                             params)
     launches = {k: f.launches for k, f in fns.items()}
     prefills = calls.get("prefill", 0)
-    steps = calls.get("split_decode_step", 0) + calls.get("decode_step", 0)
+    step_fns = ("split_decode_step", "decode_step")
+    steps = graphed_steps(calls, *step_fns)
+    check_graphed(calls, f"sync main path {cfg.name}", *step_fns)
     gen = sync_rows(summary["generated"])
     MAIN_RUNS[f"{cfg.name} sync"] = summary["generated"]
     check(summary["tokens"] == len(gen) * 16 and len(gen) == 8 * (
@@ -2626,6 +2849,8 @@ def phase_sync_main_path(cfg, smi: str, params=None):
           "tokens": summary["tokens"], "mode_counts": summary["mode_counts"],
           "wire_bytes_per_token": summary["wire_bytes_per_token"],
           "launches": launches, "prefills": prefills, "decode_steps": steps,
+          "decode_step_calls": sum(calls.get(f, 0) for f in step_fns),
+          "graphs": calls["graphs"],
           "rglru_f32_forms_made": calls.get("_f32_forms", 0),
           "slstm_f32_forms_made": calls.get("_slstm_f32_forms", 0),
           "card": smi})
@@ -2653,6 +2878,45 @@ def phase_bench():
           f"{out['mega_parity_ok']})")
     emit({"phase": "bench", **out, "launches": launches})
     return launches
+
+
+def phase_loop_speedup(dev, seed: int, smi: str) -> dict:
+    """The serving bench's device-loop against host-loop comparison
+    (``bench_serving.compare_engine_loops``) at its own arguments
+    (``LOOP_BENCH``) on full-width qwen2.5-3b: its two engines warmed, four
+    interleaved runs each, the best rate of each. The device loop, whose
+    windows replay graphs, must decode at least ``MIN_LOOP_SPEEDUP`` times
+    the host loop's rate (the reference bench gate). Timed on the host
+    clock, so it runs before the lanes share the card and the host.
+    Returns the launches."""
+    import torch
+
+    from repro_torch.benchmarks import bench_serving
+    from repro_torch.configs import get_config
+    from repro_torch.core import split as SP
+    cfg = get_config("qwen2.5-3b")
+    params = SP.init_split_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg)
+    calls: dict = {}
+    t0 = time.perf_counter()
+    with counted_path(calls):
+        ec = bench_serving.compare_engine_loops(params, cfg, **LOOP_BENCH)
+    del params
+    free_cuda()
+    check(calls["graphs"]["replays"] > 0,
+          f"loop comparison: no window graph replayed {calls['graphs']}")
+    check(ec["decode_speedup"] >= MIN_LOOP_SPEEDUP,
+          f"loop comparison: the device loop decodes "
+          f"{ec['device_loop']['decode_tok_per_s']} tok/s, "
+          f"{ec['decode_speedup']} times the host loop's "
+          f"{ec['host_loop']['decode_tok_per_s']}, below "
+          f"{MIN_LOOP_SPEEDUP}")
+    emit({"phase": "loop_speedup", "arch": cfg.name, **LOOP_BENCH,
+          "engine_comparison": ec, "floor": MIN_LOOP_SPEEDUP,
+          "seconds": time.perf_counter() - t0, "graphs": calls["graphs"],
+          "decode_ticks": calls["ticks"], "launches": calls["launches"],
+          "card": smi})
+    return calls["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -3391,14 +3655,18 @@ def cluster_requests(cfg, seed: int = 0):
 
 @contextlib.contextmanager
 def counted_path(calls: dict):
-    """Launch counters at 0, and the split prefill and decode-step calls
-    counted, while the block runs; ``calls`` gets the launches."""
+    """Launch counters and the graph tallies at 0, and the split prefill
+    and decode-step calls counted, while the block runs; ``calls`` gets
+    the launches and, under ``ticks``, the decode ticks of every engine
+    (``graphed_steps``: eager ticks, and each replayed window's)."""
     from repro_torch.core import split as SP
     fns = zero_counts()
     with counting(SP, "split_prefill_mixed", calls), \
-            counting(SP, "split_decode_step_mixed", calls):
+            counting(SP, "split_decode_step_mixed", calls), \
+            graph_tally(calls):
         yield calls
     calls["launches"] = {k: f.launches for k, f in fns.items()}
+    calls["ticks"] = graphed_steps(calls, "split_decode_step_mixed")
 
 
 def check_path_launches(calls: dict, cfg, label: str,
@@ -3409,7 +3677,7 @@ def check_path_launches(calls: dict, cfg, label: str,
     ticks read logits without the tail and whose dense control engine has
     no page arena): one boundary a tick and a prefill, at most one tail a
     tick and one paged attention a layer and tick, each launched."""
-    ticks = calls.get("split_decode_step_mixed", 0)
+    ticks = calls["ticks"]
     prefills = calls.get("split_prefill_mixed", 0)
     got = calls["launches"]
     expect = {"boundary_mixed_grouped": ticks + prefills,
@@ -3564,7 +3832,8 @@ def phase_cluster(cfg, dev, smi: str) -> dict:
             "cluster.migration_backhaul_s")
         out[label] = {
             "seconds": r["seconds"], "decode_tok_per_s": dec / r["seconds"],
-            "decode_ticks": r["calls"].get("split_decode_step_mixed", 0),
+            "decode_ticks": r["calls"]["ticks"],
+            "graphs": r["calls"]["graphs"],
             "prefill_dispatches": r["calls"].get("split_prefill_mixed", 0),
             "launches": r["calls"]["launches"], "latency_ms": lat,
             **{k: st[k] for k in (
@@ -3609,7 +3878,7 @@ def phase_fleet(cfg, dev, smi: str) -> dict:
           "n_replicas": summary["n_replicas"],
           "session_slo_miss_rate": summary["session_slo_miss_rate"],
           "conservation": cons, "latency_ms": summary.get("latency"),
-          "decode_ticks": calls.get("split_decode_step_mixed", 0),
+          "decode_ticks": calls["ticks"], "graphs": calls["graphs"],
           "launches": calls["launches"], "card": smi})
     free_cuda()
     return calls["launches"]
@@ -3639,7 +3908,7 @@ def phase_serving_benches(cfg, dev, smi: str) -> dict:
         by_path[name] = calls["launches"]
         emit({"phase": "serving_bench", "bench": name, "argv": argv,
               "seconds": time.perf_counter() - t0,
-              "decode_ticks": calls.get("split_decode_step_mixed", 0),
+              "decode_ticks": calls["ticks"], "graphs": calls["graphs"],
               "launches": calls["launches"], **out, "card": smi})
         free_cuda()
     return by_path
@@ -3805,9 +4074,9 @@ def gap_engine(gaps: dict, engines: list):
             super().__init__(*a, **kw)
             engines.append(self)
 
-        def _run_window(self, modes_k, bt):
+        def _run_window(self, modes_k, width):
             self._gap_tick = self.tick
-            return super()._run_window(modes_k, bt)
+            return super()._run_window(modes_k, width)
 
         def _decode(self, tok, positions, modes, bt, return_tokens):
             out = super()._decode(tok, positions, modes, bt, return_tokens)
@@ -3828,7 +4097,9 @@ def bank_free_runs(params, cfg, smi: str) -> dict:
     logits + argmax chain), counters at 0 just before each. The unfused
     run's tokens must equal the fused run's request by request, or part
     first at a near tie (top-two gap under ``TOL["tail_rel_gap"]`` of the
-    largest |logit|). Returns each run's launches."""
+    largest |logit|). The fused run's windows replay graphs, and its
+    tokens equal a host loop's bit for bit (``host_loop_oracle``).
+    Returns each run's launches."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     view = bank_free(params)
@@ -3839,10 +4110,12 @@ def bank_free_runs(params, cfg, smi: str) -> dict:
         calls: dict = {}
         cls = gap_engine(gaps, engines) if kw else None
         with serve_engine(cls, **kw), counting(T, "prefill", calls), \
-                counting(T, "decode_step", calls):
+                counting(T, "decode_step", calls), graph_tally(calls):
             summary = serve.run_continuous(args, cfg, view)
         launches = {k: f.launches for k, f in fns.items()}
-        ticks = calls.get("decode_step", 0)
+        ticks = graphed_steps(calls, "decode_step")
+        if label == "fused":
+            check_graphed(calls, "bank-free fused", "decode_step")
         check(summary["requests_finished"] == 8
               and set(summary["mode_counts"]) == {0},
               f"bank-free {label}: {summary['requests_finished']} of 8 "
@@ -3861,7 +4134,7 @@ def bank_free_runs(params, cfg, smi: str) -> dict:
               "decode_tok_per_s": summary["decode_tok_per_s"],
               "seconds": summary["seconds"], "launches": launches,
               "prefills": calls.get("prefill", 0), "decode_steps": ticks,
-              "card": smi})
+              "graphs": calls["graphs"], "card": smi})
     eng = engines[-1]
     slot_of = {s.request.rid: (s.admitted_tick, s.slot)
                for s in eng.finished}
@@ -3882,6 +4155,8 @@ def bank_free_runs(params, cfg, smi: str) -> dict:
           "requests": len(runs["fused"]["tokens"]),
           "requests_equal": len(runs["fused"]["tokens"]) - len(parted),
           "parted_at_near_ties": parted})
+    host_loop_oracle(SERVE[cfg.name] + ["--device", "cuda"], cfg,
+                     "bank-free", runs["fused"]["tokens"], view)
     return by_path
 
 
@@ -4109,9 +4384,9 @@ def phase_frontends(dev, seed: int, iters: int, smi: str) -> dict:
         phase_sync_reference(name)
         for engine, main_path in (("continuous", phase_main_path),
                                   ("sync", phase_sync_main_path)):
-            by_path[f"{name} {engine}"] = main_path(cfg, smi)
-            free_cuda()
-            phase_profile(cfg, engine)
+            kept: dict = {}
+            by_path[f"{name} {engine}"] = main_path(cfg, smi, kept=kept)
+            phase_profile(cfg, engine, kept.pop("engine"))
             free_cuda()
     emit({"phase": "frontends", "seconds": time.perf_counter() - t0})
     return by_path
@@ -4303,9 +4578,9 @@ def phase_moe(dev, seed: int, iters: int, smi: str) -> dict:
             free_cuda()
         for engine, main_path in (("continuous", phase_main_path),
                                   ("sync", phase_sync_main_path)):
-            by_path[f"{name} {engine}"] = main_path(cfg, smi, params)
-            free_cuda()
-            phase_profile(cfg, engine, params)
+            kept: dict = {}
+            by_path[f"{name} {engine}"] = main_path(cfg, smi, params, kept)
+            phase_profile(cfg, engine, kept.pop("engine"))
             free_cuda()
         memory_line(dev, cfg)
         del params
@@ -5662,7 +5937,9 @@ def light_sessions(finished) -> list:
 def taped_sync_engine():
     """The sync engine recording the float32 logits of its prefill and of
     every decode step, each step's tokens their argmax (the logits chain
-    in place of the fused tail)."""
+    in place of the fused tail). The tape is Python that runs at each
+    step, so its steps run eagerly (its graphs never capture: an oracle,
+    as the continuous engine's unfused window is)."""
     import torch
 
     from repro_torch.serving import ServingEngine
@@ -5672,6 +5949,7 @@ def taped_sync_engine():
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
+            self.graphs.capturing = False
             self.tape = []
             TapedSync.last = self
 
@@ -6246,7 +6524,7 @@ def p19_split_serving() -> tuple:
     return calls["launches"], {
         "seconds": secs, "launches": calls["launches"],
         "prefill_dispatches": calls.get("split_prefill_mixed", 0),
-        "decode_ticks": calls.get("split_decode_step_mixed", 0),
+        "decode_ticks": calls["ticks"], "graphs": calls["graphs"],
         "mixed_mode_ticks": card["mixed_mode_ticks"],
         "mode_counts": card["mode_counts"],
         "requests_with_the_cpu_tokens": same_tokens}
@@ -6342,14 +6620,19 @@ def phase_entry_points(smi: str, started: dict, card: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the background lanes: phases 11, 13, phase 12's small half and phase
-# 19's card parts in processes of their own, beside phases 7 to 9 and 12
+# the background lanes: phases 11, 13, phase 12's small half, phase 19's
+# card parts and the recurrent archs' phases 6 to 9 in processes of their
+# own, beside the other archs' phases 6 to 9 and phase 12
 # ---------------------------------------------------------------------------
 
 #: the background lanes, each a process of its own on the card running its
 #: jobs (``lane_job``) in order, beside phases 7 to 9 and phase 12's first
 #: half in the main process
-LANES = (("scale_out",), ("cascade", "train_small", "p19_card"))
+LANES = (("scale_out",),
+         ("cascade", "train_small", "p19_card", "serving_small"))
+#: the archs whose phases 6 to 9 run in a lane (a few GB each; qwen2.5-3b's
+#: stay in the main process, which the lanes' other jobs outlast)
+LANE_ARCHS = ("recurrentgemma-2b", "xlstm-125m")
 
 
 def lane_job(name: str, seed: int, dev, smi: str) -> dict:
@@ -6361,6 +6644,8 @@ def lane_job(name: str, seed: int, dev, smi: str) -> dict:
         return {"lumos5g-lstm cascade": phase_cascade(seed, smi)}
     if name == "train_small":
         return phase_train_small(seed, dev, smi)
+    if name == "serving_small":
+        return phase_serving(LANE_ARCHS, smi)
     return p19_card()
 
 
@@ -6555,51 +6840,74 @@ def run_phases(args, dev, smi: str, dry: dict) -> int:
     # the profile summary's check (the casts' device ms of two readings
     # of one trace within 1e-4) and the bench's fused-tick gate (timed on
     # the host clock) run before the lanes share the card and the host:
-    # in a lane the two readings parted by 0.5%
+    # in a lane the two readings parted by 0.5%; and after the kernel
+    # phases' traces: as a process's first traced run the two readings of
+    # the casts parted by 1%
     phase_profile_summary()
     bench = phase_bench()
+    loops = phase_loop_speedup(dev, args.seed, smi)
     lanes = []
     try:
         for jobs in LANES:
             lanes.append(lane_start(smi, args.seed, jobs))
         return phases_beside_lanes(args, dev, smi, dry, lanes,
-                                   (cfg, rcfg, xcfg, *dense), bench, results)
+                                   (cfg, rcfg, xcfg, *dense),
+                                   {"bench": bench, "loop_speedup": loops},
+                                   results)
     finally:
         for started in lanes:
             lane_stop(started)
 
 
-def phases_beside_lanes(args, dev, smi: str, dry: dict, lanes: list,
-                        archs: tuple, bench: dict, results: dict) -> int:
-    """Phases 7 to 9 and phase 12's first half while the lanes run theirs
-    (``LANES``); then the lanes' results, phases 14 to 18, phase 19's dry
-    runs and the closing lines."""
-    import torch
+def phase_serving(names: tuple, smi: str) -> dict:
+    """Phases 6 to 9 for the archs ``names``: the continuous engine's
+    references, main path and profile, then the sync engine's, one model
+    on the card at a time. Returns the launches of each path under
+    ``by_path`` and the main paths' tokens under ``main_runs``."""
+    from repro_torch.configs import get_config
     by_path = {}
+    archs = [get_config(a) for a in names]
     for c in archs:
         phase_reference(c.name)
         if c.name == "stablelm-3b":
             phase_reference(c.name, variant=HD80)
-        by_path[f"{c.name} continuous"] = phase_main_path(c, smi)
-        free_cuda()
-        phase_profile(c, "continuous")
+        kept: dict = {}
+        by_path[f"{c.name} continuous"] = phase_main_path(c, smi, kept=kept)
+        phase_profile(c, "continuous", kept.pop("engine"))
         free_cuda()
     for c in archs:
         phase_sync_reference(c.name)
-        by_path[f"{c.name} sync"] = phase_sync_main_path(c, smi)
+        kept = {}
+        by_path[f"{c.name} sync"] = phase_sync_main_path(c, smi, kept=kept)
+        phase_profile(c, "sync", kept.pop("engine"))
         free_cuda()
-        phase_profile(c, "sync")
-        free_cuda()
+    return {"by_path": by_path,
+            "main_runs": {k: v for k, v in MAIN_RUNS.items()
+                          if k.split(" ")[0] in names}}
+
+
+def phases_beside_lanes(args, dev, smi: str, dry: dict, lanes: list,
+                        archs: tuple, benches: dict, results: dict) -> int:
+    """Phases 6 to 9 of the archs outside ``LANE_ARCHS`` and phase 12's
+    first half while the lanes run theirs (``LANES``); then the lanes'
+    results, phases 14 to 18, phase 19's dry runs and the closing
+    lines."""
+    import torch
+    by_path = phase_serving(tuple(c.name for c in archs
+                                  if c.name not in LANE_ARCHS),
+                            smi)["by_path"]
     train = phase_train(dev, smi)
     free_cuda()
     done = {}
     for started in lanes:
         done.update(lane_collect(started))
-    by_path["bench"] = bench
+    by_path.update(benches)
     by_path.update(done["cascade"])
     by_path.update(train)
     by_path.update(done["train_small"])
     by_path.update(done["scale_out"])
+    by_path.update(done["serving_small"]["by_path"])
+    MAIN_RUNS.update(done["serving_small"]["main_runs"])
     by_path.update(phase_frontends(dev, args.seed, args.iters, smi))
     free_cuda()
     by_path.update(phase_moe(dev, args.seed, args.iters, smi))

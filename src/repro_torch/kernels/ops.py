@@ -111,12 +111,14 @@ def boundary_mixed_op(stacked, x, mode_idx, *, dtype=torch.bfloat16):
     return y.reshape(B, S, d)
 
 
+#: the kernel wrappers, each with its launch counter ``<wrapper>.launches``
+KERNELS = (boundary_mixed_grouped, decode_tail_grouped, paged_attention,
+           rglru_scan, bottleneck_quant, dequant_matmul)
+
+
 def launch_counts() -> dict:
     """Each kernel wrapper's launch counter (``<wrapper>.launches``)."""
-    return {f.__name__: f.launches
-            for f in (boundary_mixed_grouped, decode_tail_grouped,
-                      paged_attention, rglru_scan, bottleneck_quant,
-                      dequant_matmul)}
+    return {f.__name__: f.launches for f in KERNELS}
 
 
 def boundary_mixed_sharded(stacked, x, mode_idx, mesh, *,

@@ -146,24 +146,43 @@ def _sync(dev: torch.device):
         torch.cuda.synchronize(dev)
 
 
+#: the CUDA runtime and driver calls that put work on the card: a kernel
+#: launch (the hand-written kernels' cluster launch among them) or a CUDA
+#: graph's
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
 def profile_summary(prof, seconds: float, top: int = 12) -> dict:
     """Device busy time of a ``torch.profiler`` run: the sum of its CUDA
     kernels' durations (one stream, so they do not overlap), the idle
-    share of the wall time, the kernels that took the most time, and the
-    calls and device time of ``aten::_to_copy`` (dtype casts, and the few
-    host-to-device uploads of tokens and positions; its device time is
-    that of the kernels launched by a cast or by an op nested in one, as
-    ``key_averages`` counts it). Read from the profiler's raw events: the
-    ``FunctionEvent`` tree of ``prof.events()`` costs far more host time
-    than the run it describes at full width."""
+    share of the wall time, the kernels that took the most time, the
+    host's launch calls by name (``LAUNCH_CALLS``: one a kernel launched
+    eagerly, one a CUDA graph replay), the graph replays' kernels, device
+    busy time and span (a replay's first kernel's start to its last
+    kernel's end, summed over the replays; a replayed kernel carries its
+    ``cudaGraphLaunch``'s correlation id), and the calls and device time
+    of ``aten::_to_copy`` (dtype casts, and the few host-to-device uploads
+    of tokens and positions; its device time is that of the kernels
+    launched by a cast or by an op nested in one, as ``key_averages``
+    counts it). Read from the profiler's raw events: the ``FunctionEvent``
+    tree of ``prof.events()`` costs far more host time than the run it
+    describes at full width."""
     from torch.autograd import DeviceType
-    by_name, kernels, ops, casts = {}, [], {}, {}
+    by_name, kernels, ops, casts, calls = {}, [], {}, {}, {}
+    graph_launches = set()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             us, n = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
-            kernels.append((e.linked_correlation_id(), e.duration_ns()))
-        elif e.linked_correlation_id() == 0:     # an op called on the host
+            kernels.append((e.linked_correlation_id(), e.correlation_id(),
+                            e.start_ns(), e.end_ns()))
+            continue
+        if e.name() in LAUNCH_CALLS:
+            calls[e.name()] = calls.get(e.name(), 0) + 1
+            if e.name() == "cudaGraphLaunch":
+                graph_launches.add(e.correlation_id())
+        if e.linked_correlation_id() == 0:       # an op called on the host
             t, start = e.start_thread_id(), e.start_ns()
             ops[e.correlation_id()] = (t, start)
             if e.name() == "aten::_to_copy":
@@ -177,13 +196,25 @@ def profile_summary(prof, seconds: float, top: int = 12) -> dict:
         i = bisect.bisect_right(starts.get(t, ()), start) - 1
         return i >= 0 and start <= casts[t][i][1]
 
-    cast_ns = sum(ns for corr, ns in kernels
-                  if corr in ops and in_cast(ops[corr]))
+    cast_ns = sum(end - start for linked, _, start, end in kernels
+                  if linked in ops and in_cast(ops[linked]))
+    replays = {}                # graph launch: kernels, busy, first, end
+    for _, corr, start, end in kernels:
+        if corr in graph_launches:
+            n, busy, lo, hi = replays.get(corr, (0, 0, start, end))
+            replays[corr] = (n + 1, busy + end - start, min(lo, start),
+                             max(hi, end))
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_s": seconds, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / max(seconds, 1e-9),
             "kernel_launches": sum(n for _, n in by_name.values()),
+            "launch_calls": calls,
+            "graph_replays": {
+                "replays": len(replays),
+                "kernels": sum(r[0] for r in replays.values()),
+                "busy_s": sum(r[1] for r in replays.values()) / 1e9,
+                "span_s": sum(r[3] - r[2] for r in replays.values()) / 1e9},
             "to_copy": {"calls": sum(len(v) for v in casts.values()),
                         "device_ms": cast_ns / 1e6},
             "top_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": n}

@@ -19,6 +19,9 @@ port of ``repro.serving``).
 ``migration``                 — live session migration: slot-row or
                                 allocated-page snapshots, optional wire
                                 quantization, bit-exact injection.
+``graphs``                    — ``StepGraphs``: the engines' decode window and
+                                token step as CUDA graphs (the reference's
+                                ``jax.jit`` / ``lax.scan``).
 ``session``                   — request/queue/session lifecycle records.
 ``telemetry``                 — metrics registry, Chrome-trace timeline,
                                 the serving clock, bench timing helpers and

@@ -21,7 +21,14 @@ Every engine tick it:
    each ending in the fused norm / LM-head / argmax tail whose token feeds
    the next tick, and reads the window's tokens back one window late (the
    host's bookkeeping for window t+1 overlaps the device's work on window
-   t). The window is a plain Python loop over ticks;
+   t). On one CUDA device the window is one replay of a CUDA graph of its
+   K ticks (``serving/graphs.py``, the counterpart of the reference's
+   compiled ``lax.scan``), keyed by (K, block-table width, ``fused_tail``,
+   banked); its inputs are static buffers written in place before the
+   replay (tokens, positions, the mode rows, one block table a width) and
+   its tokens land in a static output, copied to pinned host memory after
+   the replay and read once that window's event has fired. On the CPU the
+   same body runs uncaptured over the same buffers;
 4. accounts wire bytes and simulated transfer latency per request and
    retires finished sessions at dispatch time.
 
@@ -29,7 +36,9 @@ Every engine tick it:
 read back every tick) as the equivalence oracle; both loops decode
 identical token streams. ``fused_tail=False`` ends each window tick in
 the logits + argmax chain instead of the fused tail: the oracle the
-fused window's tokens are held against.
+fused window's tokens are held against. Both oracles, and every window
+on a serving mesh (its collectives cannot be captured), run the ticks
+eagerly.
 
 Params without a bottleneck bank (no ``bneck_modes``) run the bank-free
 steps, as the reference's "mono" steps: ``T.decode_step`` and
@@ -45,7 +54,8 @@ inter-token latency) and folds the per-tick int32 telemetry block
 late; it changes no token. Live migration between engines
 (``serving/migration.py``) reads and writes the pools through
 ``read_rows`` / ``write_rows`` (dense) and ``read_pages`` / ``write_pages``
-(paged). Mesh sharding (``mesh=``) is not ported yet and raises.
+(paged). ``mesh=`` runs the engine over the ranks of a serving mesh
+(``models.sharding``).
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.serving.controller import ModeController
+from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.session import Request, RequestQueue, Session
 from repro_torch.serving.telemetry import Telemetry, now as _now
 
@@ -106,14 +117,31 @@ def gather_rows(pool_states, idx, axis: int):
 def _admit_meta(positions, cur_tokens, slots, pos_vals, first_tokens):
     """Device-loop admission of the slots' positions and first tokens,
     written in place (``index_copy_``: the counterpart of the reference's
-    donated scatter). The state rows go in first: the paged prefill writes
-    the arena through the group's block tables, a dense pool takes them
+    donated scatter), so the window graphs' static inputs keep their
+    addresses. The state rows go in first: the paged prefill writes the
+    arena through the group's block tables, a dense pool takes them
     through ``SlotPool.write_rows``."""
     n = slots.shape[0]
     positions.index_copy_(0, slots, pos_vals.to(positions.dtype))
     cur_tokens.index_copy_(0, slots, first_tokens[:n].reshape(
         (n,) + tuple(cur_tokens.shape[1:])).to(cur_tokens.dtype))
-    return positions, cur_tokens
+
+
+class _Staging:
+    """Host buffers of one window in flight: its mode rows, block table and
+    tokens, pinned on the card so their copies are asynchronous, and the
+    event recorded after the window's token copy. Two alternate: window n
+    reuses window n - 2's, which was read (its event waited on) before
+    window n is staged."""
+
+    def __init__(self, max_window: int, n_slots: int, tok_shape: tuple,
+                 table: int, device):
+        pin = device.type == "cuda"
+        i32 = dict(dtype=torch.int32, pin_memory=pin)
+        self.modes = torch.zeros((max_window, n_slots), **i32)
+        self.table = torch.zeros(table, **i32)
+        self.toks = torch.zeros((max_window,) + tok_shape, **i32)
+        self.event = torch.cuda.Event() if pin else None
 
 
 class _Rows:
@@ -631,8 +659,27 @@ class ContinuousBatchingEngine:
                                           device=self.device)
         self._positions = torch.zeros(n_slots, dtype=torch.int32,
                                       device=self.device)
-        #: (snapshot of (slot, session) pairs, [K, B, 1] device tokens, K,
-        #: dispatch time, telemetry block or None) of the most recently
+        # the window's other static buffers (every window body reads and
+        # writes only these, in place): the mode rows of its ticks, one
+        # block table a width bucket (``_table_buf``) and its tokens
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self._modes_buf = torch.zeros((self.max_window, n_slots), **i32)
+        self._tables: Dict[int, torch.Tensor] = {}
+        self._toks_out = torch.zeros((self.max_window,) + self._tok_shape,
+                                     **i32)
+        self._staging = [
+            _Staging(self.max_window, n_slots, self._tok_shape,
+                     n_slots * self.pool.n_pages if self.paged else 0,
+                     torch.device(self.device))
+            for _ in range(2)] if not host_loop else []
+        self._windows = 0             # windows dispatched (staging parity)
+        #: the window graphs: one device and the fused tail (the serving
+        #: mesh's collectives and the unfused oracle chain stay eager)
+        self.graphs = StepGraphs(self.device)
+        self._graphed = mesh is None and self.fused_tail
+        #: (snapshot of (slot, session) pairs, [K, B, 1] host tokens, K,
+        #: dispatch time, telemetry block or None, the event after which
+        #: the host tokens are there or None) of the most recently
         #: dispatched window, read one window later
         self._inflight: Optional[tuple] = None
         self._mode_pb: Dict[int, int] = {}   # per-mode wire bytes memo
@@ -805,10 +852,10 @@ class ContinuousBatchingEngine:
             # ONE scatter moves every admitted row into its pool slot
             self.pool.write_rows(new_states, slots, plens)
         if not self.host_loop:
-            self._positions, self.cur_tokens = _admit_meta(
-                self._positions, self.cur_tokens,
-                torch.tensor(slots, dtype=torch.long, device=dev),
-                torch.tensor(plens, dtype=torch.int32, device=dev), first_dev)
+            _admit_meta(self._positions, self.cur_tokens,
+                        torch.tensor(slots, dtype=torch.long, device=dev),
+                        torch.tensor(plens, dtype=torch.int32, device=dev),
+                        first_dev)
         for i, (req, slot, mode, budget, cap) in enumerate(group):
             tok = first[i]
             if self.host_loop:
@@ -1055,21 +1102,21 @@ class ContinuousBatchingEngine:
 
         t0 = _now() if self._tel is not None else 0.0
         k = self._window_len()
-        bt = None
+        width = 0
         if self.paged:
             # every row the window writes (pos..pos+k-1 per live slot) gets
-            # its page before dispatch; the table ships as a fresh copy
+            # its page before dispatch; the table ships at its width bucket
             for slot in self.active:
                 self.pool.alloc_pages(slot,
                                       int(self.pool.positions[slot]) + k)
-            bt = self.pool.block_table()
+            width = self.pool.table_width()
         snapshot = sorted(self.active.items())
         modes_k = np.stack([self._choose_modes(self.tick + i, items=snapshot)
                             for i in range(k)])
         if self.mesh is not None:
             self._agree_window(modes_k)
         prev = self._inflight
-        toks_k = self._run_window(modes_k, bt)
+        toks_k, event = self._run_window(modes_k, width)
         tel_blk = None
         if self._tel is not None:
             # the live set is frozen per window: its mask and the window's
@@ -1082,7 +1129,8 @@ class ContinuousBatchingEngine:
         # snapshot BEFORE retirement: these sessions each emit one token
         # per window tick, whose values land at the next materialization
         self._inflight = (snapshot, toks_k, k,
-                          _now() if self._tel is not None else 0.0, tel_blk)
+                          _now() if self._tel is not None else 0.0, tel_blk,
+                          event)
         if self._tel is not None:
             self._tel.complete("window_dispatch", t0, _now() - t0,
                                cat="window", k=k, live=len(snapshot),
@@ -1159,36 +1207,80 @@ class ContinuousBatchingEngine:
                              dtype=torch.int32, device=self.device))
         return self.mesh.exchange(local, self.pool.n_slots)
 
-    def _run_window(self, modes_k: np.ndarray, bt) -> torch.Tensor:
-        """Enqueue K decode ticks on the device: each tick's token (the
-        fused tail's, or with ``fused_tail=False`` the argmax of its
-        logits) feeds the next tick's embed and positions advance on the
-        device; on a serving mesh one token exchange then gives every rank
-        of the scope each slot's tokens from the rank that holds it.
-        Returns the window's [K, B, 1] ([K, B, K_cb, 1] audio) int32 tokens
-        (not read)."""
-        k = modes_k.shape[0]
-        toks_k = None
-        if self.params is not None:
-            modes_dev = torch.from_numpy(modes_k).to(self.device)
-            tok, positions = self.cur_tokens, self._positions
-            outs = []
+    def _table_buf(self, width: int) -> torch.Tensor:
+        """The static device block table of a width bucket."""
+        if width not in self._tables:
+            self._tables[width] = torch.zeros(
+                (self.pool.n_slots, width), dtype=torch.int32,
+                device=self.device)
+        return self._tables[width]
+
+    def _window_body(self, k: int, bt):
+        """The window's K ticks over the static buffers: tick i decodes
+        ``cur_tokens`` (tick 0) or tick i-1's token at ``_positions`` on
+        mode row i, writes its token (the fused tail's, or with
+        ``fused_tail=False`` the argmax of its logits) to row i of
+        ``_toks_out`` and advances the positions, all in place; the last
+        token becomes ``cur_tokens``. The counterpart of the reference's
+        ``_window_scan_body`` under ``lax.scan``."""
+        def body():
+            tok = self.cur_tokens
             for i in range(k):
-                out = self._decode(tok, positions, modes_dev[i], bt,
-                                   self.fused_tail)
+                out = self._decode(tok, self._positions, self._modes_buf[i],
+                                   bt, self.fused_tail)
                 nxt = out if self.fused_tail else torch.argmax(out, dim=-1)
-                tok = nxt.to(torch.int32).reshape(tok.shape)
-                outs.append(tok)
-                positions = positions + 1
-            toks_k = torch.stack(outs)
-        if self.mesh is None:
-            self.cur_tokens, self._positions = tok, positions
-            return toks_k
-        # every rank takes each slot's tokens from the rank that holds it
-        toks_k = self._exchange(toks_k, k)
-        self.cur_tokens = toks_k[-1].clone()
-        self._positions = self._positions + k
-        return toks_k
+                tok = self._toks_out[i]
+                tok.copy_(nxt.reshape(tok.shape))
+                self._positions.add_(1)
+            self.cur_tokens.copy_(tok)
+        return body
+
+    def _run_window(self, modes_k: np.ndarray, width: int):
+        """Enqueue the window's K decode ticks: its mode rows and (paged)
+        its block table copied into their static buffers, then one replay
+        of the window's graph (on one CUDA device; eager ticks on a mesh,
+        with ``fused_tail=False`` and on the CPU); on a serving mesh one
+        token exchange then gives every rank of the scope each slot's
+        tokens from the rank that holds it. The tokens are copied to
+        pinned host memory behind the ticks. Returns (the window's [K, B,
+        1] ([K, B, K_cb, 1] audio) int32 host tokens, there once the event
+        has fired (the event None: there now))."""
+        k = modes_k.shape[0]
+        st = self._staging[self._windows % 2]
+        self._windows += 1
+        if st.event is not None:
+            st.event.synchronize()    # window n - 2: read already
+        if self.params is not None:
+            st.modes[:k].copy_(torch.from_numpy(modes_k))
+            self._modes_buf[:k].copy_(st.modes[:k], non_blocking=True)
+            bt = None
+            if self.paged:
+                n = self.pool.n_slots
+                bt = self._table_buf(width)
+                host = st.table[:n * width].view(n, width)
+                host.copy_(torch.from_numpy(
+                    self.pool.local_table(range(n), width)))
+                bt.copy_(host, non_blocking=True)
+            body = self._window_body(k, bt)
+            if self._graphed:
+                self.graphs.run((k, width, self.fused_tail, self.banked),
+                                body, steps=k)
+            else:
+                body()
+        toks_k = self._toks_out[:k]
+        if self.mesh is not None:
+            # every rank takes each slot's tokens from the rank that holds
+            # it (a rank off the engine group decoded nothing)
+            toks_k = self._exchange(
+                toks_k if self.params is not None else None, k)
+            self.cur_tokens.copy_(toks_k[-1])
+            if self.params is None:
+                self._positions.add_(k)
+        host = st.toks[:k]
+        host.copy_(toks_k, non_blocking=True)
+        if st.event is not None:
+            st.event.record()
+        return host, st.event
 
     def _tel_block(self, modes_k: np.ndarray, active: np.ndarray
                    ) -> np.ndarray:
@@ -1221,9 +1313,11 @@ class ContinuousBatchingEngine:
         ``finished`` (their slots were freed at dispatch). With telemetry
         the window's block folds into ``device_tel`` and the registry
         here, one window late, like the tokens."""
-        snapshot, toks_k, k, t_disp, tel_blk = inflight
+        snapshot, toks_k, k, t_disp, tel_blk, event = inflight
         t_mat = _now() if self._tel is not None else 0.0
-        arr = toks_k.cpu().numpy()                    # [K, B, 1]
+        if event is not None:
+            event.synchronize()       # this window's copy, no later work
+        arr = toks_k.numpy()                          # [K, B, 1]
         if tel_blk is not None:
             wire = int(tel_blk[:, 0].sum())
             slot_ticks = int(tel_blk[:, 1].sum())
@@ -1259,8 +1353,9 @@ class ContinuousBatchingEngine:
     def warm(self, prompt: np.ndarray, gen: int = 2):
         """Run every path a measured run can hit — each power-of-two prefill
         batch bucket up to the slot pool and (device loop) each
-        power-of-two window length up to ``max_window`` — then zero the
-        counters. ``prompt`` should have the measured run's length."""
+        power-of-two window length up to ``max_window``, which captures
+        their window graphs on one CUDA device — then zero the counters.
+        ``prompt`` should have the measured run's length."""
         self._warm_buckets(prompt, gen)
         if not self.host_loop:
             w = 1

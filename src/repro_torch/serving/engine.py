@@ -10,9 +10,16 @@ then decodes with the orchestrator's mode for each token, through the
 fused decode tail, and accounts the bytes that cross the UE -> edge
 boundary.
 
-The decode state lives on the parameters' device and updates in place.
-The steps are eager (the reference jits them), cached per mode; the tokens
-of a decode run stay on the device until it ends.
+The decode state lives on the parameters' device and updates in place
+(``reset`` too, so its tensors keep their addresses). On one device
+``decode_tokens`` runs each token step through one graph per mode
+(``serving/graphs.py``: a CUDA graph on the card, the counterpart of the
+reference's jitted ``_tok_step``; uncaptured on the CPU) over static
+buffers: the token, and the positions as a [B] device tensor that the
+step advances. The host's checks (cache capacity, the mode, the wire
+bytes) stay before each step. The tokens of a decode run stay on the
+device until it ends. ``decode_static`` (the static policies' logits +
+argmax chain, an oracle) and every step on a mesh run eagerly.
 
 ``mesh=`` (a ``models.sharding.serving_mesh``): the batch over dp and the
 layers over mp. Every rank runs the whole batch, as one device does (a
@@ -36,6 +43,7 @@ from repro_torch.core import split as SP
 from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.models import sharding
 from repro_torch.models import transformer as T
+from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.telemetry import Telemetry, block, now as _now
 
 
@@ -98,6 +106,15 @@ class ServingEngine:
         self.batch = batch
         self.orch = orchestrator
         self._steps: Dict[Tuple[Optional[int], bool], Callable] = {}
+        #: the token steps' static buffers: the token fed to the next step
+        #: ([B, 1], [B, K, 1] audio) and the rows' positions
+        self._tok = torch.zeros(
+            (batch,) + ((cfg.n_codebooks, 1) if T.multi_codebook(cfg)
+                        else (1,)), dtype=torch.int32, device=self.device)
+        self._pos = torch.zeros(batch, dtype=torch.int32, device=self.device)
+        #: the token step graphs, one a mode (eager steps on a mesh)
+        self.graphs = StepGraphs(self.device)
+        self.states = None
         self.reset()
 
     def _step(self, mode: Optional[int], return_tokens: bool = False):
@@ -109,9 +126,15 @@ class ServingEngine:
         return self._steps[key]
 
     def reset(self):
-        self.states = T.init_decode_state(
+        fresh = T.init_decode_state(
             self.cfg, self.batch, self.cache_len, device=self.device,
             mp=self.mesh.mp if self.mesh is not None else 1)
+        if self.states is None:
+            self.states = fresh
+        else:                 # in place: the step graphs read these tensors
+            for a, b in zip(T.tree_leaves(self.states),
+                            T.tree_leaves(fresh)):
+                a.copy_(b)
         self.pos = 0
         self.stats = GenStats()
 
@@ -161,7 +184,9 @@ class ServingEngine:
         [B, n_steps] ([B, K, n_steps] audio)."""
         T.check_cache_capacity(self.cfg, self.pos, n_steps, self.cache_len,
                                what="decode")
-        tok = torch.as_tensor(first_token, device=self.device)
+        self._tok.copy_(torch.as_tensor(first_token).reshape(
+            self._tok.shape))
+        self._pos.fill_(self.pos)
         out = []
         t0 = _now()
         for _ in range(n_steps):
@@ -174,8 +199,11 @@ class ServingEngine:
                     self.mesh.agree([mode], "decode mode")
             # argmax is fused into the step's tail; wire bytes are host-side
             # static accounting
-            tok, self.states = self._step(mode, True)(
-                self.params, tok, self.states, self.pos)
+            if self.mesh is None:
+                self.graphs.run(mode, self._tok_body(mode))
+            else:
+                self._tok_body(mode)()
+            tok = self._tok.clone()
             pb = (bottleneck.mode_payload_bytes(self.cfg, tok.shape[0], 1,
                                                 mode)
                   if mode is not None else 0)
@@ -194,6 +222,18 @@ class ServingEngine:
                 self._tel.inc("engine_sync.decode_tokens", tok.numel())
                 t0 = t1
         return self._gather(torch.cat(out, dim=-1)).cpu().numpy()
+
+    def _tok_body(self, mode: Optional[int]):
+        """One token step on ``mode`` over the static buffers: the step
+        ending in the fused tail decodes ``_tok`` at ``_pos``, its token
+        replaces ``_tok`` and the positions advance, in place."""
+        step = self._step(mode, True)
+
+        def body():
+            nxt, _ = step(self.params, self._tok, self.states, self._pos)
+            self._tok.copy_(nxt.reshape(self._tok.shape))
+            self._pos.add_(1)
+        return body
 
     def decode_static(self, first_token, n_steps: int, mode: int
                       ) -> Tuple[np.ndarray, int]:

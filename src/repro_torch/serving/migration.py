@@ -340,11 +340,11 @@ def inject_session(eng: ContinuousBatchingEngine,
     if eng.host_loop:
         eng.cur_tokens[slot] = snap.cur_token
     else:
-        eng._positions, eng.cur_tokens = _admit_meta(
-            eng._positions, eng.cur_tokens,
-            torch.tensor([slot], dtype=torch.long, device=dev),
-            torch.tensor([snap.position], dtype=torch.int32, device=dev),
-            torch.from_numpy(snap.cur_token).to(dev)[None])
+        _admit_meta(eng._positions, eng.cur_tokens,
+                    torch.tensor([slot], dtype=torch.long, device=dev),
+                    torch.tensor([snap.position], dtype=torch.int32,
+                                 device=dev),
+                    torch.from_numpy(snap.cur_token).to(dev)[None])
     sess.slot = slot
     eng.active[slot] = sess
     if eng.orch is not None:
